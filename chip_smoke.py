@@ -9,9 +9,12 @@ Phases, each on its own lines:
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once).
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
-   version, at the main path's flagship shapes (B=64, L=64, c_s 128, c_z 64)
+   version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
-   kernel's, the plain version's and the bound's times.
+   kernel's, the plain version's and the bound's times; the backward kernels
+   at the training shapes (B=32, L=64) and a ragged L, each called twice to
+   show bit-identical gradients, and the forward EdgeTransition (readout
+   off, as in training) timed at B=32.
 3. oracle: the bf16 sampler with the kernels, weights of the trained nb=6
    reference oracle (``tests/golden/sampler_stats_trained6.npz``) loaded
    strict, its 64x24 batch for its 25 steps and 3 seeds pooled; AAR and
@@ -21,6 +24,16 @@ Phases, each on its own lines:
    c_s 128, c_z 64, bf16, kernels on) on B=64, L=64 synthetic complexes
    (48-residue pocket + 12-residue peptide) for 100 steps with seeded random
    weights; peptides/s, the launch counts, and well-formed PDBs.
+5. train: the production profile's training step at B=32 (the config's
+   batch_size), L=64 synthetic batches, seeded weights: launches per step
+   (5 EdgeTransition forward and backward, 1 distance forward and backward),
+   a finite gradient for every parameter, the kernel step's gradients
+   against the same step through the plain versions, 30 Adam steps on one
+   batch and one draw lowering the loss, and ms/step and samples/s over 20
+   timed steps.
+
+The kernels' JSON line gives the forward kernels' launches on the sampler's
+main path and the backward kernels' on one training step.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -39,13 +52,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
-PEAK_BF16_TC = 989e12      # FLOP/s, bf16 tensor cores
-PEAK_FP32 = 67e12          # FLOP/s, fp32 outside the tensor cores
-PEAK_HBM = 3.35e12         # bytes/s
 
 EDGE_TOL = (6e-2, 2e-2)    # (atol, rtol): bf16 output, hidden layers rounded to bf16
 DIST_TOL = (3e-2, 2e-2)    # (atol, rtol): bf16 output of a 2-layer MLP
+# Backward kernels: each gradient within this fraction of the plain
+# gradient's norm. They are sums over every pair of products of bf16-rounded
+# operands; a rounding that flips between kernel and plain version moves one
+# term by one bf16 step, a wrong index or a lost partial moves the whole sum.
+BWD_REL = 1e-2
+# Train step, kernels against plain versions (same rounding points, bf16):
+# per parameter ||dg|| <= STEP_REL ||g|| + STEP_ABS * global norm. Roundings
+# that flip in the pair track move the trunk's inputs by one bf16 step, and
+# gradients reached only through the attention's pair bias are small, so
+# their error has a floor set by the global norm.
+STEP_REL, STEP_ABS = 5e-2, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -100,47 +120,6 @@ def compare(name: str, got, want, tol) -> float:
     return max_abs
 
 
-# ---------------------------------------------------------------- bounds
-def edge_bound_ms(B: int, L: int, cz=64, hid=192, cb=64, n_ro=24):
-    """(ms, bound_by): least time for one EdgeTransition with the readout epilogue.
-    Tensor cores: the bf16 MACs per pair (edge.W1e, W2, W3, edge.W3e,
-    readout) and per residue (node.W1i, node.W1j, node.W3i, node.W3j).
-    fp32 units: per pair the bias adds and ReLUs of both hidden layers, the
-    node terms of layers 1 and 3 and b3, LayerNorm (7 ops a channel), the
-    pair mask and the readout bias. Each input read / output written once."""
-    pairs, nodes = B * L * L, B * L
-    mac_pair = cz * hid + hid * hid + hid * cz + cz * cz + cz * n_ro
-    mac_node = cb * (2 * hid + 2 * cz)
-    t_tc = 2 * (mac_pair * pairs + mac_node * nodes) / PEAK_BF16_TC
-    fp32_pair = 4 * hid + 2 * hid + 3 * cz + 7 * cz + cz + n_ro
-    t_fp32 = fp32_pair * pairs / PEAK_FP32
-    weights = 2 * (hid * hid * 2 + hid * cz + cz * n_ro) + 4 * (2 * hid + 4 * cz + n_ro)
-    nbytes = pairs * (2 * cz + 2 * cz + 2 * n_ro) + nodes * (2 * cb + 4) + weights
-    return _bound(max(t_tc, t_fp32), nbytes)
-
-
-def _bound(t_ops: float, nbytes: float):
-    """(ms, "operations" or "bytes"): the larger of the two least times. `t_ops`
-    is already the larger of the per-unit times, since the units overlap."""
-    t_bytes = nbytes / PEAK_HBM
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def dist_bound_ms(B: int, L: int, f=64, a2=225, n_pair_types=484):
-    """(ms, bound_by): least time for the distance block. Tensor cores: the
-    225->64->64 MLP in bf16. fp32 units: softplus (4 ops incl. exp and
-    log1p) once per table entry, since a coefficient depends on the entry
-    alone; per atom pair d2 (8 ops), the gaussian (2 ops incl. exp) and the
-    masks (2 ops); per pair both bias adds and ReLUs and the pair mask. Each
-    input read / output written once."""
-    pairs, nodes = B * L * L, B * L
-    t_tc = 2 * (a2 * f + f * f) * pairs / PEAK_BF16_TC
-    t_fp32 = (4 * n_pair_types * a2 + (12 * a2 + 4 * f + f + 1) * pairs) / PEAK_FP32
-    nbytes = (nodes * (15 * 3 * 4 + 15 * 4 + 4 + 4) + n_pair_types * a2 * 4
-              + 2 * (a2 * f + f * f) + 8 * f + pairs * f * 2)
-    return _bound(max(t_tc, t_fp32), nbytes)
-
-
 # ---------------------------------------------------------------- phases
 def phase_setup():
     import torch
@@ -183,6 +162,8 @@ def phase_kernels():
     import torch
 
     from pepflowww_torch import native
+    from pepflowww_torch.bounds import (dist_bound_ms, dist_bwd_bound_ms, edge_bound_ms,
+                                        edge_bwd_bound_ms)
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.data.synthetic import make_batch
     from pepflowww_torch.models import cuda_dist, cuda_edge
@@ -242,7 +223,100 @@ def phase_kernels():
         if L == 64:
             rows["distance_embed"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                           bound_by=by)
+    # Kernel B forward with readout off, as the training step runs it.
+    edge, nb, mask, p, _ = _edge_inputs(32, 64, dev, seed=32)
+    ops = cuda_edge.kernel_operands(p)
+    k_ms = cuda_ms(lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, ops=ops))
+    p_ms = cuda_ms(lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16),
+                   reps=5)
+    bound, by = edge_bound_ms(32, 64, n_ro=0)
+    say("kernels", f"edge_transition B=32 L=64 (training shape): kernel {k_ms:.4f} ms, plain "
+                   f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} ({100 * bound / k_ms:.1f}% of bound)")
+
+    # Backward kernels at the training shape and a ragged L.
+    for L in (64, 24):
+        edge, nb, mask, p, _ = _edge_inputs(32, L, dev, seed=100 + L)
+        g = _randn((32, L, L, 64), dev, 200 + L).bfloat16()
+        ops = cuda_edge.kernel_operands(p)
+        tag = f"edge_transition_bwd B=32 L={L}"
+        call = lambda: cuda_edge.edge_transition_bwd(edge, nb, mask, p, g, ops=ops,
+                                                     d_edge_dtype=torch.bfloat16)
+        plain = lambda: cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, torch.bfloat16)
+        got = _launch_once("edge_transition_bwd", call, tag)
+        names = ("d_edge", "d_node") + cuda_edge.PARAM_NAMES
+        flat = lambda r: (r[0], r[1], *(r[2][k] for k in cuda_edge.PARAM_NAMES))
+        err = compare_grads(tag, names, flat(got), flat(plain()), flat(call()))
+        row = _time_row(tag, call, plain, edge_bwd_bound_ms(32, L), err)
+        if L == 64:
+            rows["edge_transition_bwd"] = row
+    for L, (rec, pep) in ((64, (48, 12)), (40, (28, 10))):
+        b = device_batch(make_batch(np.random.default_rng(300 + L), batch_size=32, pep_len=pep,
+                                    rec_len=rec, pad_to=L), dev)
+        p = {"table": _randn((484, 225), dev, L), "k1": _randn((225, 64), dev, L + 1) * 0.07,
+             "b1": _randn((64,), dev, L + 2) * 0.1, "k2": _randn((64, 64), dev, L + 3) * 0.12,
+             "b2": _randn((64,), dev, L + 4) * 0.1}
+        smask = b["mask_heavyatom"][:, :, 1].float() * (~b["generate_mask"]).float()
+        args = (b["pos_heavyatom"] * 0.1, b["mask_heavyatom"].float(), b["aa"], smask)
+        g = _randn((32, L, L, 64), dev, 400 + L).bfloat16()
+        ops = cuda_dist.kernel_operands(p)
+        tag = f"distance_embed_bwd B=32 L={L}"
+        call = lambda: cuda_dist.distance_embed_bwd(*args, p, g, ops=ops)
+        plain = lambda: cuda_dist.distance_embed_bwd_plain(*args, p, g, torch.bfloat16)
+        got = _launch_once("distance_embed_bwd", call, tag)
+        flat = lambda r: tuple(r[k] for k in cuda_dist.PARAM_NAMES)
+        err = compare_grads(tag, cuda_dist.PARAM_NAMES, flat(got), flat(plain()), flat(call()))
+        row = _time_row(tag, call, plain, dist_bwd_bound_ms(32, L), err)
+        if L == 64:
+            rows["distance_embed_bwd"] = row
     return rows
+
+
+def _randn(shape, dev, seed):
+    import torch
+
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def _launch_once(name, call, tag):
+    """One call of a kernel wrapper, synchronized, that must count one launch."""
+    import torch
+
+    from pepflowww_torch import native
+
+    before = native.LAUNCHES[name]
+    out = call()
+    torch.cuda.synchronize()
+    check(native.LAUNCHES[name] == before + 1, f"{tag}: no launch counted")
+    return out
+
+
+def compare_grads(tag, names, got, want, again) -> float:
+    """Each gradient within BWD_REL of the plain gradient's norm and
+    bit-identical across two calls; returns the largest max abs error."""
+    import torch
+
+    worst = 0.0
+    for name, a, b, c in zip(names, got, want, again):
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"{tag} [{name}]: non-finite kernel output")
+        check(torch.equal(a, c.float()), f"{tag} [{name}]: two calls differ")
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        max_abs = float((a - b).abs().max())
+        worst = max(worst, max_abs)
+        say("kernels", f"{tag} [{name}]: max_abs_err={max_abs:.3e} (|plain| max "
+                       f"{float(b.abs().max()):.3e}), ||diff||/||plain|| {rel:.3e} "
+                       f"(tolerance {BWD_REL}), bit-identical across two calls")
+        check(rel <= BWD_REL, f"{tag} [{name}]: kernel disagrees with its plain version")
+    return worst
+
+
+def _time_row(tag, call, plain, bound, err) -> dict:
+    k_ms = cuda_ms(call)
+    p_ms = cuda_ms(plain, reps=3, warmup=1)
+    bound_ms, by = bound
+    say("kernels", f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                   f"by {by} ({100 * bound_ms / k_ms:.1f}% of bound)")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by)
 
 
 def _oracle_stats(out, gen):
@@ -346,6 +420,113 @@ def phase_main(card: str):
     return launches
 
 
+class plain_versions:
+    """Within the block, the EdgeTransition and distance Functions run their
+    plain PyTorch versions on the card (forward and backward, the kernels'
+    rounding points): the reference that the kernel step is held to."""
+
+    def __enter__(self):
+        from pepflowww_torch.models import cuda_dist, cuda_edge
+
+        self.saved = [(cuda_edge, "_forward", cuda_edge._forward),
+                      (cuda_edge, "edge_transition_bwd", cuda_edge.edge_transition_bwd),
+                      (cuda_dist, "_forward", cuda_dist._forward),
+                      (cuda_dist, "distance_embed_bwd", cuda_dist.distance_embed_bwd)]
+        cuda_edge._forward = lambda e, n, m, p, dt, ro=None, ops=None, eps=1e-5: \
+            cuda_edge.edge_transition_plain(e, n, m, p, dt, ro, eps)
+        cuda_edge.edge_transition_bwd = lambda e, n, m, p, g, dt, ops=None, d_edge_dtype=None: \
+            tuple(x.to(d_edge_dtype) if i == 0 else x for i, x in
+                  enumerate(cuda_edge.edge_transition_bwd_plain(e, n, m, p, g, dt)))
+        cuda_dist._forward = lambda pos, am, aa, sm, p, dt, ops=None: \
+            cuda_dist.distance_embed_plain(pos, am, aa, sm, p, dt)
+        cuda_dist.distance_embed_bwd = lambda pos, am, aa, sm, p, g, dt, ops=None: \
+            cuda_dist.distance_embed_bwd_plain(pos, am, aa, sm, p, g, dt)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_train(card: str):
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_train_config
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import loss_and_total, train_step
+
+    dev = torch.device("cuda", 0)
+    _, cfg, _ = load_train_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))
+    tc = cfg["train"]
+    B, weights = int(tc["batch_size"]), dict(tc["loss_weights"])
+    model = production_model(dev).train()
+    batch, _ = main_path_batch(dev, B, seed=7)
+    noise = draw_noise(B, 64, torch.Generator(device=dev).manual_seed(8), dev)
+
+    def grads_of_one_backward():
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_and_total(model, batch, weights, noise=noise)
+        total.backward()
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    grads_of_one_backward()   # warm-up: kernel operands, allocator
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    got = grads_of_one_backward()
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    want = {"edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+            "distance_embed_bwd": 1}
+    say("train", f"B={B} L=64 bf16 kernels on: launches per step {launches}")
+    check(launches == want, f"train step launched {launches}, expected {want}")
+    missing = [n for n, g in got.items() if g is None or not bool(torch.isfinite(g).all())]
+    check(not missing, f"train step: parameters without a finite gradient: {missing}")
+    say("train", f"all {len(got)} parameters have a finite gradient after one backward")
+
+    got = {n: g.clone() for n, g in got.items()}
+    with plain_versions():
+        want_g = grads_of_one_backward()
+    G = float(torch.stack([g.norm() for g in want_g.values()]).norm())
+    worst_name, worst = "", 0.0
+    for n, g in got.items():
+        err, ref = float((g - want_g[n]).norm()), float(want_g[n].norm())
+        excess = err / (STEP_REL * ref + STEP_ABS * G)
+        if excess > worst:
+            worst_name, worst = n, excess
+        check(excess <= 1.0, f"train step: {n} kernel gradient off the plain one: "
+                             f"||dg|| {err:.3e}, ||g|| {ref:.3e}, global {G:.3e}")
+    rel_all = float(torch.stack([(got[n] - want_g[n]).norm() for n in got]).norm()) / G
+    say("train", f"kernel step vs plain step gradients: global ||dg||/||g|| {rel_all:.3e}; every "
+                 f"parameter within {STEP_REL} ||g|| + {STEP_ABS} x global ({G:.3e}); closest "
+                 f"to its limit {worst_name} at {worst:.3f} of it")
+
+    optimizer = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    losses = [float(train_step(model, optimizer, batch, weights, noise=noise)["loss"])
+              for _ in range(30)]
+    say("train", f"30 Adam steps on one batch and one draw: loss {losses[0]:.4f} -> "
+                 f"{losses[-1]:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], "train: loss did not decrease")
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for _ in range(3):
+        train_step(model, optimizer, batch, weights, gen)
+    steps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = train_step(model, optimizer, batch, weights, gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    check(np.isfinite(float(m["loss"])), "train: non-finite loss in the timed steps")
+    say("train", f"B={B} L=64 bf16 kernels on: {ms:.3f} ms/step, {1e3 * B / ms:.3f} samples/s "
+                 f"over {steps} steps on {card}")
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "pepflowww_torch")):
         print("pepflowww_torch/ is not beside chip_smoke.py: run it from a checkout",
@@ -365,11 +546,18 @@ def main():
     rows = phase_kernels()
     phase_oracle()
     launches = phase_main(card)
+    train_launches = phase_train(card)
+    for name in ("edge_transition_bwd", "distance_embed_bwd"):
+        launches[name] = train_launches[name]
 
     meta = {"edge_transition": ("pepflowww_torch/csrc/edge_transition.cu",
                                 "pepflowww_tpu/models/pallas_edge.py:160"),
             "distance_embed": ("pepflowww_torch/csrc/distance_embed.cu",
-                               "pepflowww_tpu/models/pallas_dist.py:101")}
+                               "pepflowww_tpu/models/pallas_dist.py:101"),
+            "edge_transition_bwd": ("pepflowww_torch/csrc/edge_transition_bwd.cu",
+                                    "pepflowww_tpu/models/pallas_edge_bwd.py:148"),
+            "distance_embed_bwd": ("pepflowww_torch/csrc/distance_embed_bwd.cu",
+                                   "pepflowww_tpu/models/pallas_dist.py:279")}
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

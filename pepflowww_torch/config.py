@@ -1,17 +1,36 @@
-"""YAML config loader for ``configs/learn_angle*.yaml`` (the ``model``
-section), key-compatible with the reference's learn_angle.yaml.
+"""YAML config loader for ``configs/learn_angle*.yaml``, key-compatible
+with the reference's learn_angle.yaml: the ``model`` section as typed
+dataclasses, the ``train`` section (loss weights, optimizer, scheduler,
+batch size, seed, clip, accumulation) as a dict over the defaults.
 
 ``ipa.dtype: bfloat16`` selects bf16 matmuls; ``ipa.use_pallas: true``
 selects this package's hand-written CUDA kernels (the fused EdgeTransition
-and the distance embedding).
+and the distance embedding, forward and backward).
 """
 
 from __future__ import annotations
+
+import copy
+import os
 
 import yaml
 
 from pepflowww_torch.models.flow import FlowModelConfig, InterpolantConfig
 from pepflowww_torch.models.trunk import IPAConfig
+
+
+DEFAULT_TRAIN = {
+    "loss_weights": {"trans_loss": 0.5, "rot_loss": 0.5, "bb_atom_loss": 0.25,
+                     "seqs_loss": 1.0, "angle_loss": 1.0, "torsion_loss": 0.5},
+    "max_iters": 400_000_000,
+    "val_freq": 20_000,
+    "batch_size": 32,
+    "accum_grad": 1,
+    "seed": 114514,
+    "max_grad_norm": 100.0,
+    "optimizer": {"type": "adam", "lr": 5e-4, "weight_decay": 0.0, "beta1": 0.9, "beta2": 0.999},
+    "scheduler": {"type": "plateau", "factor": 0.8, "patience": 10, "min_lr": 5e-6},
+}
 
 
 def model_config_from_dict(m: dict) -> FlowModelConfig:
@@ -52,3 +71,20 @@ def load_config(path: str) -> FlowModelConfig:
     with open(path) as f:
         raw = yaml.safe_load(f) or {}
     return model_config_from_dict(raw.get("model", {}))
+
+
+def _deep_update(base: dict, upd: dict) -> dict:
+    out = copy.deepcopy(base)
+    for k, v in (upd or {}).items():
+        out[k] = _deep_update(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
+def load_train_config(path: str):
+    """(model config, the whole YAML as a dict with ``train`` filled from
+    :data:`DEFAULT_TRAIN`, the config's name)."""
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    raw["train"] = _deep_update(DEFAULT_TRAIN, raw.get("train", {}))
+    return (model_config_from_dict(raw.get("model", {})), raw,
+            os.path.splitext(os.path.basename(path))[0])

@@ -5,8 +5,9 @@ chi-angle definitions and the AF2-style rigid-group tables. The numeric tables
 live in ``ops/_tables.npz`` (the package's own copy); they are chemical facts,
 snapshotted once from the reference PepFlow table builders.
 
-Only what the sampler, the full-atom rebuild and the PDB writer read is kept
-here. All tables are numpy arrays; ops move them to the device they need.
+Only what the sampler, the training objective, the full-atom rebuild and
+the PDB writer read is kept here. All tables are numpy arrays; ops move them
+to the device they need.
 """
 
 from __future__ import annotations
@@ -70,3 +71,9 @@ RIGID_GROUP_TRANSLATION: np.ndarray = _T["rigid_group_translation"]
 HEAVYATOM_TO_RIGID_GROUP: np.ndarray = _T["heavyatom_to_rigid_group"].astype(np.int64)
 #: (21, 14, 3) — idealized atom coordinates within their rigid group
 HEAVYATOM_RIGID_GROUP_POSITIONS: np.ndarray = _T["heavyatom_rigid_group_positions"]
+
+#: (3, 3) float32 — N, CA, C of the idealized ALA backbone in its backbone
+#: frame (AF2 atom14 rigid-group positions, group 0), for the backbone-atom
+#: loss
+BB3_IDEAL_COORDS: np.ndarray = np.array(
+    [[-0.525, 1.363, 0.0], [0.0, 0.0, 0.0], [1.526, 0.0, 0.0]], dtype=np.float32)

@@ -1,5 +1,6 @@
-"""EdgeEmbedder distance block: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of the JAX package's ``models/pallas_dist.py``).
+"""EdgeEmbedder distance block: the CUDA kernels' wrappers, their plain
+PyTorch versions and the autograd Function that joins them (counterpart of
+the JAX package's ``models/pallas_dist.py``).
 
 Inputs: heavy-atom positions in nm ``pos_nm`` (B, L, 15, 3), their mask
 (B, L, 15), residue tokens ``aa`` (B, L) (after the sequence mask; the
@@ -8,8 +9,13 @@ structure mask ``smask`` (B, L), whose outer product masks the output.
 ``p`` holds table (484, 225), k1 (225, F), b1, k2 (F, F), b2 ([in, out]).
 Returns (B, L, L, F) in `dtype`.
 
+The backward (:func:`distance_embed_bwd`) returns the parameter gradients
+only (table, k1, b1, k2, b2): positions, masks and tokens are data.
+:class:`DistanceEmbedFn` runs the forward and that backward under autograd;
+the bare forward wrapper has no autograd and raises when asked to record one.
+
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-(csrc/distance_embed.cu) or raises.
+(csrc/distance_embed.cu, csrc/distance_embed_bwd.cu) or raises.
 """
 
 from __future__ import annotations
@@ -23,8 +29,12 @@ import torch.nn.functional as F
 from pepflowww_torch import native
 
 A, AA2, KP, NF, NAA = 15, 225, 240, 64, 22
+PARAM_NAMES = ("table", "k1", "b1", "k2", "b2")
 # distance_embed_forward: 10 pointers, B, L, stream.
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+# distance_embed_backward: 18 pointers, B, L, grid, stream.
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+BWD_KP = 256         # k1's rows padded for the backward's 16x16 tiles of x^T
 
 
 def distance_embed_plain(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16):
@@ -58,9 +68,16 @@ def kernel_operands(p: dict) -> dict:
 
 def fused_distance_embed(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16,
                          ops: Optional[dict] = None):
-    """Distance block forward. CPU tensors run :func:`distance_embed_plain`;
-    CUDA tensors run the bf16 kernel (F = 64 only) or raise. ``ops`` may
-    carry :func:`kernel_operands` made once."""
+    """Distance block forward, without autograd: it raises if grad mode is
+    on and a parameter requires grad (use :class:`DistanceEmbedFn` to
+    train). CPU tensors run :func:`distance_embed_plain`; CUDA tensors run
+    the bf16 kernel (F = 64 only) or raise. ``ops`` may carry
+    :func:`kernel_operands` made once."""
+    native.refuse_autograd("fused_distance_embed", [pos_nm, *p.values()])
+    return _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops)
+
+
+def _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops=None):
     if pos_nm.device.type == "cpu":
         return distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype)
     if dtype != torch.bfloat16:
@@ -89,3 +106,115 @@ def fused_distance_embed(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfl
     native.check(rc, "distance_embed")
     native.LAUNCHES["distance_embed"] += 1
     return out
+
+
+# ---------------------------------------------------------------- backward
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.to(dtype).float()
+
+
+def distance_embed_bwd_plain(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bfloat16):
+    """The backward kernel's arithmetic in plain PyTorch: the forward of
+    :func:`distance_embed_plain` recomputed, then da2, da1 rounded to
+    `dtype` before their products, float32 sums, and
+    dcoef = dx · mask · e · (−d²) · sigmoid(coef) in float32 summed into the
+    coefficient rows. Returns {name: float32 grad} for table, k1, b1, k2, b2."""
+    B, L = aa.shape
+    pos = pos_nm.float()
+    d2 = ((pos[:, :, None, :, None] - pos[:, None, :, None, :]) ** 2).sum(-1).reshape(B, L, L, AA2)
+    aa = aa.long()
+    idx = aa[:, :, None] * NAA + aa[:, None, :]
+    coef = p["table"].float()[idx]
+    e = torch.exp(-F.softplus(coef) * d2)
+    m = mask_atoms.float()
+    mp = (m[:, :, None, :, None] * m[:, None, :, None, :]).reshape(B, L, L, AA2)
+    x = _round(e * mp, dtype)
+    k1, k2 = _round(p["k1"], dtype), _round(p["k2"], dtype)
+    a1 = x @ k1 + p["b1"].float()
+    hc = _round(torch.relu(a1), dtype)
+    a2 = hc @ k2 + p["b2"].float()
+    s = smask.float()
+    do = g.float() * (s[:, :, None] * s[:, None, :])[..., None]
+    da2 = do * (a2 > 0)
+    da2c = _round(da2, dtype)
+    da1 = (da2c @ k2.t()) * (a1 > 0)
+    da1c = _round(da1, dtype)
+    dx = da1c @ k1.t()
+    dcoef = dx * mp * e * (-d2) * torch.sigmoid(coef)
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    d_table = torch.zeros(NAA * NAA, AA2, dtype=torch.float32, device=pos.device)
+    d_table.index_add_(0, idx.reshape(-1), flat(dcoef))
+    return {"table": d_table, "k1": flat(x).t() @ flat(da1c), "b1": flat(da1).sum(0),
+            "k2": flat(hc).t() @ flat(da2c), "b2": flat(da2).sum(0)}
+
+
+def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bfloat16,
+                       ops: Optional[dict] = None):
+    """Parameter gradients of the distance block for the cotangent `g` of
+    its output: {table, k1, b1, k2, b2}, float32. CPU tensors run
+    :func:`distance_embed_bwd_plain`; CUDA tensors run the bf16 backward
+    kernel or raise. Two calls on the same inputs give bit-identical
+    results (per-block partials added in a fixed order, no atomics)."""
+    if pos_nm.device.type == "cpu":
+        return distance_embed_bwd_plain(pos_nm, mask_atoms, aa, smask, p, g, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the distance backward kernel computes in bfloat16, not {dtype}")
+    if ops is None:
+        ops = kernel_operands(p)
+    B, L = aa.shape
+    f32, bf = torch.float32, torch.bfloat16
+    dev = pos_nm.device
+    pos = pos_nm.to(f32).contiguous()
+    amask = mask_atoms.to(f32).contiguous()
+    aa32 = aa.to(torch.int32).contiguous()
+    sm = smask.to(f32).contiguous()
+    gg = g.to(bf).contiguous()
+    native.check_tensor(pos, "pos_nm", (B, L, A, 3), f32)
+    native.check_tensor(amask, "mask_atoms", (B, L, A), f32)
+    native.check_tensor(aa32, "aa", (B, L), torch.int32)
+    native.check_tensor(sm, "smask", (B, L), f32)
+    native.check_tensor(gg, "g", (B, L, L, NF), bf)
+    native.check_tensor(ops["table"], "table", (NAA * NAA, AA2), f32)
+    native.check_tensor(ops["k1"], "k1", (KP, NF), bf)
+    native.check_tensor(ops["k2"], "k2", (NF, NF), bf)
+    native.check_tensor(ops["b1"], "b1", (NF,), f32)
+    native.check_tensor(ops["b2"], "b2", (NF,), f32)
+    grid = min(native.sm_count(dev), B * L)
+    empty = lambda *s: torch.empty(*s, dtype=f32, device=dev)
+    scratch = [empty(2, NAA * NAA, AA2), empty(B * L, NAA, AA2),
+               empty(grid, BWD_KP * NF + NF * NF + 2 * NF)]
+    grads = {"table": empty(NAA * NAA, AA2), "k1": empty(AA2, NF), "b1": empty(NF),
+             "k2": empty(NF, NF), "b2": empty(NF)}
+    fn = native.function("distance_embed_bwd", "distance_embed_backward", _BWD_ARGTYPES)
+    ins = [pos, amask, aa32, sm, gg] + [ops[k] for k in PARAM_NAMES]
+    outs = scratch + [grads[k] for k in PARAM_NAMES]
+    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "distance_embed_bwd")
+    native.LAUNCHES["distance_embed_bwd"] += 1
+    return grads
+
+
+class DistanceEmbedFn(torch.autograd.Function):
+    """The distance block under autograd, the counterpart of
+    ``fused_distance_embed_vjp``: the forward runs the forward kernel and
+    saves only its inputs; the backward runs the backward kernel and returns
+    gradients for the parameters only (positions, masks and tokens are
+    data). On the CPU both directions take their plain versions.
+
+    apply(pos_nm, mask_atoms, aa, smask, table, k1, b1, k2, b2, dtype, ops)"""
+
+    @staticmethod
+    def forward(ctx, pos_nm, mask_atoms, aa, smask, *rest):
+        params, (dtype, ops) = rest[:5], rest[5:]
+        ctx.save_for_backward(pos_nm, mask_atoms, aa, smask, *params)
+        ctx.dtype, ctx.ops = dtype, ops
+        return _forward(pos_nm, mask_atoms, aa, smask, dict(zip(PARAM_NAMES, params)), dtype, ops)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos_nm, mask_atoms, aa, smask, *params = ctx.saved_tensors
+        grads = distance_embed_bwd(pos_nm, mask_atoms, aa, smask, dict(zip(PARAM_NAMES, params)),
+                                   g, ctx.dtype, ops=ctx.ops)
+        return (None, None, None, None,
+                *(grads[k].to(prm.dtype) for k, prm in zip(PARAM_NAMES, params)), None, None)

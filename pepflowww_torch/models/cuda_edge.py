@@ -1,5 +1,6 @@
-"""Fused EdgeTransition forward: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of the JAX package's ``models/pallas_edge.py``).
+"""Fused EdgeTransition: the CUDA kernels' wrappers, their plain PyTorch
+versions and the autograd Function that joins them (counterpart of the JAX
+package's ``models/pallas_edge.py`` and ``models/pallas_edge_bwd.py``).
 
 The function takes the EdgeTransition after its initial node Linear:
 ``edge`` (B, L, L, 64), ``node_bias`` (B, L, 64) and the node mask (B, L);
@@ -9,8 +10,14 @@ ln_scale, ln_bias. With ``readout=(kb, bb, kdz, bdz)`` (the NEXT IPA
 block's linear_b (64, H) and down_z (64, c_z/4), [in, out]) it also returns
 that block's pair readouts, transposed: b (B, H, L, L) and pz (B, c_z/4, L, L).
 
+The backward (:func:`edge_transition_bwd`) takes the same inputs and the
+output's cotangent ``g`` and returns d_edge, d_node_bias and the eight
+parameter gradients, recomputing both hidden layers. :class:`EdgeTransitionFn`
+runs the forward (readout off) and that backward under autograd; the bare
+forward wrapper has no autograd and raises when asked to record one.
+
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-(csrc/edge_transition.cu) or raises.
+(csrc/edge_transition.cu, csrc/edge_transition_bwd.cu) or raises.
 """
 
 from __future__ import annotations
@@ -24,8 +31,14 @@ import torch.nn.functional as F
 from pepflowww_torch import native
 
 CZ, HID, RO = 64, 192, 32
+PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
 # edge_transition_forward: 17 pointers, B, L, n_b, n_pz, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_backward: 31 pointers, B, L, grid, nchunk, d_edge_f32, eps, stream.
+_BWD_ARGTYPES = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+BWD_NCHUNK = 32      # pair chunks of the weight-gradient products (partials summed in order)
+BWD_TM = 32          # pair rows per tile of the backward kernel
+VEC = 2 * HID + 3 * CZ   # per-block partial: d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
 
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -92,10 +105,18 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None) -> dict:
 def fused_edge_transition(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
                           readout: Optional[tuple] = None, ops: Optional[dict] = None,
                           eps: float = 1e-5):
-    """EdgeTransition forward (readout optional). CPU tensors run
+    """EdgeTransition forward (readout optional), without autograd: it raises
+    if grad mode is on and an input requires grad (use
+    :class:`EdgeTransitionFn` to train). CPU tensors run
     :func:`edge_transition_plain`; CUDA tensors run the bf16 kernel, which
     takes only c_z = 64, a 64-wide node bias and hidden width 192, and raises
     on anything else. ``ops`` may carry :func:`kernel_operands` made once."""
+    native.refuse_autograd("fused_edge_transition",
+                           [edge, node_bias, *p.values(), *(readout if readout is not None else ())])
+    return _forward(edge, node_bias, node_mask, p, dtype, readout, ops, eps)
+
+
+def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1e-5):
     if edge.device.type == "cpu":
         return edge_transition_plain(edge, node_bias, node_mask, p, dtype, readout, eps)
     if dtype != torch.bfloat16:
@@ -139,3 +160,139 @@ def fused_edge_transition(edge, node_bias, node_mask, p: dict, dtype=torch.bfloa
     if readout is None:
         return out
     return out, b_out, pz_out
+
+
+# ---------------------------------------------------------------- backward
+def edge_transition_bwd_plain(edge, node_bias, node_mask, p: dict, g, dtype=torch.bfloat16,
+                              eps: float = 1e-5):
+    """The backward kernel's arithmetic in plain PyTorch, at the JAX
+    kernel's rounding points (``pallas_edge_bwd._bwd_kernel``): the forward
+    is recomputed with `dtype` GEMM operands, the residual r = h2 + [e |
+    n_i | n_j] rounded as a whole before the last product, and do, da2, da1
+    rounded to `dtype` before theirs; LayerNorm statistics and every sum are
+    float32. Returns (d_edge, d_node_bias, {name: grad}), all float32."""
+    cz, cb = edge.shape[-1], node_bias.shape[-1]
+    B, L = edge.shape[:2]
+    e = _round(edge, dtype)
+    n = _round(node_bias, dtype)
+    k1, k2, k3 = (_round(p[k], dtype) for k in ("k1", "k2", "k3"))
+    x = torch.cat([e, n[:, :, None].expand(B, L, L, cb), n[:, None].expand(B, L, L, cb)], -1)
+    a1 = x @ k1 + p["b1"].float()
+    h1c = _round(torch.relu(a1), dtype)
+    a2 = h1c @ k2 + p["b2"].float()
+    rc = _round(torch.relu(a2) + x, dtype)
+    o = rc @ k3 + p["b3"].float()
+    mu = o.mean(-1, keepdim=True)
+    inv = torch.rsqrt((o - mu).square().mean(-1, keepdim=True) + eps)
+    y = (o - mu) * inv
+    m = node_mask.float()
+    g_out = g.float() * (m[:, :, None] * m[:, None, :])[..., None]
+    dy = g_out * p["ln_scale"].float()
+    do = (dy - dy.mean(-1, keepdim=True) - y * (dy * y).mean(-1, keepdim=True)) * inv
+    doc = _round(do, dtype)
+    dr = doc @ k3.t()
+    da2 = dr * (a2 > 0)
+    da2c = _round(da2, dtype)
+    da1 = (da2c @ k2.t()) * (a1 > 0)
+    da1c = _round(da1, dtype)
+    dx = da1c @ k1.t() + dr
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    grads = {"k1": flat(x).t() @ flat(da1c), "b1": flat(da1).sum(0),
+             "k2": flat(h1c).t() @ flat(da2c), "b2": flat(da2).sum(0),
+             "k3": flat(rc).t() @ flat(doc), "b3": flat(do).sum(0),
+             "ln_scale": flat(g_out * y).sum(0), "ln_bias": flat(g_out).sum(0)}
+    d_node = dx[..., cz:cz + cb].sum(2) + dx[..., cz + cb:].sum(1)
+    return dx[..., :cz], d_node, grads
+
+
+def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bfloat16,
+                        ops: Optional[dict] = None, eps: float = 1e-5, d_edge_dtype=None):
+    """Gradients of the EdgeTransition (readout off) with respect to edge,
+    node_bias and the parameters, for the cotangent `g` of its output.
+    CPU tensors run :func:`edge_transition_bwd_plain`; CUDA tensors run the
+    bf16 backward kernel or raise. Returns (d_edge in `d_edge_dtype`
+    (bfloat16 or float32; float32 by default), d_node_bias float32,
+    {name: float32 grad}). Two calls on the same inputs give bit-identical
+    results: cross-block sums go through per-block partials added in a
+    fixed order, not atomics."""
+    if edge.device.type == "cpu":
+        d_edge, d_node, grads = edge_transition_bwd_plain(edge, node_bias, node_mask, p, g,
+                                                          dtype, eps)
+        return d_edge.to(d_edge_dtype or torch.float32), d_node, grads
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the EdgeTransition backward kernel computes in bfloat16, not {dtype}")
+    B, L = edge.shape[:2]
+    if ops is None:
+        ops = kernel_operands(p)
+    bf, f32 = torch.bfloat16, torch.float32
+    d_edge_dtype = d_edge_dtype or f32
+    if d_edge_dtype not in (bf, f32):
+        raise ValueError(f"d_edge is written as bfloat16 or float32, not {d_edge_dtype}")
+    dev = edge.device
+    e = edge.to(bf).contiguous()
+    nb = node_bias.to(bf).contiguous()
+    gg = g.to(bf).contiguous()
+    mask = node_mask.to(f32).contiguous()
+    native.check_tensor(e, "edge", (B, L, L, CZ), bf)
+    native.check_tensor(nb, "node_bias", (B, L, CZ), bf)
+    native.check_tensor(gg, "g", (B, L, L, CZ), bf)
+    native.check_tensor(mask, "node_mask", (B, L), f32)
+    native.check_tensor(ops["k1"], "k1", (HID, HID), bf)
+    native.check_tensor(ops["k2"], "k2", (HID, HID), bf)
+    native.check_tensor(ops["k3"], "k3", (HID, CZ), bf)
+    for k, n in (("b1", HID), ("b2", HID), ("b3", CZ), ("ln_scale", CZ), ("ln_bias", CZ)):
+        native.check_tensor(ops[k], k, (n,), f32)
+
+    pairs = B * L * L
+    grid = min(native.sm_count(dev), (pairs + BWD_TM - 1) // BWD_TM)
+    empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
+    scratch = {"P": empty(B * L, 512), "H1": empty(pairs, HID, dt=bf), "R": empty(pairs, HID, dt=bf),
+               "DA1": empty(pairs, HID, dt=bf), "DA2": empty(pairs, HID, dt=bf),
+               "DO": empty(pairs, CZ, dt=bf), "vpart": empty(grid, VEC),
+               "wpart": empty(BWD_NCHUNK, CZ * HID + HID * HID + HID * CZ),
+               "nsum": empty(B * L, 2 * HID + 2 * CZ)}
+    d_edge = empty(B, L, L, CZ, dt=d_edge_dtype)
+    d_node = empty(B, L, CZ)
+    grads = {"k1": empty(HID, HID), "b1": empty(HID), "k2": empty(HID, HID), "b2": empty(HID),
+             "k3": empty(HID, CZ), "b3": empty(CZ), "ln_scale": empty(CZ), "ln_bias": empty(CZ)}
+    fn = native.function("edge_transition_bwd", "edge_transition_backward", _BWD_ARGTYPES)
+    ins = [e, nb, mask, gg] + [ops[k] for k in PARAM_NAMES]
+    outs = list(scratch.values()) + [d_edge, d_node] + [grads[k] for k in PARAM_NAMES]
+    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid, BWD_NCHUNK,
+            int(d_edge_dtype == f32), eps, torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "edge_transition_bwd")
+    native.LAUNCHES["edge_transition_bwd"] += 1
+    return d_edge, d_node, grads
+
+
+class EdgeTransitionFn(torch.autograd.Function):
+    """EdgeTransition (readout off) under autograd, the counterpart of
+    ``fused_edge_transition_vjp``: the forward runs the forward kernel and
+    saves only its inputs; the backward runs the backward kernel and returns
+    d_edge (in edge's dtype), d_node_bias (in node_bias's dtype) and the
+    eight parameter gradients (float32). The parameters are inputs, so their
+    ``.grad`` fills; ``ops`` are only the kernels' bf16 copies of them. On
+    the CPU both directions take their plain versions.
+
+    apply(edge, node_bias, node_mask, k1, b1, k2, b2, k3, b3, ln_scale,
+    ln_bias, dtype, ops)"""
+
+    @staticmethod
+    def forward(ctx, edge, node_bias, node_mask, *rest):
+        params, (dtype, ops) = rest[:8], rest[8:]
+        p = dict(zip(PARAM_NAMES, params))
+        ctx.save_for_backward(edge, node_bias, node_mask, *params)
+        ctx.dtype, ctx.ops = dtype, ops
+        if edge.device.type == "cuda":
+            edge, node_bias = edge.to(dtype).contiguous(), node_bias.to(dtype).contiguous()
+        return _forward(edge, node_bias, node_mask, p, dtype, None, ops)
+
+    @staticmethod
+    def backward(ctx, g):
+        edge, node_bias, node_mask, *params = ctx.saved_tensors
+        p = dict(zip(PARAM_NAMES, params))
+        d_edge, d_node, grads = edge_transition_bwd(edge, node_bias, node_mask, p, g.contiguous(),
+                                                    ctx.dtype, ops=ctx.ops,
+                                                    d_edge_dtype=edge.dtype)
+        return (d_edge.to(edge.dtype), d_node.to(node_bias.dtype), None,
+                *(grads[k].to(prm.dtype) for k, prm in zip(PARAM_NAMES, params)), None, None)

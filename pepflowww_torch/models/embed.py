@@ -72,7 +72,8 @@ class NodeEmbedder(nn.Module):
 
 class EdgeEmbedder(nn.Module):
     """Pair features -> (B, L, L, feat_dim). With ``use_kernels`` the
-    distance block runs :func:`cuda_dist.fused_distance_embed`."""
+    distance block runs :class:`cuda_dist.DistanceEmbedFn` (forward and
+    backward kernels under autograd)."""
 
     def __init__(self, feat_dim: int, dtype: Optional[torch.dtype] = None,
                  use_kernels: bool = False, max_num_atoms: int = C.MAX_NUM_HEAVYATOMS,
@@ -124,8 +125,8 @@ class EdgeEmbedder(nn.Module):
             ops = None
             if pos_nm.device.type == "cuda":
                 ops = cached_operands(self, list(p.values()), lambda: cuda_dist.kernel_operands(p))
-            feat_dist = cuda_dist.fused_distance_embed(pos_nm, mask_atoms, aa, smask, p,
-                                                       dtype=dt, ops=ops)
+            feat_dist = cuda_dist.DistanceEmbedFn.apply(pos_nm, mask_atoms, aa, smask,
+                                                        *p.values(), dt, ops)
         else:
             feat_dist = cuda_dist.distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype=dt)
         feat_dist = feat_dist.float()

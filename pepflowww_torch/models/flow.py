@@ -2,9 +2,16 @@
 (counterpart of the JAX package's ``models/flow.py``).
 
 ``encode`` builds the backbone frames and node/edge features of a batch
-once; ``denoise`` is one GAEncoder pass predicting the clean sample. The
-training objective comes with the training slice; the Euler sampler lives in
-:mod:`pepflowww_torch.sampling`.
+once; ``denoise`` is one GAEncoder pass predicting the clean sample;
+``loss`` is the training objective (``loss_pre`` → ``denoise`` →
+``loss_post``). The Euler sampler lives in :mod:`pepflowww_torch.sampling`.
+
+The objective's randomness comes from :func:`draw_noise`, in the JAX
+package's order of draws (t, trans_0, rotmats_0, angles_0, seqs_0, the
+seqs_t sample, the prediction sample), from an explicit ``torch.Generator``
+or handed in whole, so a test can feed the JAX step's own draws. The two
+categorical samples are Gumbel-max draws, argmax(log(p + 1e-8) + gumbel),
+which is how ``jax.random.categorical`` samples.
 """
 
 from __future__ import annotations
@@ -21,7 +28,11 @@ from pepflowww_torch.models.embed import EdgeEmbedder, NodeEmbedder
 from pepflowww_torch.models.ipa import InvariantPointAttention, TransformerEncoderLayer
 from pepflowww_torch.models.layers import Linear, init_linear
 from pepflowww_torch.models.trunk import GAEncoder, IPAConfig
+from pepflowww_torch.ops import allatom, simplex, so3, torus
 from pepflowww_torch.ops.frames import construct_3d_basis
+
+LOSS_NAMES = ("trans_loss", "rot_loss", "bb_atom_loss", "seqs_loss", "angle_loss",
+              "torsion_loss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +103,132 @@ class FlowModel(nn.Module):
         center = (pos * g).sum(1) / (gen_mask.to(pos.dtype).sum(-1, keepdim=True) + 1e-8)
         pos = pos - center[:, None, :]
         return pos * res_mask[..., None].to(pos.dtype), center[:, None, :]
+
+    # ------------------------------------------------------------ objective
+    def loss_pre(self, batch: dict, generator=None, noise=None) -> dict:
+        """Encode, sample t and corrupt every modality (no gradient through
+        the corruption). ``noise`` is :func:`draw_noise`'s dict; without it
+        the draws come from `generator`. Returns the denoiser inputs, the
+        loss targets and the prediction sample's noise."""
+        icfg = self.cfg.interpolant
+        k, K = icfg.simplex_value, icfg.num_classes
+        B, L = batch["aa"].shape
+        gen_mask = batch["generate_mask"].float()
+        res_mask = batch["res_mask"].float()
+        gm = batch["generate_mask"].bool()
+        rotmats_1, trans_1, angles_1, seqs_1, node_embed, edge_embed = self.encode(batch)
+        # Data are centered on the peptide at preprocessing: trans_1 is used as is.
+        seqs_1_simplex = simplex.seq_to_simplex(seqs_1, k, K)
+        if noise is None:
+            noise = draw_noise(B, L, generator, batch["aa"].device, K)
+        t = noise["t"] * (1 - 2 * icfg.min_t) + icfg.min_t
+
+        with torch.no_grad():
+            if icfg.sample_structure:
+                trans_0, _ = self.zero_center_part(noise["trans_0"] * icfg.trans_sigma,
+                                                   gen_mask, res_mask)
+                trans_t = (1 - t[..., None]) * trans_0 + t[..., None] * trans_1
+                trans_t = torch.where(gm[..., None], trans_t, trans_1)
+                rotmats_t = so3.geodesic_t(t[..., None], rotmats_1, noise["rotmats_0"])
+                rotmats_t = torch.where(gm[..., None, None], rotmats_t, rotmats_1)
+                angles_t = torus.geodesic_t(t[..., None], angles_1, noise["angles_0"])
+                angles_t = torch.where(gm[..., None], angles_t, angles_1)
+            else:
+                trans_t, rotmats_t, angles_t = trans_1, rotmats_1, angles_1
+            if icfg.sample_sequence:
+                seqs_t_simplex = (1 - t[..., None]) * (k * noise["seqs_0"]) \
+                    + t[..., None] * seqs_1_simplex
+                seqs_t_simplex = torch.where(gm[..., None], seqs_t_simplex, seqs_1_simplex)
+                seqs_t = gumbel_sample(torch.softmax(seqs_t_simplex, -1), noise["gumbel_seqs_t"])
+                seqs_t = torch.where(gm, seqs_t, seqs_1)
+            else:
+                seqs_t = seqs_1
+        return {"t": t, "rotmats_t": rotmats_t, "trans_t_c": trans_t, "angles_t": angles_t,
+                "seqs_t": seqs_t, "node_embed": node_embed, "edge_embed": edge_embed,
+                "rotmats_1": rotmats_1, "trans_1_c": trans_1, "angles_1": angles_1,
+                "seqs_1": seqs_1, "gumbel_pred": noise["gumbel_pred"]}
+
+    def loss_post(self, batch: dict, pre: dict, denoised) -> dict:
+        """The six losses from :meth:`loss_pre`'s dict and the denoiser's
+        (rotmats, trans, angles, seq logits). Uses no parameters."""
+        icfg = self.cfg.interpolant
+        gen_mask = batch["generate_mask"].float()
+        gm = batch["generate_mask"].bool()
+        t, rotmats_t, angles_t = pre["t"], pre["rotmats_t"], pre["angles_t"]
+        rotmats_1, trans_1, angles_1, seqs_1 = (pre["rotmats_1"], pre["trans_1_c"],
+                                                pre["angles_1"], pre["seqs_1"])
+        pred_rotmats, pred_trans, pred_angles, pred_logits = denoised
+        with torch.no_grad():
+            pred_seqs = gumbel_sample(torch.softmax(pred_logits, -1), pre["gumbel_pred"])
+            pred_seqs = torch.where(gm, pred_seqs, seqs_1.clamp(0, 19))
+
+        norm_scale = 1.0 / (1.0 - torch.clamp(t[..., None], max=icfg.t_normalization_clip))
+        gen_sum = gen_mask.sum(-1) + 1e-8
+
+        def masked_mean(x, mask, dims, denom):
+            return ((x * mask).sum(dims) / denom).mean()
+
+        trans_loss = masked_mean((pred_trans - trans_1).square(), gen_mask[..., None],
+                                 (-1, -2), gen_sum)
+        gt_rot_vf = so3.calc_rot_vf(rotmats_t, rotmats_1)
+        pred_rot_vf = so3.calc_rot_vf(rotmats_t, pred_rotmats)
+        rot_loss = masked_mean(((gt_rot_vf - pred_rot_vf) * norm_scale).square(),
+                               gen_mask[..., None], (-1, -2), gen_sum)
+        gt_bb = allatom.bb3_atoms(trans_1, rotmats_1)
+        pred_bb = allatom.bb3_atoms(pred_trans, pred_rotmats)
+        bb_atom_loss = masked_mean((gt_bb - pred_bb).square(), gen_mask[..., None, None],
+                                   (-1, -2, -3), gen_sum)
+        logp = torch.log_softmax(pred_logits, -1)
+        ce = -torch.gather(logp, -1, seqs_1.clamp(0, 19).long()[..., None])[..., 0]
+        seqs_loss = masked_mean(ce, gen_mask, -1, gen_sum)
+
+        # Angles are masked by the predicted sequence's valid torsions: the
+        # residue type is not known while generating.
+        angle_mask = allatom.torsions_mask_for(pred_seqs)
+        angle_mask = (gm[..., None] & (torch.cat([angle_mask, angle_mask], -1) > 0.5)).float()
+        ang_sum = angle_mask.sum((-1, -2)) + 1e-8
+        sincos = lambda a: torch.cat([torch.sin(a), torch.cos(a)], -1)
+        gt_av = sincos(torus.logmap(angles_t, angles_1))
+        pred_av = sincos(torus.logmap(angles_t, pred_angles))
+        angle_loss = masked_mean(((gt_av - pred_av) * norm_scale).square(), angle_mask,
+                                 (-1, -2), ang_sum)
+        torsion_loss = masked_mean((sincos(pred_angles) - sincos(angles_1)).square(), angle_mask,
+                                   (-1, -2), ang_sum)
+        return dict(zip(LOSS_NAMES, (trans_loss, rot_loss, bb_atom_loss, seqs_loss, angle_loss,
+                                     torsion_loss)))
+
+    def loss(self, batch: dict, generator=None, noise=None) -> dict:
+        """The training objective: {name: scalar} for the six losses."""
+        pre = self.loss_pre(batch, generator, noise)
+        denoised = self.denoise(pre["t"], pre["rotmats_t"], pre["trans_t_c"], pre["angles_t"],
+                                pre["seqs_t"], pre["node_embed"], pre["edge_embed"],
+                                batch["generate_mask"], batch["res_mask"])
+        return self.loss_post(batch, pre, denoised)
+
+
+def draw_noise(B: int, L: int, generator: torch.Generator, device, num_classes: int = 20) -> dict:
+    """The objective's random draws, in the JAX package's order: t (B, 1)
+    uniform; trans_0 (B, L, 3) standard normal; rotmats_0 (B, L, 3, 3)
+    uniform on SO(3); angles_0 (B, L, 5) uniform on [0, 2π); seqs_0
+    (B, L, K) standard normal; Gumbel noise (B, L, K) for the seqs_t sample
+    and for the prediction sample."""
+    g = generator
+
+    def gumbel():
+        u = torch.rand(B, L, num_classes, generator=g, device=device)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+    return {"t": torch.rand(B, 1, generator=g, device=device),
+            "trans_0": torch.randn(B, L, 3, generator=g, device=device),
+            "rotmats_0": so3.uniform_so3((B, L), g, device),
+            "angles_0": torus.random_uniform((B, L, 5), g, device),
+            "seqs_0": torch.randn(B, L, num_classes, generator=g, device=device),
+            "gumbel_seqs_t": gumbel(), "gumbel_pred": gumbel()}
+
+
+def gumbel_sample(probs: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
+    """Class indices ∝ probs + 1e-8 by Gumbel-max: argmax(log(probs + 1e-8) + gumbel)."""
+    return torch.argmax(torch.log(probs + 1e-8) + gumbel, -1)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

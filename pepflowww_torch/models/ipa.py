@@ -112,9 +112,11 @@ class InvariantPointAttention(nn.Module):
 
 class EdgeTransition(nn.Module):
     """Pair-feature MLP. Its first layer and residual projection are
-    factorized over the [edge | node_i | node_j] concat; with ``use_kernels``
-    it runs :func:`cuda_edge.fused_edge_transition` (kernel B), otherwise
-    :func:`cuda_edge.edge_transition_plain`."""
+    factorized over the [edge | node_i | node_j] concat. With
+    ``use_kernels`` it runs :class:`cuda_edge.EdgeTransitionFn` (forward and
+    backward kernels under autograd), or, with a readout, the forward-only
+    :func:`cuda_edge.fused_edge_transition`; otherwise
+    :func:`cuda_edge.edge_transition_plain`, which autograd follows."""
 
     def __init__(self, node_embed_size: int, edge_embed_in: int, edge_embed_out: int,
                  dtype=None, use_kernels: bool = False, node_dilation: int = 2):
@@ -143,13 +145,17 @@ class EdgeTransition(nn.Module):
         p = self.params()
         if self.use_kernels:
             ops = None
-            edge = edge_embed.to(dt).contiguous()
-            if edge.device.type == "cuda":
+            if edge_embed.device.type == "cuda":
                 tensors = list(p.values()) + (list(readout) if readout is not None else [])
                 ops = cached_operands(self, tensors,
                                       lambda: cuda_edge.kernel_operands(p, readout))
-            res = cuda_edge.fused_edge_transition(edge, node_bias.to(dt).contiguous(),
-                                                  node_mask, p, dt, readout, ops=ops)
+            if readout is None:
+                return cuda_edge.EdgeTransitionFn.apply(edge_embed, node_bias, node_mask,
+                                                        *p.values(), dt, ops)
+            # The readout epilogue is forward-only; the bare wrapper refuses autograd.
+            res = cuda_edge.fused_edge_transition(edge_embed.to(dt).contiguous(),
+                                                  node_bias.to(dt).contiguous(), node_mask, p,
+                                                  dt, readout, ops=ops)
         else:
             res = cuda_edge.edge_transition_plain(edge_embed, node_bias, node_mask, p, dt, readout)
         if readout is None:

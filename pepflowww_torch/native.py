@@ -24,13 +24,14 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("edge_transition", "distance_embed")
+SOURCES = ("edge_transition", "distance_embed", "edge_transition_bwd", "distance_embed_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOG: dict = {}
 _FUNCS: dict = {}
+_SM_COUNT: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -93,6 +94,16 @@ def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA `device`, read once per device."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def check_tensor(t, name: str, shape, dtype) -> None:
     """Raise unless `t` is a contiguous, 16-byte aligned CUDA tensor of
     `shape` and `dtype`: what the kernels read with vector loads."""
@@ -104,6 +115,17 @@ def check_tensor(t, name: str, shape, dtype) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def refuse_autograd(name: str, tensors) -> None:
+    """Raise if grad mode is on and one of `tensors` requires grad: a kernel
+    wrapper writes into fresh tensors that autograd cannot follow (the
+    modules' autograd Functions run the backward kernels)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no autograd: call it under torch.no_grad(), or use "
+                           "the module's autograd Function, which runs the backward kernel")
 
 
 def check(rc: int, name: str) -> None:

@@ -119,3 +119,11 @@ def full_atom_reconstruction(R_bb, t_bb, angles, aa):
 def full_atom_to_pos15(pos14: torch.Tensor) -> torch.Tensor:
     """Pad atom14 positions to the 15-slot layout (OXT slot zero)."""
     return torch.cat([pos14, torch.zeros_like(pos14[..., :1, :])], -2)
+
+
+def bb3_atoms(trans: torch.Tensor, rotmats: torch.Tensor) -> torch.Tensor:
+    """N/CA/C global positions of idealized ALA backbones: (B, L, 3, 3),
+    R · ideal + t over the backbone group's ideal coordinates (the
+    reference's ``to_atom37(trans, rots)[:, :, :3]``)."""
+    ideal = torch.from_numpy(C.BB3_IDEAL_COORDS).to(device=rotmats.device, dtype=rotmats.dtype)
+    return torch.einsum("blij,aj->blai", rotmats, ideal) + trans[:, :, None, :]

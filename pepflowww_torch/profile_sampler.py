@@ -1,6 +1,8 @@
-"""Where the time of the production sampler goes on one GPU.
+"""Where the time of the production sampler, or of its training step, goes
+on one GPU.
 
     python -m pepflowww_torch.profile_sampler [--out chiprun_out/profile]
+    python -m pepflowww_torch.profile_sampler --train
 
 The production profile (configs/learn_angle_tpu.yaml: 6 blocks, c_s 128,
 c_z 64, bf16) with seeded random weights on 64 synthetic complexes of L=64
@@ -12,6 +14,10 @@ c_z 64, bf16) with seeded random weights on 64 synthetic complexes of L=64
 * a ``torch.profiler`` window of a 5-step run: device busy and idle share
   of the window, kernels launched per denoise pass, device time by category
   and the top kernels by device time; the trace is written to ``--out``.
+
+With ``--train`` it does the same for the training step at B=32, L=64 (the
+config's batch size): ms/step over 10-step runs with the kernels and with
+their plain versions in turns, and a profiled window of 3 steps.
 
 Runs on CUDA only: it measures the device.
 """
@@ -34,6 +40,8 @@ from pepflowww_torch.models.trunk import IPAConfig
 from pepflowww_torch.sampling import euler_sample
 
 CATEGORIES = (  # (category, substrings of the kernel name), first match wins
+    ("edge_transition_bwd (K4)", ("edge_bwd_",)),
+    ("distance_embed_bwd (K5)", ("dist_bwd_",)),
     ("edge_transition (kernel B)", ("edge_transition_kernel", "node_proj_kernel")),
     ("distance_embed (kernel A)", ("distance_embed_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
@@ -98,23 +106,27 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_window(model, batch, steps: int, out_dir: str) -> dict:
-    """Profile one `steps`-step run; returns the summary it prints."""
+def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
+                   name: str = "sampler") -> dict:
+    """Profile one call of `run`, `passes` units of work; writes
+    ``<out_dir>/<name>_trace.json`` and returns the summary it prints."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    dev = batch["aa"].device
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("sampler_window"):
-            euler_sample(model, batch, torch.Generator(device=dev).manual_seed(7), num_steps=steps)
+        with record_function("profile_window"):
+            run()
             torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
 
     events = list(prof.events())
-    window = [e for e in events if e.name == "sampler_window"]
-    # The window's own range is mirrored on the device timeline: not a kernel.
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != "sampler_window"]
+    window = [e for e in events if e.name == "profile_window"]
+    # Ranges recorded on the host (the window's own, the optimizer's
+    # `Optimizer.step#...`) are mirrored on the device timeline: not kernels.
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if e.name != "profile_window"
+               and not getattr(e, "is_user_annotation", False)
+               and getattr(e, "activity_type", None) != "gpu_user_annotation"]
     if not window or not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     w0, w1 = window[0].time_range.start, window[0].time_range.end
@@ -125,27 +137,66 @@ def profile_window(model, batch, steps: int, out_dir: str) -> dict:
         by_cat[_category(k.name)] = by_cat.get(_category(k.name), 0.0) + d
         n, t = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, t + d)
-    passes = steps  # steps - 1 Euler steps and the final prediction
     summary = {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3,
                "idle_share": 1.0 - busy / (w1 - w0), "kernels": len(kernels),
                "kernels_per_pass": len(kernels) / passes,
                "by_category_ms_per_pass": {c: t / 1e3 / passes for c, t in
                                            sorted(by_cat.items(), key=lambda x: -x[1])},
                "top": sorted(by_name.items(), key=lambda x: -x[1][1])[:15]}
-    print(f"[profile] window {summary['window_ms']:.3f} ms over {steps} denoise passes (one "
-          f"encode included); device busy {summary['busy_ms']:.3f} ms, idle share "
-          f"{summary['idle_share']:.4f}; {summary['kernels']} kernels, "
-          f"{summary['kernels_per_pass']:.1f} per pass", flush=True)
+    print(f"[profile] window {summary['window_ms']:.3f} ms over {passes} x {unit}; device busy "
+          f"{summary['busy_ms']:.3f} ms, idle share {summary['idle_share']:.4f}; "
+          f"{summary['kernels']} kernels, {summary['kernels_per_pass']:.1f} per {unit} "
+          f"({len(device) - len(kernels)} host ranges on the device timeline left out)",
+          flush=True)
     for cat, ms in summary["by_category_ms_per_pass"].items():
-        print(f"[profile] device ms per pass: {cat:28s} {ms:.4f}", flush=True)
+        print(f"[profile] device ms per {unit}: {cat:28s} {ms:.4f}", flush=True)
     for name, (n, t) in summary["top"]:
         print(f"[profile] top: {t / 1e3:9.3f} ms  {n:6d} launches  {name[:110]}", flush=True)
     return summary
 
 
+def _profile_train(dev, card: str, out_dir: str, batch_size: int = 32) -> None:
+    from pepflowww_torch.config import DEFAULT_TRAIN
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    tc = DEFAULT_TRAIN
+    batch, _ = main_path_batch(dev, batch_size)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    runs = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        model = production_model(dev, kernels).train()
+        runs[name] = (model, Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"]))
+
+    def steps(name, n):
+        model, opt = runs[name]
+        for _ in range(n):
+            train_step(model, opt, batch, tc["loss_weights"], gen)
+
+    for name in runs:
+        steps(name, 3)  # warm-up: kernel build, cuBLAS handles, caches
+    per_step = {name: [] for name in runs}
+    for _ in range(3):
+        for name in ("kernels", "plain", "plain", "kernels"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(name, 10)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 10
+            per_step[name].append(ms)
+            print(f"[profile] train {name:7s} B={batch_size} L=64: {ms:.3f} ms/step, "
+                  f"{1e3 * batch_size / ms:.3f} samples/s on {card}", flush=True)
+    for name, v in per_step.items():
+        print(f"[profile] train {name:7s} median of {len(v)}: {np.median(v):.3f} ms/step, "
+              f"{1e3 * batch_size / np.median(v):.3f} samples/s (min {min(v):.3f}, max "
+              f"{max(v):.3f}) on {card}", flush=True)
+    profile_window(lambda: steps("kernels", 3), 3, out_dir, unit="train step", name="train")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile"))
+    ap.add_argument("--train", action="store_true", help="profile the training step")
     args = ap.parse_args(argv)
     batch_size, steps = 64, 100
 
@@ -154,6 +205,9 @@ def main(argv=None):
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[profile] card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}",
           flush=True)
+    if args.train:
+        _profile_train(dev, card, args.out)
+        return
     models = {"kernels": production_model(dev, True), "plain": production_model(dev, False)}
     batch, _ = main_path_batch(dev, batch_size)
     for m in models.values():
@@ -169,7 +223,10 @@ def main(argv=None):
         print(f"[profile] {name:7s} median of {len(s)}: {np.median(s):.4f} s, "
               f"{batch_size / np.median(s):.3f} peptides/s (min {min(s):.4f} s, "
               f"max {max(s):.4f} s) on {card}", flush=True)
-    profile_window(models["kernels"], batch, 5, args.out)
+    model = models["kernels"]
+    profile_window(lambda: euler_sample(model, batch, torch.Generator(device=dev).manual_seed(7),
+                                        num_steps=5), 5, args.out,
+                   unit="denoise pass (one encode included)")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,133 @@
+"""Optimizer, plateau scheduler, NaN rescue (counterpart of the JAX
+package's ``training/optim.py``).
+
+* gradient-norm clip at ``max_grad_norm`` (100), then Adam, or AdamW when
+  weight decay is set, with optax's betas and eps 1e-8;
+* accumulation as ``optax.MultiSteps``: the running mean of k steps'
+  gradients, one clipped update every k-th step, none in between;
+* NaN rescue: non-finite gradient entries are zeroed elementwise;
+* ReduceLROnPlateau (min mode) as a small host-side controller, stepped on
+  the validation loss.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Optional
+
+import torch
+
+
+def zero_nans(params: Iterable[torch.Tensor]) -> None:
+    """Zero the non-finite entries of every gradient, in place."""
+    for p in params:
+        if p.grad is not None:
+            torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def sum_weighted_losses(losses: dict, weights: Optional[dict]):
+    """sum_k weights[k] * losses[k] (an unweighted sum without weights)."""
+    if weights is None:
+        return sum(losses.values())
+    return sum(weights.get(k, 0.0) * v for k, v in losses.items())
+
+
+class Optimizer:
+    """Clip, then Adam/AdamW, with MultiSteps-style accumulation.
+
+    ``step()`` consumes the gradients in ``.grad``. With ``accum_grad`` k > 1
+    it folds them into the running mean acc += (g - acc) / (n + 1) and
+    applies the clipped update with that mean on every k-th call only, as
+    ``optax.MultiSteps`` does; it returns whether the parameters moved."""
+
+    def __init__(self, params, opt_cfg: dict, max_grad_norm: float = 100.0, accum_grad: int = 1):
+        self.params = [p for p in params if p.requires_grad]
+        kind = opt_cfg.get("type", "adam")
+        if kind not in ("adam", "adamw"):
+            raise ValueError(f"Unknown optimizer type: {kind}")
+        lr = float(opt_cfg.get("lr", 5e-4))
+        betas = (float(opt_cfg.get("beta1", 0.9)), float(opt_cfg.get("beta2", 0.999)))
+        wd = float(opt_cfg.get("weight_decay", 0.0))
+        if kind == "adam" and wd == 0.0:
+            self.opt = torch.optim.Adam(self.params, lr=lr, betas=betas, eps=1e-8)
+        else:
+            self.opt = torch.optim.AdamW(self.params, lr=lr, betas=betas, eps=1e-8,
+                                         weight_decay=wd)
+        self.max_grad_norm = float(max_grad_norm)
+        self.accum_grad = int(accum_grad)
+        self.mini_step = 0
+        self.acc = None
+
+    @property
+    def lr(self) -> float:
+        return self.opt.param_groups[0]["lr"]
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        for group in self.opt.param_groups:
+            group["lr"] = value
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> bool:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.accum_grad > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            for a, p in zip(self.acc, self.params):
+                a.add_((p.grad - a) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.accum_grad:
+                return False
+            for a, p in zip(self.acc, self.params):
+                p.grad.copy_(a)
+                a.zero_()
+            self.mini_step = 0
+        torch.nn.utils.clip_grad_norm_(self.params, self.max_grad_norm)
+        self.opt.step()
+        return True
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.opt.state_dict(), "mini_step": self.mini_step,
+                "acc": None if self.acc is None else [a.detach().cpu() for a in self.acc]}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.opt.load_state_dict(d["optimizer"])
+        self.mini_step = int(d.get("mini_step", 0))
+        acc = d.get("acc")
+        self.acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+
+
+@dataclasses.dataclass
+class PlateauScheduler:
+    """torch.optim.lr_scheduler.ReduceLROnPlateau (min mode, relative
+    threshold, no cooldown), stepped by hand: ``step(metric, lr)`` returns
+    the new learning rate."""
+
+    factor: float = 0.8
+    patience: int = 10
+    min_lr: float = 5e-6
+    threshold: float = 1e-4
+    best: float = float("inf")
+    num_bad: int = 0
+
+    def step(self, metric: float, lr: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            self.num_bad = 0
+            return max(lr * self.factor, self.min_lr)
+        return lr
+
+    def state_dict(self) -> dict:
+        return {"best": self.best, "num_bad": self.num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.best = d["best"]
+        self.num_bad = d["num_bad"]

@@ -8,7 +8,11 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances, bf16 outputs of O(1): kernel B 6e-2 (two bf16 steps: the hidden
 layers are rounded to bf16 and fp32 sums run in another order), kernel A
-3e-2 (one bf16 step).
+3e-2 (one bf16 step). The backward kernels' gradients are sums over every
+pair of products of bf16-rounded operands: each is held to its plain
+version within 1e-2 of the plain gradient's norm (a rounding that flips
+between the two moves one term by one bf16 step; a wrong index or a lost
+partial moves the whole sum), and two calls must agree bit for bit.
 """
 
 import numpy as np
@@ -74,6 +78,67 @@ def test_distance_kernel_matches_plain(dev, L):
     assert native.LAUNCHES["distance_embed"] == before + 1
     want = cuda_dist.distance_embed_plain(*args, p, torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+def _close_in_norm(got, want, name, rel=1e-2):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), name
+    err = float((got - want).norm())
+    assert err <= rel * float(want.norm()) + 1e-6, (name, err, float(want.norm()))
+
+
+@pytest.mark.parametrize("L", [24, 64])
+def test_edge_backward_kernel_matches_plain(dev, L):
+    edge, nb, mask, p, _ = _edge_inputs(dev, 2, L, seed=L)
+    g = torch.randn(edge.shape, generator=torch.Generator().manual_seed(L)).to(dev).bfloat16()
+    before = native.LAUNCHES["edge_transition_bwd"]
+    got = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g)
+    again = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["edge_transition_bwd"] == before + 2
+    want = cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, torch.bfloat16)
+    for name, a, b, c in (("d_edge", got[0], want[0], again[0]),
+                          ("d_node", got[1], want[1], again[1]),
+                          *((k, got[2][k], want[2][k], again[2][k]) for k in cuda_edge.PARAM_NAMES)):
+        _close_in_norm(a, b, name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+
+
+@pytest.mark.parametrize("L", [40, 64])
+def test_distance_backward_kernel_matches_plain(dev, L):
+    args, p = _dist_inputs(dev, 2, L)
+    g = torch.randn(2, L, L, 64, generator=torch.Generator().manual_seed(L)).to(dev).bfloat16()
+    before = native.LAUNCHES["distance_embed_bwd"]
+    got = cuda_dist.distance_embed_bwd(*args, p, g)
+    again = cuda_dist.distance_embed_bwd(*args, p, g)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["distance_embed_bwd"] == before + 2
+    want = cuda_dist.distance_embed_bwd_plain(*args, p, g, torch.bfloat16)
+    for k in cuda_dist.PARAM_NAMES:
+        _close_in_norm(got[k], want[k], k)
+        assert torch.equal(got[k], again[k]), f"{k}: two calls differ"
+
+
+def test_autograd_functions_fill_every_grad(dev):
+    """loss.backward() through both Functions on the card launches both
+    backward kernels once and fills every parameter's .grad."""
+    edge, nb, mask, p, _ = _edge_inputs(dev, 2, 24)
+    pe = {k: v.clone().requires_grad_() for k, v in p.items()}
+    args, pd = _dist_inputs(dev, 2, 24)
+    pd = {k: v.clone().requires_grad_() for k, v in pd.items()}
+    before = dict(native.LAUNCHES)
+    out = cuda_edge.EdgeTransitionFn.apply(edge, nb, mask, *pe.values(), torch.bfloat16,
+                                           cuda_edge.kernel_operands(p))
+    dist = cuda_dist.DistanceEmbedFn.apply(*args, *pd.values(), torch.bfloat16,
+                                           cuda_dist.kernel_operands(pd))
+    (out.float().square().sum() + dist.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    for name in ("edge_transition", "edge_transition_bwd", "distance_embed", "distance_embed_bwd"):
+        assert native.LAUNCHES[name] == before[name] + 1, name
+    for k, v in list(pe.items()) + list(pd.items()):
+        assert v.grad is not None and bool(torch.isfinite(v.grad).all()), k
+    with pytest.raises(RuntimeError, match="no autograd"):
+        cuda_edge.fused_edge_transition(edge, nb, mask, pe)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):

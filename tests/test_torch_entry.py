@@ -1,9 +1,11 @@
 """The port's entry points: they run on CUDA unless the CPU is asked for,
 raise without CUDA, and load neither JAX nor the JAX package (the static
-check of the port's imports: tests/test_torch_imports.py)."""
+check of the port's imports: tests/test_torch_imports.py); the train CLI's
+checkpoints load strict in the reference layout and resume."""
 
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -12,9 +14,13 @@ import pytest
 import torch
 
 from pepflowww_torch import device as port_device
-from pepflowww_torch.models.flow import FlowModelConfig, build_model
+from pepflowww_torch.convert import load_state_dict, read_torch_checkpoint
+from pepflowww_torch.models.flow import FlowModel, FlowModelConfig, build_model
 from pepflowww_torch.models.trunk import IPAConfig
 from pepflowww_torch.sample import main as sample_main
+from pepflowww_torch.train import main as train_main
+from pepflowww_torch.training import checkpoints
+from pepflowww_torch.training.optim import Optimizer, PlateauScheduler
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +40,8 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample_main(["--synthetic", "--out", str(tmp_path), "--num_samples", "1",
                      "--num_steps", "2", "--max_complexes", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--synthetic", "--logdir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
@@ -75,3 +83,64 @@ def test_cpu_forward_loads_no_jax():
                          text=True, timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_train_cli_on_cpu_checkpoints_and_resumes(tmp_path, capsys, golden):
+    """The production profile (6 blocks, bf16, kernels on, 6,880,353
+    parameters) trains on the CPU: finite losses, a checkpoint at val_freq
+    whose model is the reference state dict (the keys and shapes of the
+    reference nb=6 weights, loaded strict), and --resume continues after it."""
+    common = ["--config", os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "--synthetic",
+              "--debug", "--device", "cpu", "--log_freq", "2", "--batch_size", "2",
+              "--val_freq", "4", "--logdir", str(tmp_path)]
+    run_dir = train_main(common + ["--max_iters", "4"])
+    log = capsys.readouterr().err
+    assert "Number of parameters: 6880353" in log
+    losses = [float(x) for x in re.findall(r"it \d+ \| loss ([-\d.]+)", log)]
+    assert len(losses) == 2 and np.isfinite(losses).all(), log
+    assert "val it 4" in log
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    path = checkpoints.latest_checkpoint(ckpt_dir)
+    assert path == os.path.join(ckpt_dir, "4.pt")
+
+    ref = {k[4:]: g for k, g in golden("model_parity6").items() if k.startswith("sd::")}
+    sd = read_torch_checkpoint(path)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {k: v.shape for k, v in ref.items()}
+    model = FlowModel(FlowModelConfig(ipa=IPAConfig(num_blocks=6)))
+    load_state_dict(model, sd)
+
+    train_main(common + ["--max_iters", "5", "--resume", ckpt_dir, "--log_freq", "1"])
+    log = capsys.readouterr().err
+    assert "at iteration 5" in log and re.findall(r"it (\d+) \| loss", log) == ["5"], log
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """save -> latest -> restore brings back the weights, the Adam moments,
+    the accumulation state and the scheduler, and the iteration."""
+    cfg = FlowModelConfig(ipa=IPAConfig(c_s=32, c_z=16, c_hidden=8, no_heads=2, no_qk_points=2,
+                                        no_v_points=3, seq_tfmr_num_layers=1, num_blocks=1),
+                          node_embed_size=32, edge_embed_size=16)
+    model = build_model(cfg, "cpu", seed=1)
+    opt = Optimizer(model.parameters(), {"type": "adam", "lr": 1e-3}, 100.0, accum_grad=2)
+    for _ in range(3):
+        for p in model.parameters():
+            p.grad = torch.randn_like(p)
+        opt.step()
+    sched = PlateauScheduler()
+    sched.step(1.0, 1e-3)
+    checkpoints.save_checkpoint(str(tmp_path), 7, model, opt, sched, {"train": {"seed": 1}})
+    checkpoints.save_checkpoint(str(tmp_path), 12, model, opt, sched, {"train": {"seed": 1}})
+    assert checkpoints.latest_checkpoint(str(tmp_path)) == str(tmp_path / "12.pt")
+
+    model2 = build_model(cfg, "cpu", seed=2)
+    opt2 = Optimizer(model2.parameters(), {"type": "adam", "lr": 1e-3}, 100.0, accum_grad=2)
+    sched2 = PlateauScheduler()
+    assert checkpoints.restore_checkpoint(str(tmp_path), model2, opt2, sched2) == 12
+    for a, b in zip(model.state_dict().values(), model2.state_dict().values()):
+        assert torch.equal(a, b)
+    assert opt2.mini_step == opt.mini_step == 1
+    for a, b in zip(opt.acc, opt2.acc):
+        assert torch.equal(a, b)
+    st, st2 = opt.opt.state_dict()["state"], opt2.opt.state_dict()["state"]
+    assert all(torch.equal(st[k]["exp_avg_sq"], st2[k]["exp_avg_sq"]) for k in st)
+    assert sched2.state_dict() == sched.state_dict()
