@@ -14,26 +14,34 @@ Phases, each on its own lines:
    kernel's, the plain version's and the bound's times; the backward kernels
    at the training shapes (B=32, L=64) and a ragged L, each called twice to
    show bit-identical gradients, and the forward EdgeTransition (readout
-   off, as in training) timed at B=32.
+   off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
+   and L=64, 40 and 256 in the sampler's input layouts; its backward (K8)
+   at B=32 and L=64, 24 and 256 in the training step's.
 3. oracle: the bf16 sampler with the kernels, weights of the trained nb=6
    reference oracle (``tests/golden/sampler_stats_trained6.npz``) loaded
    strict, its 64x24 batch for its 25 steps and 3 seeds pooled; AAR and
    translation norm within the 2-sigma bounds of
-   tests/test_sampler_parity.py, and the launch counts of both kernels.
+   tests/test_sampler_parity.py, and the launch counts of the kernels; then
+   the same with the fused IPA (``use_pallas_ipa``) on.
 4. main: the production sampler (configs/learn_angle_tpu.yaml: 6 blocks,
    c_s 128, c_z 64, bf16, kernels on) on B=64, L=64 synthetic complexes
    (48-residue pocket + 12-residue peptide) for 100 steps with seeded random
-   weights; peptides/s, the launch counts, and well-formed PDBs.
+   weights; peptides/s, the launch counts, and well-formed PDBs. Then the
+   fused-IPA profile (the same YAML with ``use_pallas_ipa: true``) on the
+   same workload: K7 600 times, K2 500, K3 once.
 5. train: the production profile's training step at B=32 (the config's
    batch_size), L=64 synthetic batches, seeded weights: launches per step
    (5 EdgeTransition forward and backward, 1 distance forward and backward),
    a finite gradient for every parameter, the kernel step's gradients
    against the same step through the plain versions, 30 Adam steps on one
    batch and one draw lowering the loss, and ms/step and samples/s over 20
-   timed steps.
+   timed steps. Then the same for the fused-IPA profile (6 K7 and 6 K8
+   launches besides those).
 
-The kernels' JSON line gives the forward kernels' launches on the sampler's
-main path and the backward kernels' on one training step.
+The kernels' JSON line gives each kernel's launches on its path's run: the
+EdgeTransition and distance forward kernels on the production sampler's,
+their backward kernels on the production training step's, K7 on the
+fused-IPA sampler's and K8 on the fused-IPA training step's.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -66,6 +74,11 @@ BWD_REL = 1e-2
 # gradients reached only through the attention's pair bias are small, so
 # their error has a floor set by the global norm.
 STEP_REL, STEP_ABS = 5e-2, 1e-3
+# Fused IPA forward, fp32 outputs: |kernel - plain| <= atol + rtol |plain|.
+# A bf16 rounding of an attention weight that flips between kernel and
+# plain version moves the scalar output by at most 2^-9 |v|; the logits,
+# softmax and point sums run in fp32 in another order.
+IPA_TOL = (2e-2, 1e-3)
 
 
 def fail(msg: str) -> None:
@@ -163,10 +176,10 @@ def phase_kernels():
 
     from pepflowww_torch import native
     from pepflowww_torch.bounds import (dist_bound_ms, dist_bwd_bound_ms, edge_bound_ms,
-                                        edge_bwd_bound_ms)
+                                        edge_bwd_bound_ms, ipa2_bound_ms, ipa2_bwd_bound_ms)
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.data.synthetic import make_batch
-    from pepflowww_torch.models import cuda_dist, cuda_edge
+    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 
     dev = torch.device("cuda", 0)
     rows = {}
@@ -268,7 +281,62 @@ def phase_kernels():
         row = _time_row(tag, call, plain, dist_bwd_bound_ms(32, L), err)
         if L == 64:
             rows["distance_embed_bwd"] = row
+
+    # K7: the fused IPA forward, in the sampler's layouts.
+    for L in (64, 40, 256):
+        args = _ipa_inputs(64, L, dev, seed=500 + L, layout="sampler")
+        tag = f"ipa2 B=64 L={L}"
+        got = _launch_once("ipa2", lambda: cuda_ipa.fused_ipa2(*args), tag)
+        want = cuda_ipa.ipa2_plain(*args)
+        err = max(compare(f"{tag} [{n}]", a, b, IPA_TOL)
+                  for n, a, b in zip(("o", "optl", "norm", "opair"), got, want))
+        if L == 64:
+            rows["ipa2"] = _time_row(tag, lambda: cuda_ipa.fused_ipa2(*args),
+                                     lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(64, L), err)
+    args = _ipa_inputs(32, 64, dev, seed=632, layout="train")
+    _time_row("ipa2 B=32 L=64 (training layout)", lambda: cuda_ipa.fused_ipa2(*args),
+              lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(32, 64), 0.0)
+    # K8: its backward, in the training step's layouts.
+    names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
+    for L in (64, 24, 256):
+        args = _ipa_inputs(32, L, dev, seed=700 + L, layout="train")
+        cots = [_randn(tuple(o.shape), dev, 800 + L + k)
+                for k, o in enumerate(cuda_ipa.ipa2_plain(*args))]
+        tag = f"ipa2_bwd B=32 L={L}"
+        call = lambda: cuda_ipa.ipa2_bwd(*args, *cots)
+        plain = lambda: cuda_ipa.ipa2_bwd_plain(*args, *cots)
+        got = _launch_once("ipa2_bwd", call, tag)
+        err = compare_grads(tag, names, got, plain(), call())
+        if L == 64:
+            rows["ipa2_bwd"] = _time_row(tag, call, plain, ipa2_bwd_bound_ms(32, L), err)
     return rows
+
+
+def _ipa_inputs(B, L, dev, seed, layout):
+    """Inputs of the fused IPA at the production widths (H 8, C 128, Pq 8,
+    Pv 12, CZ4 16) as the module passes them: the points as permuted views
+    of the projections; with layout "sampler" the pair bias (B, H, L, L) and
+    the pair readout as a view of the EdgeTransition epilogue's
+    (B, CZ4, L, L), with "train" the bias as a view of linear_b's
+    (B, L, L, H) and the readout down_z's (B, L, L, CZ4). bf16 where the
+    model feeds bf16; random rotations, translations of ~5 A."""
+    import torch
+
+    H, C, Pq, Pv, CZ4 = 8, 128, 8, 12, 16
+    bf = torch.bfloat16
+    r = lambda *s, sc=1.0, k=0: _randn(s, dev, seed + k) * sc
+    R = torch.linalg.qr(_randn((B, L, 3, 3), dev, seed + 1))[0]
+    mask = (torch.rand(B, L, generator=torch.Generator().manual_seed(seed)) > 0.15).float().to(dev)
+    qp = r(B, L, 3, H, Pq, sc=2.0, k=2).to(bf).permute(0, 3, 2, 1, 4)
+    kvp = r(B, L, 3, H, Pq + Pv, sc=2.0, k=3).to(bf).permute(0, 3, 2, 1, 4)
+    if layout == "sampler":
+        bias, pz = r(B, H, L, L, k=4).to(bf), r(B, CZ4, L, L, k=5).to(bf).permute(0, 2, 3, 1)
+    else:
+        bias, pz = r(B, L, L, H, k=4).to(bf).permute(0, 3, 1, 2), r(B, L, L, CZ4, k=5).to(bf)
+    sw = r(1, H, sc=0.1, k=6).abs() + 0.2
+    return [r(B, L, H * C, k=7).to(bf), r(B, L, 2 * H * C, k=8).to(bf), qp, kvp,
+            R.reshape(B, L, 9).contiguous(), r(B, L, 3, sc=5.0, k=9), bias, pz,
+            (1e5 * (mask - 1.0))[:, None, :], sw]
 
 
 def _randn(shape, dev, seed):
@@ -327,7 +395,7 @@ def _oracle_stats(out, gen):
     return aar.cpu().numpy(), tn.cpu().numpy()
 
 
-def phase_oracle():
+def phase_oracle(ipa: bool = False):
     import numpy as np
     import torch
 
@@ -340,7 +408,9 @@ def phase_oracle():
     g = np.load(os.path.join(ROOT, "tests", "golden", "sampler_stats_trained6.npz"))
     nb, steps, n = int(g["num_blocks"]), int(g["num_steps"]), int(g["num_samples"])
     sd = {k[4:]: np.asarray(g[k], np.float32) for k in g.files if k.startswith("sd::")}
-    cfg = FlowModelConfig(ipa=IPAConfig(num_blocks=nb, dtype="bfloat16", use_pallas=True))
+    cfg = FlowModelConfig(ipa=IPAConfig(num_blocks=nb, dtype="bfloat16", use_pallas=True,
+                                        use_pallas_ipa=ipa))
+    phase = "oracle ipa" if ipa else "oracle"
     model = build_model(cfg, dev, state_dict=sd)
     batch = {k[6:]: torch.from_numpy(np.asarray(g[k])).to(dev) for k in g.files
              if k.startswith("batch_")}
@@ -357,22 +427,26 @@ def phase_oracle():
               f"expected {(nb - 1) * steps}")
         check(counts["distance_embed"] == 1,
               f"oracle seed {seed}: {counts['distance_embed']} distance launches, expected 1")
+        check(counts["ipa2"] == (nb * steps if ipa else 0),
+              f"oracle seed {seed}: {counts['ipa2']} fused IPA launches")
         aar, tn = _oracle_stats(out, gen)
         aars.append(aar)
         tns.append(tn)
-        say("oracle", f"seed {seed}: aar {aar.mean():.4f}, trans_norm {tn.mean():.4f}, "
-                      f"launches {counts}")
+        say(phase, f"seed {seed}: aar {aar.mean():.4f}, trans_norm {tn.mean():.4f}, "
+                   f"launches {counts}")
     for name, ours in (("aar", np.concatenate(aars)), ("trans_norm", np.concatenate(tns))):
         ref = g[name]
         sem = np.sqrt(np.var(ref) / n + np.var(ours) / len(ours))
         tol = 2.0 * float(sem) + max(0.05 * float(np.std(ref)), 3e-3)
         diff = abs(float(np.mean(ours)) - float(np.mean(ref)))
-        say("oracle", f"{name}: ours {np.mean(ours):.4f} vs trained nb=6 reference "
-                      f"{np.mean(ref):.4f}, |diff| {diff:.4f} <= tol {tol:.4f}")
-        check(diff <= tol, f"oracle {name} outside the 2-sigma bound")
+        say(phase, f"{name}: ours {np.mean(ours):.4f} vs trained nb=6 reference "
+                   f"{np.mean(ref):.4f}, |diff| {diff:.4f} <= tol {tol:.4f}")
+        check(diff <= tol, f"{phase} {name} outside the 2-sigma bound")
 
 
-def phase_main(card: str):
+def phase_main(card: str, cfg, phase: str, want: dict):
+    """The sampler of `cfg` on the main path's workload; checks the launch
+    counts against `want` and writes a few PDBs."""
     import numpy as np
     import torch
 
@@ -383,7 +457,7 @@ def phase_main(card: str):
 
     dev = torch.device("cuda", 0)
     B, steps = 64, 100
-    model = production_model(dev)
+    model = production_model(dev, cfg)
     batch, bnp = main_path_batch(dev, B)
     euler_sample(model, batch, torch.Generator(device=dev).manual_seed(0), num_steps=2)  # warm-up
 
@@ -394,44 +468,48 @@ def phase_main(card: str):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    say("main", f"B={B} L=64 steps={steps} bf16 kernels on: {sec:.3f} s, "
-                f"{B / sec:.3f} peptides/s on {card}; launches {launches}")
-    check(launches["edge_transition"] == 5 * steps,
-          f"main path ran {launches['edge_transition']} EdgeTransition kernels, expected {5 * steps}")
-    check(launches["distance_embed"] == 1,
-          f"main path ran {launches['distance_embed']} distance kernels, expected 1")
+    say(phase, f"B={B} L=64 steps={steps} bf16 kernels on: {sec:.3f} s, "
+               f"{B / sec:.3f} peptides/s on {card}; launches {launches}")
+    check(launches == want, f"{phase}: launched {launches}, expected {want}")
     for k in ("rotmats", "trans", "angles"):
-        check(bool(torch.isfinite(out[k]).all()), f"main path: non-finite {k}")
+        check(bool(torch.isfinite(out[k]).all()), f"{phase}: non-finite {k}")
     check(tuple(out["trans"].shape) == (B, 64, 3) and tuple(out["rotmats"].shape) == (B, 64, 3, 3),
-          "main path: unexpected output shapes")
+          f"{phase}: unexpected output shapes")
     seqs = out["seqs"][batch["generate_mask"].bool()]
-    check(bool(((seqs >= 0) & (seqs < 20)).all()), "main path: generated tokens out of range")
+    check(bool(((seqs >= 0) & (seqs < 20)).all()), f"{phase}: generated tokens out of range")
 
     few = {k: v[:4] for k, v in out.items()}
     few_np = {k: (v[:4] if isinstance(v, np.ndarray) else v) for k, v in bnp.items()}
-    paths = write_sample_pdbs(few, few_np, os.path.join(OUT_DIR, "smoke_pdbs"))
+    paths = write_sample_pdbs(few, few_np,
+                              os.path.join(OUT_DIR, f"smoke_pdbs_{phase.replace(' ', '_')}"))
     for path in paths:
         atoms = [ln for ln in open(path).read().splitlines() if ln.startswith("ATOM")]
         xyz = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in atoms])
         ca = xyz[[i for i, ln in enumerate(atoms) if ln[12:16] == " CA "]]
         check(len(atoms) > 4 * 60 and np.isfinite(xyz).all(), f"{path}: malformed ATOM records")
         check(len(ca) == 60 and {ln[21] for ln in atoms} == {"A", "B"}, f"{path}: wrong residues")
-    say("main", f"wrote {len(paths)} PDBs with well-formed ATOM records to {os.path.dirname(paths[0])}")
+    say(phase, f"wrote {len(paths)} PDBs with well-formed ATOM records to "
+               f"{os.path.dirname(paths[0])}")
     return launches
 
 
 class plain_versions:
-    """Within the block, the EdgeTransition and distance Functions run their
-    plain PyTorch versions on the card (forward and backward, the kernels'
-    rounding points): the reference that the kernel step is held to."""
+    """Within the block, the EdgeTransition, distance and fused-IPA
+    Functions run their plain PyTorch versions on the card (forward and
+    backward, the kernels' rounding points): the reference that the kernel
+    step is held to."""
 
     def __enter__(self):
-        from pepflowww_torch.models import cuda_dist, cuda_edge
+        from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 
         self.saved = [(cuda_edge, "_forward", cuda_edge._forward),
                       (cuda_edge, "edge_transition_bwd", cuda_edge.edge_transition_bwd),
                       (cuda_dist, "_forward", cuda_dist._forward),
-                      (cuda_dist, "distance_embed_bwd", cuda_dist.distance_embed_bwd)]
+                      (cuda_dist, "distance_embed_bwd", cuda_dist.distance_embed_bwd),
+                      (cuda_ipa, "_forward", cuda_ipa._forward),
+                      (cuda_ipa, "ipa2_bwd", cuda_ipa.ipa2_bwd)]
+        cuda_ipa._forward = cuda_ipa.ipa2_plain
+        cuda_ipa.ipa2_bwd = cuda_ipa.ipa2_bwd_plain
         cuda_edge._forward = lambda e, n, m, p, dt, ro=None, ops=None, eps=1e-5: \
             cuda_edge.edge_transition_plain(e, n, m, p, dt, ro, eps)
         cuda_edge.edge_transition_bwd = lambda e, n, m, p, g, dt, ops=None, d_edge_dtype=None: \
@@ -448,7 +526,7 @@ class plain_versions:
             setattr(mod, name, fn)
 
 
-def phase_train(card: str):
+def phase_train(card: str, cfg, phase: str, want: dict):
     import numpy as np
     import torch
 
@@ -460,10 +538,10 @@ def phase_train(card: str):
     from pepflowww_torch.training.train_step import loss_and_total, train_step
 
     dev = torch.device("cuda", 0)
-    _, cfg, _ = load_train_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))
-    tc = cfg["train"]
+    _, raw, _ = load_train_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))
+    tc = raw["train"]
     B, weights = int(tc["batch_size"]), dict(tc["loss_weights"])
-    model = production_model(dev).train()
+    model = production_model(dev, cfg).train()
     batch, _ = main_path_batch(dev, B, seed=7)
     noise = draw_noise(B, 64, torch.Generator(device=dev).manual_seed(8), dev)
 
@@ -479,13 +557,11 @@ def phase_train(card: str):
     got = grads_of_one_backward()
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
-    want = {"edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
-            "distance_embed_bwd": 1}
-    say("train", f"B={B} L=64 bf16 kernels on: launches per step {launches}")
-    check(launches == want, f"train step launched {launches}, expected {want}")
+    say(phase, f"B={B} L=64 bf16 kernels on: launches per step {launches}")
+    check(launches == want, f"{phase} step launched {launches}, expected {want}")
     missing = [n for n, g in got.items() if g is None or not bool(torch.isfinite(g).all())]
-    check(not missing, f"train step: parameters without a finite gradient: {missing}")
-    say("train", f"all {len(got)} parameters have a finite gradient after one backward")
+    check(not missing, f"{phase} step: parameters without a finite gradient: {missing}")
+    say(phase, f"all {len(got)} parameters have a finite gradient after one backward")
 
     got = {n: g.clone() for n, g in got.items()}
     with plain_versions():
@@ -497,19 +573,19 @@ def phase_train(card: str):
         excess = err / (STEP_REL * ref + STEP_ABS * G)
         if excess > worst:
             worst_name, worst = n, excess
-        check(excess <= 1.0, f"train step: {n} kernel gradient off the plain one: "
+        check(excess <= 1.0, f"{phase} step: {n} kernel gradient off the plain one: "
                              f"||dg|| {err:.3e}, ||g|| {ref:.3e}, global {G:.3e}")
     rel_all = float(torch.stack([(got[n] - want_g[n]).norm() for n in got]).norm()) / G
-    say("train", f"kernel step vs plain step gradients: global ||dg||/||g|| {rel_all:.3e}; every "
+    say(phase, f"kernel step vs plain step gradients: global ||dg||/||g|| {rel_all:.3e}; every "
                  f"parameter within {STEP_REL} ||g|| + {STEP_ABS} x global ({G:.3e}); closest "
                  f"to its limit {worst_name} at {worst:.3f} of it")
 
     optimizer = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
     losses = [float(train_step(model, optimizer, batch, weights, noise=noise)["loss"])
               for _ in range(30)]
-    say("train", f"30 Adam steps on one batch and one draw: loss {losses[0]:.4f} -> "
-                 f"{losses[-1]:.4f}")
-    check(np.isfinite(losses).all() and losses[-1] < losses[0], "train: loss did not decrease")
+    say(phase, f"30 Adam steps on one batch and one draw: loss {losses[0]:.4f} -> "
+               f"{losses[-1]:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], f"{phase}: loss did not decrease")
 
     gen = torch.Generator(device=dev).manual_seed(9)
     for _ in range(3):
@@ -521,10 +597,24 @@ def phase_train(card: str):
         m = train_step(model, optimizer, batch, weights, gen)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / steps
-    check(np.isfinite(float(m["loss"])), "train: non-finite loss in the timed steps")
-    say("train", f"B={B} L=64 bf16 kernels on: {ms:.3f} ms/step, {1e3 * B / ms:.3f} samples/s "
-                 f"over {steps} steps on {card}")
-    return launches
+    check(np.isfinite(float(m["loss"])), f"{phase}: non-finite loss in the timed steps")
+    say(phase, f"B={B} L=64 bf16 kernels on: {ms:.3f} ms/step, {1e3 * B / ms:.3f} samples/s "
+               f"over {steps} steps on {card}")
+    return launches, ms
+
+
+def write_ipa_config() -> str:
+    """configs/learn_angle_tpu.yaml with ``use_pallas_ipa: true`` added,
+    written under chiprun_out/ (``profile_sampler.py --config`` reads it)."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["encoder"]["ipa"]["use_pallas_ipa"] = True
+    path = os.path.join(OUT_DIR, "learn_angle_tpu_ipa.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
 
 
 def main():
@@ -545,10 +635,30 @@ def main():
     card = phase_setup()
     rows = phase_kernels()
     phase_oracle()
-    launches = phase_main(card)
-    train_launches = phase_train(card)
-    for name in ("edge_transition_bwd", "distance_embed_bwd"):
-        launches[name] = train_launches[name]
+    phase_oracle(ipa=True)
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+
+    prod = load_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))
+    ipa_yaml = write_ipa_config()
+    ipa = load_config(ipa_yaml)
+    check(ipa.ipa.use_pallas_ipa and ipa.ipa.use_pallas, f"{ipa_yaml}: use_pallas_ipa not read")
+    zero = dict.fromkeys(native.SOURCES, 0)
+    sampled = phase_main(card, prod, "main", {**zero, "edge_transition": 500, "distance_embed": 1})
+    sampled_ipa = phase_main(card, ipa, "main ipa", {**zero, "edge_transition": 500,
+                                                     "distance_embed": 1, "ipa2": 600})
+    step = {**zero, "edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+            "distance_embed_bwd": 1}
+    trained, ms = phase_train(card, prod, "train", step)
+    trained_ipa, ms_ipa = phase_train(card, ipa, "train ipa", {**step, "ipa2": 6, "ipa2_bwd": 6})
+    say("train ipa", f"B=32 L=64 ms/step in this call: fused-IPA profile {ms_ipa:.3f}, "
+                     f"production profile {ms:.3f} on {card}")
+    launches = {"edge_transition": sampled["edge_transition"],
+                "distance_embed": sampled["distance_embed"],
+                "edge_transition_bwd": trained["edge_transition_bwd"],
+                "distance_embed_bwd": trained["distance_embed_bwd"],
+                "ipa2": sampled_ipa["ipa2"], "ipa2_bwd": trained_ipa["ipa2_bwd"]}
 
     meta = {"edge_transition": ("pepflowww_torch/csrc/edge_transition.cu",
                                 "pepflowww_tpu/models/pallas_edge.py:160"),
@@ -557,7 +667,10 @@ def main():
             "edge_transition_bwd": ("pepflowww_torch/csrc/edge_transition_bwd.cu",
                                     "pepflowww_tpu/models/pallas_edge_bwd.py:148"),
             "distance_embed_bwd": ("pepflowww_torch/csrc/distance_embed_bwd.cu",
-                                   "pepflowww_tpu/models/pallas_dist.py:279")}
+                                   "pepflowww_tpu/models/pallas_dist.py:279"),
+            "ipa2": ("pepflowww_torch/csrc/ipa2.cu", "pepflowww_tpu/models/pallas_ipa2.py:126"),
+            "ipa2_bwd": ("pepflowww_torch/csrc/ipa2_bwd.cu",
+                         "pepflowww_tpu/models/pallas_ipa2.py:344")}
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -3,9 +3,9 @@ from the shapes: for each kernel, the larger of the bytes it must move (each
 input read once, each output written once) over the memory rate and the
 operations it does over the card's peak rate for their type; the tensor
 cores and the fp32 units overlap, so the larger of their times counts.
-K1–K5 are ported (``chip_smoke.py`` prints each bound beside its kernel's
-measured time); K6–K9 are still to be ported, and their bounds are what
-their JAX twins would need on this card.
+K1–K5, K7 and K8 are ported (``chip_smoke.py`` prints each bound beside
+its kernel's measured time); K6 and K9 are still to be ported, and their
+bounds are what their JAX twins would need on this card.
 
     python -m pepflowww_torch.bounds
 
@@ -118,10 +118,12 @@ def edge_int8_bound_ms(B: int, L: int, cz=64, hid=192, cb=64, n_ro=24):
 
 def _ipa_bytes(B, L, H, C, Pq, Pv, cz4):
     """Bytes in and out of the IPA interior in the bf16 profile: q, kv, the
-    pair bias and down-projected pair bf16; points, frames and every output
-    fp32."""
-    ins = B * L * H * C * 2 * 3 + B * H * L * L * 2 + B * L * L * cz4 * 2
-    ins += 4 * (B * H * 3 * L * (2 * Pq + Pv) + B * L * 12)
+    local points (the projections' bf16 outputs), the pair bias and the
+    down-projected pair bf16; frames, the key mask, the point weights and
+    every output fp32."""
+    ins = 2 * (B * L * H * C * 3 + B * H * 3 * L * (2 * Pq + Pv) + B * H * L * L
+               + B * L * L * cz4)
+    ins += 4 * (B * L * 12 + B * L + H)
     outs = 4 * B * L * H * (C + 4 * Pv + cz4)
     return ins, outs
 
@@ -153,7 +155,7 @@ def ipa2_bwd_bound_ms(B: int, L: int, H=8, C=128, Pq=8, Pv=12, cz4=16):
     t_fp32 = (2 * (9 * Pq + 6 * Pv + 2 * cz4) + 15) * n / PEAK_FP32
     ins, outs = _ipa_bytes(B, L, H, C, Pq, Pv, cz4)
     grads = 4 * (B * L * H * C * 3 + B * H * L * L + B * L * L * cz4
-                 + B * H * 3 * L * (2 * Pq + Pv) + B * L * 12)
+                 + B * H * 3 * L * (2 * Pq + Pv) + B * L * 12 + B * H)
     return _bound(max(t_tc, t_fp32), ins + outs + grads)
 
 

@@ -5,7 +5,9 @@ batch size, seed, clip, accumulation) as a dict over the defaults.
 
 ``ipa.dtype: bfloat16`` selects bf16 matmuls; ``ipa.use_pallas: true``
 selects this package's hand-written CUDA kernels (the fused EdgeTransition
-and the distance embedding, forward and backward).
+and the distance embedding, forward and backward); ``ipa.use_pallas_ipa:
+true`` the fused IPA interior's (forward and backward). ``ipa.quant_int8:
+true`` raises: its int8 kernel is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def model_config_from_dict(m: dict) -> FlowModelConfig:
             num_blocks=ipa.get("num_blocks", 6),
             dtype=ipa.get("dtype", enc.get("dtype", m.get("dtype"))),
             use_pallas=bool(ipa.get("use_pallas", m.get("use_pallas", False))),
+            use_pallas_ipa=bool(ipa.get("use_pallas_ipa", False)),
+            quant_int8=bool(ipa.get("quant_int8", False)),
         ),
         interpolant=InterpolantConfig(
             min_t=float(itp.get("min_t", 1e-2)),

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pepflowww_torch.models import cuda_edge
+from pepflowww_torch.models import cuda_edge, cuda_ipa
 from pepflowww_torch.models.layers import Linear, cached_operands
 
 
@@ -28,14 +28,21 @@ def _rnd(x: torch.Tensor, dt) -> torch.Tensor:
 
 class InvariantPointAttention(nn.Module):
     """AF2 Algorithm 22 with pair bias, softplus head weights and the c_z/4
-    pair readout. R (B, L, 3, 3), t (B, L, 3), mask (B, L)."""
+    pair readout. R (B, L, 3, 3), t (B, L, 3), mask (B, L).
+
+    With ``use_kernels`` the interior between the input projections and
+    ``linear_out`` runs as one fused function (:mod:`cuda_ipa`: the K7
+    kernel forward, K8 backward under autograd), which masks key columns
+    only: its padded query rows differ from the plain branch's, and the
+    trunk masks them."""
 
     def __init__(self, c_s, c_z, c_hidden, no_heads, no_qk_points, no_v_points,
-                 dtype=None, inf: float = 1e5, eps: float = 1e-8):
+                 dtype=None, inf: float = 1e5, eps: float = 1e-8, use_kernels: bool = False):
         super().__init__()
         H, C, Pq, Pv = no_heads, c_hidden, no_qk_points, no_v_points
         self.H, self.C, self.Pq, self.Pv = H, C, Pq, Pv
         self.dz4, self.dtype, self.inf, self.eps = c_z // 4, dtype, inf, eps
+        self.use_kernels = use_kernels
         self.linear_q = Linear(c_s, H * C, dtype=dtype)
         self.linear_kv = Linear(c_s, 2 * H * C, dtype=dtype)
         self.linear_q_points = Linear(c_s, H * Pq * 3, dtype=dtype)
@@ -54,6 +61,8 @@ class InvariantPointAttention(nn.Module):
     def forward(self, s, z, R, t, mask, readouts=None):
         """readouts: optional (b (B, H, L, L), pair_z (B, c_z/4, L, L)) from
         the previous EdgeTransition; when given, z is not read."""
+        if self.use_kernels:
+            return self._fused(s, z, R, t, mask, readouts)
         H, C, Pq, Pv, dt = self.H, self.C, self.Pq, self.Pv, self.dtype
         B, L, _ = s.shape
         q = _rnd(self.linear_q(s), dt).reshape(B, L, H, C)
@@ -108,6 +117,36 @@ class InvariantPointAttention(nn.Module):
             return F.linear(o_feats, self.linear_out.weight, self.linear_out.bias)
         y = _rnd(o_feats, dt) @ _rnd(self.linear_out.weight, dt).t() + self.linear_out.bias
         return y.to(dt)
+
+    def _fused(self, s, z, R, t, mask, readouts):
+        """The interior through :mod:`cuda_ipa` in the JAX package's layouts,
+        passed as views of the projections (no transposes): the points as
+        (B, H, 3, L, P) coordinate planes, the pair bias head-major, the
+        pair readout (B, L, L, c_z/4) (the EdgeTransition epilogue's
+        transposed (B, c_z/4, L, L) seen through a permute)."""
+        H, Pq, Pv, dt = self.H, self.Pq, self.Pv, self.dtype
+        B, L, _ = s.shape
+        qp = self.linear_q_points(s).reshape(B, L, 3, H, Pq).permute(0, 3, 2, 1, 4)
+        kvp = self.linear_kv_points(s).reshape(B, L, 3, H, Pq + Pv).permute(0, 3, 2, 1, 4)
+        if readouts is not None:
+            bias, pz_t = readouts
+            pz = pz_t.permute(0, 2, 3, 1)
+        else:
+            bias = self.linear_b(z).permute(0, 3, 1, 2)
+            pz = self.down_z(z)
+        head_w = F.softplus(self.head_weights) * math.sqrt(1.0 / (3 * (Pq * 9.0 / 2)))
+        args = (self.linear_q(s), self.linear_kv(s), qp, kvp, R.float().reshape(B, L, 9),
+                t.float(), bias, pz, (self.inf * (mask.float() - 1.0))[:, None, :],
+                torch.sqrt(head_w).reshape(1, H))
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            o, optl, norm, opair = cuda_ipa.IPA2Fn.apply(*args, self.eps)
+        else:
+            o, optl, norm, opair = cuda_ipa.fused_ipa2(*args, eps=self.eps)
+        o_feats = torch.cat([o, optl, norm, opair], -1)
+        w, b = self.linear_out.weight, self.linear_out.bias
+        if dt is None:
+            return F.linear(o_feats, w, b)
+        return F.linear(o_feats.to(dt), w.to(dt), b.to(dt))
 
 
 class EdgeTransition(nn.Module):

@@ -25,7 +25,10 @@ from pepflowww_torch.ops.frames import compose_q_update
 class IPAConfig:
     """configs/learn_angle*.yaml ``model.encoder.ipa``. ``dtype`` "bfloat16"
     selects bf16 matmuls (parameters, geometry, softmax and LayerNorm stay
-    float32); ``use_pallas`` selects the hand-written CUDA kernels."""
+    float32); ``use_pallas`` selects the hand-written CUDA kernels of the
+    EdgeTransition and the distance block; ``use_pallas_ipa`` the fused IPA
+    interior (K7, K8). ``quant_int8`` (the JAX package's int8 pair GEMMs,
+    K6) is not ported yet: it raises rather than run bf16 in its place."""
 
     c_s: int = 128
     c_z: int = 64
@@ -38,6 +41,16 @@ class IPAConfig:
     num_blocks: int = 6
     dtype: Optional[str] = None
     use_pallas: bool = False
+    use_pallas_ipa: bool = False
+    quant_int8: bool = False
+
+    def __post_init__(self):
+        if self.quant_int8 and not self.use_pallas:
+            raise ValueError("IPAConfig(quant_int8=True) requires use_pallas=True: the int8 "
+                             "pair GEMMs exist only in the fused EdgeTransition kernel")
+        if self.quant_int8:
+            raise NotImplementedError("quant_int8: the int8 EdgeTransition kernel (K6, "
+                                      "pallas_edge.py int8 branch) is not ported yet")
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -57,7 +70,7 @@ class GAEncoder(nn.Module):
         for b in range(cfg.num_blocks):
             trunk[f"ipa_{b}"] = InvariantPointAttention(
                 cfg.c_s, cfg.c_z, cfg.c_hidden, cfg.no_heads, cfg.no_qk_points,
-                cfg.no_v_points, dtype=dt)
+                cfg.no_v_points, dtype=dt, use_kernels=cfg.use_pallas_ipa)
             trunk[f"ipa_ln_{b}"] = nn.LayerNorm(cfg.c_s, eps=1e-5)
             trunk[f"seq_tfmr_{b}"] = TransformerEncoder(
                 cfg.c_s, cfg.seq_tfmr_num_heads, cfg.seq_tfmr_num_layers, dtype=dt)

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` holds a plain C entry point (no PyTorch headers),
 so ``nvcc`` builds it into a shared library in seconds. The library lands
 in ``pepflowww_torch/build/`` under a name that carries the hash of its
-source, so an edited source is always rebuilt, and is loaded with
-``ctypes``. Nothing here runs at import time: the first kernel call builds
-(or :func:`build_all` builds every source at once, one ``nvcc`` each, in
-parallel).
+source and of the shared headers (``csrc/*.cuh``), so an edited source is
+always rebuilt, and is loaded with ``ctypes``. Nothing here runs at import
+time: the first kernel call builds (or :func:`build_all` builds every
+source at once, one ``nvcc`` each, in parallel).
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else.
@@ -24,7 +24,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("edge_transition", "distance_embed", "edge_transition_bwd", "distance_embed_bwd")
+SOURCES = ("edge_transition", "distance_embed", "edge_transition_bwd", "distance_embed_bwd",
+           "ipa2", "ipa2_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -104,16 +108,18 @@ def sm_count(device) -> int:
     return _SM_COUNT[idx]
 
 
-def check_tensor(t, name: str, shape, dtype) -> None:
+def check_tensor(t, name: str, shape, dtype, contiguous: bool = True) -> None:
     """Raise unless `t` is a contiguous, 16-byte aligned CUDA tensor of
-    `shape` and `dtype`: what the kernels read with vector loads."""
+    `shape` and `dtype`: what the kernels read with vector loads. With
+    ``contiguous=False`` any strides pass (a kernel that reads the tensor
+    through its strides)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if contiguous and (not t.is_contiguous() or t.data_ptr() % 16):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 

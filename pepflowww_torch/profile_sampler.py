@@ -1,16 +1,17 @@
-"""Where the time of the production sampler, or of its training step, goes
-on one GPU.
+"""Where the time of the sampler, or of its training step, goes on one GPU.
 
-    python -m pepflowww_torch.profile_sampler [--out chiprun_out/profile]
-    python -m pepflowww_torch.profile_sampler --train
+    python -m pepflowww_torch.profile_sampler [--config PATH] [--out chiprun_out/profile]
+    python -m pepflowww_torch.profile_sampler --train [--config PATH]
 
-The production profile (configs/learn_angle_tpu.yaml: 6 blocks, c_s 128,
-c_z 64, bf16) with seeded random weights on 64 synthetic complexes of L=64
-(48-residue pocket + 12-residue peptide). It prints, each on its own line:
+The model of ``--config`` (default the production profile,
+configs/learn_angle_tpu.yaml: 6 blocks, c_s 128, c_z 64, bf16; a YAML that
+adds ``use_pallas_ipa: true`` gives the fused-IPA profile) with seeded
+random weights on 64 synthetic complexes of L=64 (48-residue pocket +
+12-residue peptide). It prints, each on its own line:
 
 * the wall time and peptides/s of 100-step runs with the hand-written
-  kernels and with their plain PyTorch versions, in turns (kernels, plain,
-  plain, kernels, three times), and the median of each;
+  kernels and with the config's kernel flags off (plain PyTorch), in turns
+  (kernels, plain, plain, kernels, three times), and the median of each;
 * a ``torch.profiler`` window of a 5-step run: device busy and idle share
   of the window, kernels launched per denoise pass, device time by category
   and the top kernels by device time; the trace is written to ``--out``.
@@ -25,6 +26,7 @@ Runs on CUDA only: it measures the device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import time
@@ -32,14 +34,16 @@ import time
 import numpy as np
 import torch
 
+from pepflowww_torch.config import load_config
 from pepflowww_torch.data.collate import device_batch
 from pepflowww_torch.data.synthetic import make_batch
 from pepflowww_torch.device import resolve_device
-from pepflowww_torch.models.flow import FlowModelConfig, build_model
-from pepflowww_torch.models.trunk import IPAConfig
+from pepflowww_torch.models.flow import build_model
 from pepflowww_torch.sampling import euler_sample
 
 CATEGORIES = (  # (category, substrings of the kernel name), first match wins
+    ("ipa2_bwd (K8)", ("ipa2_bwd_",)),
+    ("ipa2 (K7)", ("ipa2_fwd_",)),
     ("edge_transition_bwd (K4)", ("edge_bwd_",)),
     ("distance_embed_bwd (K5)", ("dist_bwd_",)),
     ("edge_transition (kernel B)", ("edge_transition_kernel", "node_proj_kernel")),
@@ -53,12 +57,16 @@ CATEGORIES = (  # (category, substrings of the kernel name), first match wins
 )
 
 
-def production_model(dev, use_kernels: bool = True, seed: int = 0):
-    """The production-profile model with seeded random weights. Every
+def production_model(dev, cfg, use_kernels: bool = True, seed: int = 0):
+    """The model of `cfg` (a FlowModelConfig, e.g. ``load_config`` of
+    configs/learn_angle_tpu.yaml) with seeded random weights; without
+    `use_kernels`, every kernel flag off. Every
     parameter gets seeded noise on top of the reference init, whose zero
     ("final") layers would otherwise make each EdgeTransition output its
     LayerNorm bias."""
-    cfg = FlowModelConfig(ipa=IPAConfig(num_blocks=6, dtype="bfloat16", use_pallas=use_kernels))
+    if not use_kernels:
+        cfg = dataclasses.replace(cfg, ipa=dataclasses.replace(cfg.ipa, use_pallas=False,
+                                                               use_pallas_ipa=False))
     model = build_model(cfg, dev, seed=seed)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     with torch.no_grad():
@@ -155,7 +163,7 @@ def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
     return summary
 
 
-def _profile_train(dev, card: str, out_dir: str, batch_size: int = 32) -> None:
+def _profile_train(dev, card: str, out_dir: str, cfg, batch_size: int = 32) -> None:
     from pepflowww_torch.config import DEFAULT_TRAIN
     from pepflowww_torch.training.optim import Optimizer
     from pepflowww_torch.training.train_step import train_step
@@ -165,7 +173,7 @@ def _profile_train(dev, card: str, out_dir: str, batch_size: int = 32) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     runs = {}
     for name, kernels in (("kernels", True), ("plain", False)):
-        model = production_model(dev, kernels).train()
+        model = production_model(dev, cfg, kernels).train()
         runs[name] = (model, Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"]))
 
     def steps(name, n):
@@ -195,6 +203,7 @@ def _profile_train(dev, card: str, out_dir: str, batch_size: int = 32) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default=os.path.join("configs", "learn_angle_tpu.yaml"))
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile"))
     ap.add_argument("--train", action="store_true", help="profile the training step")
     args = ap.parse_args(argv)
@@ -205,10 +214,15 @@ def main(argv=None):
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[profile] card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}",
           flush=True)
+    cfg = load_config(args.config)
+    ipa = cfg.ipa
+    print(f"[profile] config {args.config}: {ipa.num_blocks} blocks, dtype {ipa.dtype}, "
+          f"use_pallas {ipa.use_pallas}, use_pallas_ipa {ipa.use_pallas_ipa}", flush=True)
     if args.train:
-        _profile_train(dev, card, args.out)
+        _profile_train(dev, card, args.out, cfg)
         return
-    models = {"kernels": production_model(dev, True), "plain": production_model(dev, False)}
+    models = {"kernels": production_model(dev, cfg, True),
+              "plain": production_model(dev, cfg, False)}
     batch, _ = main_path_batch(dev, batch_size)
     for m in models.values():
         _timed_run(m, batch, 2, 0)  # warm-up: kernel build, cuBLAS handles, caches

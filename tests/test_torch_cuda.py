@@ -13,6 +13,11 @@ pair of products of bf16-rounded operands: each is held to its plain
 version within 1e-2 of the plain gradient's norm (a rounding that flips
 between the two moves one term by one bf16 step; a wrong index or a lost
 partial moves the whole sum), and two calls must agree bit for bit.
+The fused IPA forward (K7) has fp32 outputs: each within 2e-2 + 1e-3 of
+|plain| (one bf16 rounding of an attention weight that flips between kernel
+and plain version moves the scalar output by at most 2^-9 |v|; the point
+sums run in fp32 in another order); its backward (K8) is held like the
+other backward kernels.
 """
 
 import numpy as np
@@ -20,7 +25,7 @@ import pytest
 import torch
 
 from pepflowww_torch import native
-from pepflowww_torch.models import cuda_dist, cuda_edge
+from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +161,89 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         cuda_dist.fused_distance_embed(*args, pd, dtype=torch.float32)
     assert native.LAUNCHES == before
+
+
+def ipa_inputs(dev, B, L, seed=0, module_layout=False):
+    """Inputs of the fused IPA at the production widths (H 8, C 128, Pq 8,
+    Pv 12, CZ4 16), bf16 where the model feeds bf16. With `module_layout`
+    the points, the pair bias and the pair readout are permuted views, as
+    the module passes them (the readout in the EdgeTransition epilogue's
+    (B, CZ4, L, L) layout)."""
+    H, C, Pq, Pv, CZ4 = 8, 128, 8, 12, 16
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)).to(dev)
+    R = torch.from_numpy(np.linalg.qr(rng.normal(size=(B, L, 3, 3)))[0].astype(np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((B, L)) > 0.15).astype(np.float32)).to(dev)
+    bf = torch.bfloat16
+    if module_layout:
+        qp = f(B, L, 3, H, Pq, sc=2.0).to(bf).permute(0, 3, 2, 1, 4)
+        kvp = f(B, L, 3, H, Pq + Pv, sc=2.0).to(bf).permute(0, 3, 2, 1, 4)
+        bias = f(B, L, L, H).to(bf).permute(0, 3, 1, 2)
+        pz = f(B, CZ4, L, L).to(bf).permute(0, 2, 3, 1)
+    else:
+        qp, kvp = f(B, H, 3, L, Pq, sc=2.0).to(bf), f(B, H, 3, L, Pq + Pv, sc=2.0).to(bf)
+        bias, pz = f(B, H, L, L).to(bf), f(B, L, L, CZ4).to(bf)
+    sw = (f(1, H, sc=0.1).abs() + 0.2)
+    return [f(B, L, H * C).to(bf), f(B, L, 2 * H * C).to(bf), qp, kvp, R.reshape(B, L, 9),
+            f(B, L, 3, sc=5.0), bias, pz, (1e5 * (mask - 1.0))[:, None, :], sw]
+
+
+@pytest.mark.parametrize("L,module_layout", [(64, False), (40, True), (256, False)])
+def test_ipa2_kernel_matches_plain(dev, L, module_layout):
+    args = ipa_inputs(dev, 2, L, seed=L, module_layout=module_layout)
+    before = native.LAUNCHES["ipa2"]
+    got = cuda_ipa.fused_ipa2(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa2"] == before + 1
+    want = cuda_ipa.ipa2_plain(*args)
+    for name, a, b in zip(("o", "optl", "norm", "opair"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        excess = float(((a - b).abs() - 1e-3 * b.abs()).max())
+        assert excess <= 2e-2, (name, excess)
+
+
+@pytest.mark.parametrize("L,module_layout", [(64, False), (24, True)])
+def test_ipa2_backward_kernel_matches_plain(dev, L, module_layout):
+    args = ipa_inputs(dev, 2, L, seed=L + 1, module_layout=module_layout)
+    rng = np.random.default_rng(L)
+    outs = cuda_ipa.ipa2_plain(*args)
+    cots = [torch.from_numpy(rng.normal(size=o.shape).astype(np.float32)).to(dev) for o in outs]
+    before = native.LAUNCHES["ipa2_bwd"]
+    got = cuda_ipa.ipa2_bwd(*args, *cots)
+    again = cuda_ipa.ipa2_bwd(*args, *cots)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa2_bwd"] == before + 2
+    want = cuda_ipa.ipa2_bwd_plain(*args, *cots)
+    names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
+    for name, a, b, c in zip(names, got, want, again):
+        _close_in_norm(a, b, name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+
+
+def test_ipa2_wrappers_reject_what_they_do_not_take(dev):
+    """float32 scalar inputs, a width the kernels do not take (C = 64) and
+    the bare forward under grad mode are refused, with no launch; the
+    autograd Function launches both kernels once and fills every grad."""
+    args = ipa_inputs(dev, 1, 8)
+    before = dict(native.LAUNCHES)
+    with pytest.raises(ValueError):
+        cuda_ipa.fused_ipa2(args[0].float(), *args[1:])
+    narrow = list(args)
+    narrow[0], narrow[1] = args[0][..., :512].contiguous(), args[1][..., :1024].contiguous()
+    with pytest.raises(ValueError):
+        cuda_ipa.fused_ipa2(*narrow)
+    with pytest.raises(ValueError):
+        cuda_ipa.ipa2_bwd(*args, *(torch.zeros(1, 8, w, device=dev) for w in (1024, 288, 96, 64)))
+    leaves = [a.detach().clone().requires_grad_() if a.is_floating_point() and i != 8 else a
+              for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="no autograd"):
+        cuda_ipa.fused_ipa2(*leaves)
+    assert native.LAUNCHES == before
+    out = cuda_ipa.IPA2Fn.apply(*leaves, 1e-8)
+    sum(o.square().sum() for o in out).backward()
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa2"] == before["ipa2"] + 1
+    assert native.LAUNCHES["ipa2_bwd"] == before["ipa2_bwd"] + 1
+    for i, x in enumerate(leaves):
+        if i != 8:
+            assert x.grad is not None and bool(torch.isfinite(x.grad).all()), i

@@ -84,17 +84,22 @@ def jax_step(golden):
     key = jax.random.PRNGKey(7)
     jmodel = JaxFlowModel(JaxFlowModelConfig(ipa=JaxIPAConfig(num_blocks=nb)))
     params = convert_state_dict(sd, num_blocks=nb, seq_tfmr_num_layers=2)
-    (total, losses), grads = jax.jit(
-        jax.value_and_grad(make_loss_fn(jmodel, WEIGHTS), has_aux=True))(
-        params, {k: jnp.asarray(v) for k, v in bnp.items()}, key)
-    grads = joptim.zero_nans(grads)
+    @jax.jit
+    def step(params, batch, key):
+        (total, losses), grads = jax.value_and_grad(make_loss_fn(jmodel, WEIGHTS),
+                                                    has_aux=True)(params, batch, key)
+        grads = joptim.zero_nans(grads)
+        return total, losses, grads, optax.global_norm(grads)
+
+    total, losses, grads, grad_norm = step(params, {k: jnp.asarray(v) for k, v in bnp.items()},
+                                           key)
     tx = joptim.make_optimizer({"type": "adam", "lr": 1e-3}, 100.0)
     adam_step = jax.jit(lambda gr, p: optax.apply_updates(p, tx.update(gr, tx.init(p), p)[0]))
     noise = {k: torch.from_numpy(np.array(v))
              for k, v in jax_noise(jmodel, params, key, B, L).items()}
     return {"nb": nb, "sd": sd, "batch": bnp, "noise": noise, "total": float(total),
             "losses": {k: float(v) for k, v in losses.items()},
-            "grad_norm": float(optax.global_norm(grads)),
+            "grad_norm": float(grad_norm),
             "grads": state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads),
                                           num_blocks=nb),
             "params": params, "adam_step": adam_step}
