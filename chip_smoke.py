@@ -16,19 +16,29 @@ Phases, each on its own lines:
    show bit-identical gradients, and the forward EdgeTransition (readout
    off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
    and L=64, 40 and 256 in the sampler's input layouts; its backward (K8)
-   at B=32 and L=64, 24 and 256 in the training step's.
+   at B=32 and L=64, 24 and 256 in the training step's. The int8
+   EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
+   L=40. The v1 IPA attention core (K9), through both of its wrappers, at
+   B=64, L=64 at the model's widths in bf16 and at the JAX tests' widths in
+   fp32 at L=40 and 256.
 3. oracle: the bf16 sampler with the kernels, weights of the trained nb=6
    reference oracle (``tests/golden/sampler_stats_trained6.npz``) loaded
    strict, its 64x24 batch for its 25 steps and 3 seeds pooled; AAR and
    translation norm within the 2-sigma bounds of
    tests/test_sampler_parity.py, and the launch counts of the kernels; then
-   the same with the fused IPA (``use_pallas_ipa``) on.
+   the same with the fused IPA (``use_pallas_ipa``) on. Then the int8
+   serving profile (``quant_int8``): the JAX package's own int8 gate (the
+   trained nb=2 oracle ``sampler_stats_trained.npz``, seeds 29/30/31
+   pooled, tests/test_sampler_parity.py:237-275) and the nb=6 gate.
 4. main: the production sampler (configs/learn_angle_tpu.yaml: 6 blocks,
    c_s 128, c_z 64, bf16, kernels on) on B=64, L=64 synthetic complexes
    (48-residue pocket + 12-residue peptide) for 100 steps with seeded random
    weights; peptides/s, the launch counts, and well-formed PDBs. Then the
    fused-IPA profile (the same YAML with ``use_pallas_ipa: true``) on the
-   same workload: K7 600 times, K2 500, K3 once.
+   same workload: K7 600 times, K2 500, K3 once. Then the int8 serving
+   profile (the YAML with ``quant_int8: true``), this slice's main path:
+   K6 500 times, K3 once and no other kernel, peptides/s beside the
+   production profile's.
 5. train: the production profile's training step at B=32 (the config's
    batch_size), L=64 synthetic batches, seeded weights: launches per step
    (5 EdgeTransition forward and backward, 1 distance forward and backward),
@@ -36,12 +46,15 @@ Phases, each on its own lines:
    against the same step through the plain versions, 30 Adam steps on one
    batch and one draw lowering the loss, and ms/step and samples/s over 20
    timed steps. Then the same for the fused-IPA profile (6 K7 and 6 K8
-   launches besides those).
+   launches besides those). Then a training step of the int8 profile must
+   raise its forward-only error, with no EdgeTransition launched.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition and distance forward kernels on the production sampler's,
 their backward kernels on the production training step's, K7 on the
-fused-IPA sampler's and K8 on the fused-IPA training step's.
+fused-IPA sampler's, K8 on the fused-IPA training step's and K6 on the
+int8 sampler's. K9 has no model path in either package: its launches are
+the kernels phase's checks.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -79,6 +92,8 @@ STEP_REL, STEP_ABS = 5e-2, 1e-3
 # plain version moves the scalar output by at most 2^-9 |v|; the logits,
 # softmax and point sums run in fp32 in another order.
 IPA_TOL = (2e-2, 1e-3)
+# K9 with fp32 inputs at the JAX tests' widths: the same sums in another order.
+IPA1_FP32_TOL = (1e-3, 1e-4)
 
 
 def fail(msg: str) -> None:
@@ -176,10 +191,11 @@ def phase_kernels():
 
     from pepflowww_torch import native
     from pepflowww_torch.bounds import (dist_bound_ms, dist_bwd_bound_ms, edge_bound_ms,
-                                        edge_bwd_bound_ms, ipa2_bound_ms, ipa2_bwd_bound_ms)
+                                        edge_bwd_bound_ms, edge_int8_bound_ms, ipa2_bound_ms,
+                                        ipa2_bwd_bound_ms, ipa_v1_bound_ms)
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.data.synthetic import make_batch
-    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
+    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa, cuda_ipa1
 
     dev = torch.device("cuda", 0)
     rows = {}
@@ -309,7 +325,68 @@ def phase_kernels():
         err = compare_grads(tag, names, got, plain(), call())
         if L == 64:
             rows["ipa2_bwd"] = _time_row(tag, call, plain, ipa2_bwd_bound_ms(32, L), err)
+
+    # K6: the int8 EdgeTransition, readout off and on, flagship and ragged L.
+    for L in (64, 40):
+        edge, nb, mask, p, ro = _edge_inputs(64, L, dev, seed=900 + L)
+        ops = cuda_edge.kernel_operands(p, ro, quant_int8=True)
+        for with_ro in (False, True):
+            r = ro if with_ro else None
+            tag = f"edge_transition_int8{'+readout' if with_ro else ''} B=64 L={L}"
+            call = lambda: cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=r,
+                                                                ops=ops)
+            plain = lambda: cuda_edge.edge_transition_int8_plain(edge, nb, mask, p,
+                                                                 torch.bfloat16, r)
+            got = _launch_once("edge_transition_int8", call, tag)
+            got, want = (got, plain()) if with_ro else ((got,), (plain(),))
+            err = max(compare(f"{tag} [{n}]", a, b, EDGE_TOL)
+                      for n, a, b in zip(("out", "b", "pz"), got, want))
+            if L == 64:
+                row = _time_row(tag, call, plain,
+                                edge_int8_bound_ms(64, L, n_ro=24 if with_ro else 0), err)
+                if with_ro:
+                    rows["edge_transition_int8"] = row
+
+    # K9: the v1 IPA attention core, both wrappers; no model path uses it.
+    checks = 0
+    for widths, dt, L in (("model", torch.bfloat16, 64), ("test", torch.float32, 40),
+                          ("test", torch.float32, 256)):
+        args = _ipa1_inputs(64, L, widths, dt, dev, seed=1000 + L)
+        tol = IPA_TOL if dt == torch.bfloat16 else IPA1_FP32_TOL
+        want = cuda_ipa1.ipa_attention_plain(*args)
+        for fn in (cuda_ipa1.fused_ipa_attention, cuda_ipa1.fused_ipa_attention_bh):
+            tag = f"ipa1 {fn.__name__} B=64 L={L} {widths} widths {str(dt)[6:]}"
+            got = _launch_once("ipa1", lambda: fn(*args), tag)
+            checks += 1
+            err = max(compare(f"{tag} [{n}]", a, b, tol)
+                      for n, a, b in zip(("o", "o_pt", "o_pair"), got, want))
+        if widths == "model":
+            rows["ipa1"] = _time_row(f"ipa1 B=64 L={L} model widths bf16",
+                                     lambda: cuda_ipa1.fused_ipa_attention(*args),
+                                     lambda: cuda_ipa1.ipa_attention_plain(*args),
+                                     ipa_v1_bound_ms(64, L), err)
+        else:
+            _time_row(f"ipa1 B=64 L={L} test widths fp32",
+                      lambda: cuda_ipa1.fused_ipa_attention(*args),
+                      lambda: cuda_ipa1.ipa_attention_plain(*args),
+                      ipa_v1_bound_ms(64, L, H=4, C=32, Pq=4, Pv=6, cz4=8, in_bytes=4), err)
+    rows["ipa1"]["checks"] = checks
     return rows
+
+
+def _ipa1_inputs(B, L, widths, dtype, dev, seed):
+    """Inputs of the v1 attention core, head-major, at the model's widths
+    (H 8, C 128, Pq 8, Pv 12, CZ4 16) or the JAX tests' (H 4, C 32, Pq 4,
+    Pv 6, CZ4 8): q, k, v, bias and pair_z in `dtype`, global points fp32,
+    about 15% of the keys masked."""
+    import torch
+
+    H, C, Pq, Pv, CZ4 = (8, 128, 8, 12, 16) if widths == "model" else (4, 32, 4, 6, 8)
+    r = lambda *s, k: _randn(s, dev, seed + k)
+    mask = (torch.rand(B, L, generator=torch.Generator().manual_seed(seed)) > 0.15).float().to(dev)
+    return [r(B, H, L, C, k=1).to(dtype), r(B, H, L, C, k=2).to(dtype), r(B, H, L, C, k=3).to(dtype),
+            r(B, H, L, 3 * Pq, k=4), r(B, H, L, 3 * Pq, k=5), r(B, H, L, 3 * Pv, k=6),
+            r(B, H, L, L, k=7).to(dtype), r(B, L, L, CZ4, k=8).to(dtype), mask]
 
 
 def _ipa_inputs(B, L, dev, seed, layout):
@@ -395,7 +472,11 @@ def _oracle_stats(out, gen):
     return aar.cpu().numpy(), tn.cpu().numpy()
 
 
-def phase_oracle(ipa: bool = False):
+def phase_oracle(phase: str = "oracle", ipa: bool = False, int8: bool = False,
+                 golden: str = "sampler_stats_trained6", seeds=(53, 54, 55)):
+    """The bf16 kernel sampler with the weights of a trained reference oracle
+    against its AAR and translation norm: fused IPA with `ipa`, the int8
+    EdgeTransitions with `int8`."""
     import numpy as np
     import torch
 
@@ -405,30 +486,26 @@ def phase_oracle(ipa: bool = False):
     from pepflowww_torch.sampling import euler_sample
 
     dev = torch.device("cuda", 0)
-    g = np.load(os.path.join(ROOT, "tests", "golden", "sampler_stats_trained6.npz"))
+    g = np.load(os.path.join(ROOT, "tests", "golden", f"{golden}.npz"))
     nb, steps, n = int(g["num_blocks"]), int(g["num_steps"]), int(g["num_samples"])
     sd = {k[4:]: np.asarray(g[k], np.float32) for k in g.files if k.startswith("sd::")}
     cfg = FlowModelConfig(ipa=IPAConfig(num_blocks=nb, dtype="bfloat16", use_pallas=True,
-                                        use_pallas_ipa=ipa))
-    phase = "oracle ipa" if ipa else "oracle"
+                                        use_pallas_ipa=ipa, quant_int8=int8))
     model = build_model(cfg, dev, state_dict=sd)
     batch = {k[6:]: torch.from_numpy(np.asarray(g[k])).to(dev) for k in g.files
              if k.startswith("batch_")}
     gen = batch["generate_mask"].bool()
+    edge_kernel = "edge_transition_int8" if int8 else "edge_transition"
+    want = {**dict.fromkeys(native.SOURCES, 0), edge_kernel: (nb - 1) * steps,
+            "distance_embed": 1, "ipa2": nb * steps if ipa else 0}
     aars, tns = [], []
-    for seed in (53, 54, 55):
+    for seed in seeds:
         native.reset_launch_counts()
         out = euler_sample(model, batch, torch.Generator(device=dev).manual_seed(seed),
                            num_steps=steps)
         torch.cuda.synchronize()
         counts = dict(native.LAUNCHES)
-        check(counts["edge_transition"] == (nb - 1) * steps,
-              f"oracle seed {seed}: {counts['edge_transition']} EdgeTransition launches, "
-              f"expected {(nb - 1) * steps}")
-        check(counts["distance_embed"] == 1,
-              f"oracle seed {seed}: {counts['distance_embed']} distance launches, expected 1")
-        check(counts["ipa2"] == (nb * steps if ipa else 0),
-              f"oracle seed {seed}: {counts['ipa2']} fused IPA launches")
+        check(counts == want, f"{phase} seed {seed}: launched {counts}, expected {want}")
         aar, tn = _oracle_stats(out, gen)
         aars.append(aar)
         tns.append(tn)
@@ -439,7 +516,7 @@ def phase_oracle(ipa: bool = False):
         sem = np.sqrt(np.var(ref) / n + np.var(ours) / len(ours))
         tol = 2.0 * float(sem) + max(0.05 * float(np.std(ref)), 3e-3)
         diff = abs(float(np.mean(ours)) - float(np.mean(ref)))
-        say(phase, f"{name}: ours {np.mean(ours):.4f} vs trained nb=6 reference "
+        say(phase, f"{name}: ours {np.mean(ours):.4f} vs trained nb={nb} reference "
                    f"{np.mean(ref):.4f}, |diff| {diff:.4f} <= tol {tol:.4f}")
         check(diff <= tol, f"{phase} {name} outside the 2-sigma bound")
 
@@ -468,7 +545,7 @@ def phase_main(card: str, cfg, phase: str, want: dict):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    say(phase, f"B={B} L=64 steps={steps} bf16 kernels on: {sec:.3f} s, "
+    say(phase, f"B={B} L=64 steps={steps} kernels on: {sec:.3f} s, "
                f"{B / sec:.3f} peptides/s on {card}; launches {launches}")
     check(launches == want, f"{phase}: launched {launches}, expected {want}")
     for k in ("rotmats", "trans", "angles"):
@@ -490,7 +567,7 @@ def phase_main(card: str, cfg, phase: str, want: dict):
         check(len(ca) == 60 and {ln[21] for ln in atoms} == {"A", "B"}, f"{path}: wrong residues")
     say(phase, f"wrote {len(paths)} PDBs with well-formed ATOM records to "
                f"{os.path.dirname(paths[0])}")
-    return launches
+    return launches, B / sec
 
 
 class plain_versions:
@@ -603,15 +680,50 @@ def phase_train(card: str, cfg, phase: str, want: dict):
     return launches, ms
 
 
-def write_ipa_config() -> str:
-    """configs/learn_angle_tpu.yaml with ``use_pallas_ipa: true`` added,
-    written under chiprun_out/ (``profile_sampler.py --config`` reads it)."""
+def phase_train_int8(cfg):
+    """A training step of the int8 serving profile must raise its
+    forward-only error and launch no EdgeTransition kernel: no silent bf16
+    step."""
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import DEFAULT_TRAIN
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    dev = torch.device("cuda", 0)
+    tc = DEFAULT_TRAIN
+    model = production_model(dev, cfg).train()
+    optimizer = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    batch, _ = main_path_batch(dev, int(tc["batch_size"]), seed=7)
+    native.reset_launch_counts()
+    try:
+        train_step(model, optimizer, batch, tc["loss_weights"], torch.Generator(device=dev))
+        error = None
+    except RuntimeError as e:
+        error = str(e)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in native.LAUNCHES.items() if v}
+    check(error is not None and "quant_int8" in error,
+          f"train int8: the step did not raise the forward-only error ({error!r})")
+    check(not any(native.LAUNCHES[k] for k in ("edge_transition", "edge_transition_int8",
+                                               "edge_transition_bwd")),
+          f"train int8: an EdgeTransition kernel ran before the refusal: {launches}")
+    say("train int8", f"a training step raised, as it must: {error}; launches before it "
+                      f"{launches}")
+
+
+def write_config(name: str, **ipa) -> str:
+    """configs/learn_angle_tpu.yaml with the `ipa` keys set under
+    model.encoder.ipa, written to chiprun_out/<name>.yaml
+    (``profile_sampler.py --config`` reads it)."""
     import yaml
 
     with open(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")) as f:
         raw = yaml.safe_load(f)
-    raw["model"]["encoder"]["ipa"]["use_pallas_ipa"] = True
-    path = os.path.join(OUT_DIR, "learn_angle_tpu_ipa.yaml")
+    raw["model"]["encoder"]["ipa"].update(ipa)
+    path = os.path.join(OUT_DIR, f"{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
     return path
@@ -635,30 +747,43 @@ def main():
     card = phase_setup()
     rows = phase_kernels()
     phase_oracle()
-    phase_oracle(ipa=True)
+    phase_oracle("oracle ipa", ipa=True)
+    phase_oracle("oracle int8", int8=True, golden="sampler_stats_trained", seeds=(29, 30, 31))
+    phase_oracle("oracle int8 nb=6", int8=True)
 
     from pepflowww_torch import native
     from pepflowww_torch.config import load_config
 
     prod = load_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))
-    ipa_yaml = write_ipa_config()
+    ipa_yaml = write_config("learn_angle_tpu_ipa", use_pallas_ipa=True)
     ipa = load_config(ipa_yaml)
     check(ipa.ipa.use_pallas_ipa and ipa.ipa.use_pallas, f"{ipa_yaml}: use_pallas_ipa not read")
+    int8_yaml = write_config("learn_angle_tpu_int8", quant_int8=True)
+    int8 = load_config(int8_yaml)
+    check(int8.ipa.quant_int8 and int8.ipa.use_pallas, f"{int8_yaml}: quant_int8 not read")
     zero = dict.fromkeys(native.SOURCES, 0)
-    sampled = phase_main(card, prod, "main", {**zero, "edge_transition": 500, "distance_embed": 1})
-    sampled_ipa = phase_main(card, ipa, "main ipa", {**zero, "edge_transition": 500,
-                                                     "distance_embed": 1, "ipa2": 600})
+    sampled, pps = phase_main(card, prod, "main", {**zero, "edge_transition": 500,
+                                                   "distance_embed": 1})
+    sampled_ipa, _ = phase_main(card, ipa, "main ipa", {**zero, "edge_transition": 500,
+                                                        "distance_embed": 1, "ipa2": 600})
+    sampled_int8, pps_int8 = phase_main(card, int8, "main int8",
+                                        {**zero, "edge_transition_int8": 500, "distance_embed": 1})
+    say("main int8", f"B=64 L=64 100 steps, peptides/s in this call: int8 profile "
+                     f"{pps_int8:.3f}, production profile {pps:.3f} on {card}")
     step = {**zero, "edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
             "distance_embed_bwd": 1}
     trained, ms = phase_train(card, prod, "train", step)
     trained_ipa, ms_ipa = phase_train(card, ipa, "train ipa", {**step, "ipa2": 6, "ipa2_bwd": 6})
     say("train ipa", f"B=32 L=64 ms/step in this call: fused-IPA profile {ms_ipa:.3f}, "
                      f"production profile {ms:.3f} on {card}")
+    phase_train_int8(int8)
     launches = {"edge_transition": sampled["edge_transition"],
                 "distance_embed": sampled["distance_embed"],
                 "edge_transition_bwd": trained["edge_transition_bwd"],
                 "distance_embed_bwd": trained["distance_embed_bwd"],
-                "ipa2": sampled_ipa["ipa2"], "ipa2_bwd": trained_ipa["ipa2_bwd"]}
+                "ipa2": sampled_ipa["ipa2"], "ipa2_bwd": trained_ipa["ipa2_bwd"],
+                "edge_transition_int8": sampled_int8["edge_transition_int8"],
+                "ipa1": rows["ipa1"]["checks"]}
 
     meta = {"edge_transition": ("pepflowww_torch/csrc/edge_transition.cu",
                                 "pepflowww_tpu/models/pallas_edge.py:160"),
@@ -670,11 +795,20 @@ def main():
                                    "pepflowww_tpu/models/pallas_dist.py:279"),
             "ipa2": ("pepflowww_torch/csrc/ipa2.cu", "pepflowww_tpu/models/pallas_ipa2.py:126"),
             "ipa2_bwd": ("pepflowww_torch/csrc/ipa2_bwd.cu",
-                         "pepflowww_tpu/models/pallas_ipa2.py:344")}
+                         "pepflowww_tpu/models/pallas_ipa2.py:344"),
+            "edge_transition_int8": ("pepflowww_torch/csrc/edge_transition_int8.cu",
+                                     "pepflowww_tpu/models/pallas_edge.py:47"),
+            "ipa1": ("pepflowww_torch/csrc/ipa1.cu", "pepflowww_tpu/models/pallas_ipa.py:66")}
+    # No single PyTorch call computes any of them (library_ms null): torch._int_mm is one
+    # of K6's GEMMs, and scaled_dot_product_attention gives neither K7's nor K9's o_pair.
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None} for name, r in rows.items()]
+    for k in kernels:
+        if k["name"] == "ipa1":
+            k["path"] = ("none in either package (tests only): launches are the kernels "
+                         "phase's checks")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

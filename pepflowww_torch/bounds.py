@@ -3,9 +3,8 @@ from the shapes: for each kernel, the larger of the bytes it must move (each
 input read once, each output written once) over the memory rate and the
 operations it does over the card's peak rate for their type; the tensor
 cores and the fp32 units overlap, so the larger of their times counts.
-K1–K5, K7 and K8 are ported (``chip_smoke.py`` prints each bound beside
-its kernel's measured time); K6 and K9 are still to be ported, and their
-bounds are what their JAX twins would need on this card.
+Every one of K1–K9 is ported; ``chip_smoke.py`` prints each bound beside
+its kernel's measured time.
 
     python -m pepflowww_torch.bounds
 
@@ -159,14 +158,17 @@ def ipa2_bwd_bound_ms(B: int, L: int, H=8, C=128, Pq=8, Pv=12, cz4=16):
     return _bound(max(t_tc, t_fp32), ins + outs + grads)
 
 
-def ipa_v1_bound_ms(B: int, L: int, H=8, C=128, Pq=8, Pv=12, cz4=16):
+def ipa_v1_bound_ms(B: int, L: int, H=8, C=128, Pq=8, Pv=12, cz4=16, in_bytes=2):
     """(ms, bound_by): K9, the v1 IPA attention core on global-frame points:
     K7's work without the frame transforms and point norms, outputs o, o_pt
-    and o_pair per head (fp32)."""
+    and o_pair per head (fp32). q, k, v, the pair bias and the pair
+    features take `in_bytes` an element (2: bf16, 4: fp32); the products of
+    q.k and the scalar aggregation count at the bf16 tensor-core rate for
+    bf16 inputs and at the fp32 rate for fp32 ones."""
     n = B * H * L * L
-    t_tc = 2 * 2 * C * n / PEAK_BF16_TC
-    t_fp32 = (2 * (3 * Pq + 3 * Pv + cz4) + 10) * n / PEAK_FP32
-    ins = B * H * L * C * 2 * 3 + B * H * L * L * 2 + B * L * L * cz4 * 2 \
+    t_tc = 2 * 2 * C * n / PEAK_BF16_TC if in_bytes == 2 else 0.0
+    t_fp32 = (2 * (3 * Pq + 3 * Pv + cz4) + 10 + (0 if in_bytes == 2 else 4 * C)) * n / PEAK_FP32
+    ins = in_bytes * (B * H * L * C * 3 + B * H * L * L + B * L * L * cz4) \
         + 4 * B * H * L * 3 * (2 * Pq + Pv) + 4 * B * L
     outs = 4 * B * H * L * (C + 3 * Pv + cz4)
     return _bound(max(t_tc, t_fp32), ins + outs)
@@ -185,10 +187,13 @@ TABLE = (
      dict(B=32, L=64)),
     ("K6", "int8 EdgeTransition with readout", "B=64 L=64 (sampler)", edge_int8_bound_ms,
      dict(B=64, L=64)),
+    ("K6", "int8 EdgeTransition, readout off", "B=64 L=64", edge_int8_bound_ms,
+     dict(B=64, L=64, n_ro=0)),
     ("K7", "IPA v2 interior forward", "B=64 L=64 (sampler)", ipa2_bound_ms, dict(B=64, L=64)),
     ("K8", "IPA v2 interior backward", "B=32 L=64 (train step)", ipa2_bwd_bound_ms,
      dict(B=32, L=64)),
-    ("K9", "IPA v1 attention core", "B=64 L=64 (sampler)", ipa_v1_bound_ms, dict(B=64, L=64)),
+    ("K9", "IPA v1 attention core, bf16", "B=64 L=64, model widths (no model path)",
+     ipa_v1_bound_ms, dict(B=64, L=64)),
 )
 
 

@@ -7,7 +7,8 @@ batch size, seed, clip, accumulation) as a dict over the defaults.
 selects this package's hand-written CUDA kernels (the fused EdgeTransition
 and the distance embedding, forward and backward); ``ipa.use_pallas_ipa:
 true`` the fused IPA interior's (forward and backward). ``ipa.quant_int8:
-true`` raises: its int8 kernel is not ported yet.
+true`` (with ``use_pallas``) the int8 serving profile: the EdgeTransitions'
+hidden products in int8, forward only (sampling; a training step raises).
 """
 
 from __future__ import annotations

@@ -10,14 +10,22 @@ ln_scale, ln_bias. With ``readout=(kb, bb, kdz, bdz)`` (the NEXT IPA
 block's linear_b (64, H) and down_z (64, c_z/4), [in, out]) it also returns
 that block's pair readouts, transposed: b (B, H, L, L) and pz (B, c_z/4, L, L).
 
+The int8 serving profile (:func:`fused_edge_transition_int8`, the JAX
+kernel's ``quant_int8=True``) runs the two hidden-width products (h1.k2,
+h2.k3) as int8 x int8 -> int32 with per-row activation scales
+(:func:`quant_rows`) and per-output-column weight scales (:func:`quant_cols`,
+of the float32 parameters); everything else is the bf16 function's. It is
+forward-only, as in the JAX package.
+
 The backward (:func:`edge_transition_bwd`) takes the same inputs and the
 output's cotangent ``g`` and returns d_edge, d_node_bias and the eight
 parameter gradients, recomputing both hidden layers. :class:`EdgeTransitionFn`
 runs the forward (readout off) and that backward under autograd; the bare
-forward wrapper has no autograd and raises when asked to record one.
+forward wrappers have no autograd and raise when asked to record one.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-(csrc/edge_transition.cu, csrc/edge_transition_bwd.cu) or raises.
+(csrc/edge_transition.cu, csrc/edge_transition_int8.cu,
+csrc/edge_transition_bwd.cu) or raises.
 """
 
 from __future__ import annotations
@@ -34,11 +42,22 @@ CZ, HID, RO = 64, 192, 32
 PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
 # edge_transition_forward: 17 pointers, B, L, n_b, n_pz, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_int8_forward: 20 pointers, B, L, n_b, n_pz, eps, stream.
+_INT8_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_backward: 31 pointers, B, L, grid, nchunk, d_edge_f32, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 BWD_NCHUNK = 32      # pair chunks of the weight-gradient products (partials summed in order)
 BWD_TM = 32          # pair rows per tile of the backward kernel
 VEC = 2 * HID + 3 * CZ   # per-block partial: d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
+INT8_HINT = ("train without quant_int8: the int8 serving profile is forward-only, as in the "
+             "JAX package")
+# What the forward kernels read of their operands: name -> (shape, dtype).
+_OPERANDS = {"k1": ((HID, HID), torch.bfloat16), "k2": ((HID, HID), torch.bfloat16),
+             "k3": ((HID, CZ), torch.bfloat16), "b1": ((HID,), torch.float32),
+             "b2": ((HID,), torch.float32), "b3": ((CZ,), torch.float32),
+             "ln_scale": ((CZ,), torch.float32), "ln_bias": ((CZ,), torch.float32),
+             "w2qt": ((HID, HID), torch.int8), "w2s": ((HID,), torch.float32),
+             "w3qt": ((CZ, HID), torch.int8), "w3s": ((CZ,), torch.float32)}
 
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -48,26 +67,15 @@ def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def edge_transition_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
-                          readout: Optional[tuple] = None, eps: float = 1e-5):
-    """The kernel's arithmetic in plain PyTorch: operands rounded to `dtype`
-    at the points the kernel rounds them, float32 accumulation, LayerNorm
-    statistics in float32. In float32 it is the reference EdgeTransition
-    (with the first layer and the residual projection factorized)."""
-    cz = edge.shape[-1]
-    cb = node_bias.shape[-1]
-    e = _round(edge, dtype)
-    n = _round(node_bias, dtype)
-    k1, k3 = _round(p["k1"], dtype), _round(p["k3"], dtype)
+def _node_terms(n, k, cz):
+    """n_i.k[cz:cz+cb] (B, L, 1, N) and n_j.k[cz+cb:] (B, 1, L, N)."""
+    cb = n.shape[-1]
+    return (n @ k[cz:cz + cb])[:, :, None, :], (n @ k[cz + cb:])[:, None, :, :]
 
-    def factorized(k):
-        y_i = n @ k[cz:cz + cb]
-        y_j = n @ k[cz + cb:]
-        return e @ k[:cz] + y_i[:, :, None, :] + y_j[:, None, :, :]
 
-    h = torch.relu(factorized(k1) + p["b1"].float())
-    h = torch.relu(_round(h, dtype) @ _round(p["k2"], dtype) + p["b2"].float())
-    o = _round(h, dtype) @ k3 + factorized(k3) + p["b3"].float()
+def _output(o, node_mask, p, dtype, readout, eps):
+    """LayerNorm (float32 statistics), pair mask, rounding to `dtype` and,
+    with a readout, the next block's transposed b and pz from that output."""
     o = F.layer_norm(o, (o.shape[-1],), p["ln_scale"].float(), p["ln_bias"].float(), eps)
     m = node_mask.float()
     out = (o * (m[:, :, None] * m[:, None, :])[..., None]).to(dtype)
@@ -80,12 +88,96 @@ def edge_transition_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloa
     return out, bt, pzt
 
 
-def kernel_operands(p: dict, readout: Optional[tuple] = None) -> dict:
-    """The weights as the kernel takes them: bf16 matrices, float32 vectors,
-    the readout packed as [kb | kdz | 0] (64, 32) with its bias (32,)."""
+def edge_transition_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
+                          readout: Optional[tuple] = None, eps: float = 1e-5):
+    """The kernel's arithmetic in plain PyTorch: operands rounded to `dtype`
+    at the points the kernel rounds them, float32 accumulation, LayerNorm
+    statistics in float32. In float32 it is the reference EdgeTransition
+    (with the first layer and the residual projection factorized)."""
+    cz = edge.shape[-1]
+    e = _round(edge, dtype)
+    n = _round(node_bias, dtype)
+    k1, k3 = _round(p["k1"], dtype), _round(p["k3"], dtype)
+
+    def factorized(k):
+        y_i, y_j = _node_terms(n, k, cz)
+        return e @ k[:cz] + y_i + y_j
+
+    h = torch.relu(factorized(k1) + p["b1"].float())
+    h = torch.relu(_round(h, dtype) @ _round(p["k2"], dtype) + p["b2"].float())
+    o = _round(h, dtype) @ k3 + factorized(k3) + p["b3"].float()
+    return _output(o, node_mask, p, dtype, readout, eps)
+
+
+# ---------------------------------------------------------------- int8
+def quant_rows(x: torch.Tensor, limit: float = 127.0):
+    """Symmetric per-row int8 quantization of a (..., N) float32 tensor (the
+    JAX kernel's ``_quant_rows``): amax over the row, inv = limit/amax (0 for
+    an all-zero row), q = round-half-even(x * inv). Returns (q int8, row
+    scale amax/limit (..., 1) float32)."""
+    amax = x.abs().amax(-1, keepdim=True)
+    inv = torch.where(amax > 0, limit / amax, torch.zeros_like(amax))
+    return torch.round(x * inv).to(torch.int8), amax / limit
+
+
+def quant_cols(w: torch.Tensor):
+    """Symmetric per-output-column int8 quantization of a (K, N) weight (the
+    JAX wrapper's ``_quant_cols``), from its float32 values: (q int8 (K, N),
+    column scale (1, N) float32)."""
+    w = w.float()
+    amax = w.abs().amax(0, keepdim=True)
+    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    return torch.round(w * inv).to(torch.int8), amax / 127.0
+
+
+def _int_product(q, wq):
+    """q . wq of int8 values as a float32 matmul of the integers: exact,
+    since |sum| <= 192 * 127 * 127 < 2^24 (float32 products in full float32,
+    no TF32)."""
+    return q.float() @ wq.float()
+
+
+def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
+                               readout: Optional[tuple] = None, eps: float = 1e-5):
+    """The int8 kernel's arithmetic in plain PyTorch, at the JAX kernel's
+    rounding points (``pallas_edge._kernel`` with quant_int8, int8_w3): h1
+    from `dtype` operands with float32 accumulation, kept float32 and
+    quantized per row; h2 = relu(float(q1.W2q) * s1 * w2s + b2), quantized
+    again; o = float(q2.W3q) * s2 * w3s + e.W3e + n_i.W3i + n_j.W3j + b3
+    with the 64-wide rows of W3 from its `dtype` cast; then the bf16
+    function's LayerNorm, mask and readout. W2q, W3q quantize the float32
+    k2, k3 per output column."""
+    cz = edge.shape[-1]
+    e = _round(edge, dtype)
+    n = _round(node_bias, dtype)
+    k1, k3 = _round(p["k1"], dtype), _round(p["k3"], dtype)
+    y_i, y_j = _node_terms(n, k1, cz)
+    h = torch.relu(e @ k1[:cz] + y_i + y_j + p["b1"].float())
+    q, hs = quant_rows(h)
+    w2q, w2s = quant_cols(p["k2"])
+    h = torch.relu(_int_product(q, w2q) * hs * w2s + p["b2"].float())
+    q, hs = quant_rows(h)
+    w3q, w3s = quant_cols(p["k3"])
+    o = _int_product(q, w3q) * hs * w3s + e @ k3[:cz]
+    y_i, y_j = _node_terms(n, k3, cz)
+    o = o + y_i + y_j + p["b3"].float()
+    return _output(o, node_mask, p, dtype, readout, eps)
+
+
+# ---------------------------------------------------------------- kernels
+def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool = False) -> dict:
+    """The weights as the kernels take them: bf16 matrices, float32 vectors,
+    the readout packed as [kb | kdz | 0] (64, 32) with its bias (32,); with
+    `quant_int8`, in place of the bf16 k2, k2 and k3 quantized per output
+    column (from float32) and transposed to [out, in] int8 (w2qt, w3qt) with
+    their scales (w2s, w3s)."""
     bf = torch.bfloat16
-    ops = {k: p[k].to(bf).contiguous() for k in ("k1", "k2", "k3")}
+    ops = {k: p[k].to(bf).contiguous() for k in (("k1", "k3") if quant_int8 else ("k1", "k2", "k3"))}
     ops.update({k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")})
+    if quant_int8:
+        for k in ("2", "3"):
+            q, scale = quant_cols(p[f"k{k}"])
+            ops.update({f"w{k}qt": q.t().contiguous(), f"w{k}s": scale.reshape(-1).contiguous()})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
@@ -116,22 +208,52 @@ def fused_edge_transition(edge, node_bias, node_mask, p: dict, dtype=torch.bfloa
     return _forward(edge, node_bias, node_mask, p, dtype, readout, ops, eps)
 
 
+def fused_edge_transition_int8(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
+                               readout: Optional[tuple] = None, ops: Optional[dict] = None,
+                               eps: float = 1e-5):
+    """The int8 serving profile's EdgeTransition forward (readout optional).
+    Forward-only: it raises if grad mode is on and an input requires grad.
+    CPU tensors run :func:`edge_transition_int8_plain`; CUDA tensors run the
+    int8 kernel (K6), which takes the bf16 kernel's widths and raises on
+    anything else. ``ops`` may carry ``kernel_operands(p, readout,
+    quant_int8=True)`` made once."""
+    native.refuse_autograd("fused_edge_transition_int8",
+                           [edge, node_bias, *p.values(), *(readout if readout is not None else ())],
+                           hint=INT8_HINT)
+    if edge.device.type == "cpu":
+        return edge_transition_int8_plain(edge, node_bias, node_mask, p, dtype, readout, eps)
+    if ops is None:
+        ops = kernel_operands(p, readout, quant_int8=True)
+    return _launch("edge_transition_int8", _INT8_ARGTYPES, edge, node_bias, node_mask, dtype,
+                   readout, ops, eps,
+                   ("k1", "b1", "w2qt", "w2s", "b2", "k3", "w3qt", "w3s", "b3", "ln_scale",
+                    "ln_bias"))
+
+
 def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1e-5):
     if edge.device.type == "cpu":
         return edge_transition_plain(edge, node_bias, node_mask, p, dtype, readout, eps)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the EdgeTransition kernel computes in bfloat16, not {dtype}")
-    B, L = edge.shape[:2]
     if ops is None:
         ops = kernel_operands(p, readout)
+    return _launch("edge_transition", _ARGTYPES, edge, node_bias, node_mask, dtype, readout, ops,
+                   eps, ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias"))
+
+
+def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps, weights):
+    """Check what the forward kernels read and launch csrc/<name>.cu's
+    ``<name>_forward`` with (edge, node_bias, mask, the `weights` of `ops`,
+    readout weights, scratch, outputs, B, L, n_b, n_pz, eps, stream)."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
+    B, L = edge.shape[:2]
     bf, f32 = torch.bfloat16, torch.float32
     native.check_tensor(edge, "edge", (B, L, L, CZ), bf)
     native.check_tensor(node_bias, "node_bias", (B, L, CZ), bf)
-    native.check_tensor(ops["k1"], "k1", (HID, HID), bf)
-    native.check_tensor(ops["k2"], "k2", (HID, HID), bf)
-    native.check_tensor(ops["k3"], "k3", (HID, CZ), bf)
-    for k, n in (("b1", HID), ("b2", HID), ("b3", CZ), ("ln_scale", CZ), ("ln_bias", CZ)):
-        native.check_tensor(ops[k], k, (n,), f32)
+    for k in weights:
+        if k not in ops:
+            raise ValueError(f"the {name} kernel needs operand {k}: make ops with "
+                             "kernel_operands(p, readout, quant_int8=...) to match")
+        native.check_tensor(ops[k], k, *_OPERANDS[k])
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
 
@@ -150,13 +272,12 @@ def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1
     else:
         n_b = n_pz = 0
         ro_ptrs, out_ptrs = [None, None], [None, None]
-    fn = native.function("edge_transition", "edge_transition_forward", _ARGTYPES)
-    ins = [edge, node_bias, mask] + [ops[k] for k in ("k1", "b1", "k2", "b2", "k3", "b3",
-                                                      "ln_scale", "ln_bias")]
+    fn = native.function(name, f"{name}_forward", argtypes)
+    ins = [edge, node_bias, mask] + [ops[k] for k in weights]
     rc = fn(*[t.data_ptr() for t in ins], *ro_ptrs, scratch.data_ptr(), out.data_ptr(),
             *out_ptrs, B, L, n_b, n_pz, eps, torch.cuda.current_stream(edge.device).cuda_stream)
-    native.check(rc, "edge_transition")
-    native.LAUNCHES["edge_transition"] += 1
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
     if readout is None:
         return out
     return out, b_out, pz_out
@@ -237,11 +358,8 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     native.check_tensor(nb, "node_bias", (B, L, CZ), bf)
     native.check_tensor(gg, "g", (B, L, L, CZ), bf)
     native.check_tensor(mask, "node_mask", (B, L), f32)
-    native.check_tensor(ops["k1"], "k1", (HID, HID), bf)
-    native.check_tensor(ops["k2"], "k2", (HID, HID), bf)
-    native.check_tensor(ops["k3"], "k3", (HID, CZ), bf)
-    for k, n in (("b1", HID), ("b2", HID), ("b3", CZ), ("ln_scale", CZ), ("ln_bias", CZ)):
-        native.check_tensor(ops[k], k, (n,), f32)
+    for k in PARAM_NAMES:
+        native.check_tensor(ops[k], k, *_OPERANDS[k])
 
     pairs = B * L * L
     grid = min(native.sm_count(dev), (pairs + BWD_TM - 1) // BWD_TM)

@@ -154,15 +154,23 @@ class EdgeTransition(nn.Module):
     factorized over the [edge | node_i | node_j] concat. With
     ``use_kernels`` it runs :class:`cuda_edge.EdgeTransitionFn` (forward and
     backward kernels under autograd), or, with a readout, the forward-only
-    :func:`cuda_edge.fused_edge_transition`; otherwise
-    :func:`cuda_edge.edge_transition_plain`, which autograd follows."""
+    :func:`cuda_edge.fused_edge_transition`; with ``quant_int8`` (which
+    needs ``use_kernels``, as in the JAX package) every call, readout or
+    not, runs the forward-only int8 serving profile
+    :func:`cuda_edge.fused_edge_transition_int8`, which raises under grad
+    mode; otherwise :func:`cuda_edge.edge_transition_plain`, which autograd
+    follows."""
 
     def __init__(self, node_embed_size: int, edge_embed_in: int, edge_embed_out: int,
-                 dtype=None, use_kernels: bool = False, node_dilation: int = 2):
+                 dtype=None, use_kernels: bool = False, quant_int8: bool = False,
+                 node_dilation: int = 2):
         super().__init__()
+        if quant_int8 and not use_kernels:
+            raise ValueError("EdgeTransition(quant_int8=True) requires use_kernels=True: the "
+                             "int8 pair GEMMs exist only in the fused kernel")
         c_bias = node_embed_size // node_dilation
         hidden = 2 * c_bias + edge_embed_in
-        self.dtype, self.use_kernels = dtype, use_kernels
+        self.dtype, self.use_kernels, self.quant_int8 = dtype, use_kernels, quant_int8
         self.initial_embed = Linear(node_embed_size, c_bias, init="relu", dtype=dtype)
         self.trunk = nn.Sequential(Linear(hidden, hidden, init="relu"), nn.ReLU(),
                                    Linear(hidden, hidden, init="relu"), nn.ReLU())
@@ -186,15 +194,17 @@ class EdgeTransition(nn.Module):
             ops = None
             if edge_embed.device.type == "cuda":
                 tensors = list(p.values()) + (list(readout) if readout is not None else [])
-                ops = cached_operands(self, tensors,
-                                      lambda: cuda_edge.kernel_operands(p, readout))
-            if readout is None:
+                ops = cached_operands(self, tensors, lambda: cuda_edge.kernel_operands(
+                    p, readout, quant_int8=self.quant_int8))
+            if self.quant_int8:
+                fn = cuda_edge.fused_edge_transition_int8
+            elif readout is None:
                 return cuda_edge.EdgeTransitionFn.apply(edge_embed, node_bias, node_mask,
                                                         *p.values(), dt, ops)
-            # The readout epilogue is forward-only; the bare wrapper refuses autograd.
-            res = cuda_edge.fused_edge_transition(edge_embed.to(dt).contiguous(),
-                                                  node_bias.to(dt).contiguous(), node_mask, p,
-                                                  dt, readout, ops=ops)
+            else:  # the readout epilogue is forward-only; the bare wrapper refuses autograd
+                fn = cuda_edge.fused_edge_transition
+            res = fn(edge_embed.to(dt).contiguous(), node_bias.to(dt).contiguous(), node_mask, p,
+                     dt, readout, ops=ops)
         else:
             res = cuda_edge.edge_transition_plain(edge_embed, node_bias, node_mask, p, dt, readout)
         if readout is None:

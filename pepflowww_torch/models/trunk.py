@@ -27,8 +27,9 @@ class IPAConfig:
     selects bf16 matmuls (parameters, geometry, softmax and LayerNorm stay
     float32); ``use_pallas`` selects the hand-written CUDA kernels of the
     EdgeTransition and the distance block; ``use_pallas_ipa`` the fused IPA
-    interior (K7, K8). ``quant_int8`` (the JAX package's int8 pair GEMMs,
-    K6) is not ported yet: it raises rather than run bf16 in its place."""
+    interior (K7, K8); ``quant_int8`` (with ``use_pallas``) the int8 serving
+    profile, whose EdgeTransitions run the int8 pair GEMMs (K6), forward
+    only: a training step with it raises."""
 
     c_s: int = 128
     c_z: int = 64
@@ -48,9 +49,6 @@ class IPAConfig:
         if self.quant_int8 and not self.use_pallas:
             raise ValueError("IPAConfig(quant_int8=True) requires use_pallas=True: the int8 "
                              "pair GEMMs exist only in the fused EdgeTransition kernel")
-        if self.quant_int8:
-            raise NotImplementedError("quant_int8: the int8 EdgeTransition kernel (K6, "
-                                      "pallas_edge.py int8 branch) is not ported yet")
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -79,7 +77,8 @@ class GAEncoder(nn.Module):
             trunk[f"bb_update_{b}"] = BackboneUpdate(cfg.c_s)
             if b < cfg.num_blocks - 1:
                 trunk[f"edge_transition_{b}"] = EdgeTransition(
-                    cfg.c_s, cfg.c_z, cfg.c_z, dtype=dt, use_kernels=cfg.use_pallas)
+                    cfg.c_s, cfg.c_z, cfg.c_z, dtype=dt, use_kernels=cfg.use_pallas,
+                    quant_int8=cfg.quant_int8)
         self.trunk = nn.ModuleDict(trunk)
         self.seq_net = mlp((cfg.c_s, cfg.c_s, 20), cfg.c_s)
         self.angle_net = mlp((cfg.c_s, cfg.c_s, 5), cfg.c_s)

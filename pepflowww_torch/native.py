@@ -25,7 +25,8 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("edge_transition", "distance_embed", "edge_transition_bwd", "distance_embed_bwd",
-           "ipa2", "ipa2_bwd")
+           "ipa2", "ipa2_bwd", "edge_transition_int8", "ipa1")
+# No --use_fast_math: K6's quantization scale 127/amax is an IEEE division, as in the JAX kernel.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -123,15 +124,16 @@ def check_tensor(t, name: str, shape, dtype, contiguous: bool = True) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def refuse_autograd(name: str, tensors) -> None:
+def refuse_autograd(name: str, tensors, hint: str = "use the module's autograd Function, "
+                    "which runs the backward kernel") -> None:
     """Raise if grad mode is on and one of `tensors` requires grad: a kernel
     wrapper writes into fresh tensors that autograd cannot follow (the
-    modules' autograd Functions run the backward kernels)."""
+    modules' autograd Functions run the backward kernels; `hint` says what
+    to do instead)."""
     import torch
 
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no autograd: call it under torch.no_grad(), or use "
-                           "the module's autograd Function, which runs the backward kernel")
+        raise RuntimeError(f"{name} has no autograd: call it under torch.no_grad(), or {hint}")
 
 
 def check(rc: int, name: str) -> None:

@@ -5,7 +5,8 @@
 
 The model of ``--config`` (default the production profile,
 configs/learn_angle_tpu.yaml: 6 blocks, c_s 128, c_z 64, bf16; a YAML that
-adds ``use_pallas_ipa: true`` gives the fused-IPA profile) with seeded
+adds ``use_pallas_ipa: true`` gives the fused-IPA profile, one that adds
+``quant_int8: true`` the int8 serving profile (sampling only)) with seeded
 random weights on 64 synthetic complexes of L=64 (48-residue pocket +
 12-residue peptide). It prints, each on its own line:
 
@@ -13,8 +14,9 @@ random weights on 64 synthetic complexes of L=64 (48-residue pocket +
   kernels and with the config's kernel flags off (plain PyTorch), in turns
   (kernels, plain, plain, kernels, three times), and the median of each;
 * a ``torch.profiler`` window of a 5-step run: device busy and idle share
-  of the window, kernels launched per denoise pass, device time by category
-  and the top kernels by device time; the trace is written to ``--out``.
+  of the window, kernels launched per denoise pass, device time and
+  launches per pass by category and the top kernels by device time; the
+  trace is written to ``--out``.
 
 With ``--train`` it does the same for the training step at B=32, L=64 (the
 config's batch size): ms/step over 10-step runs with the kernels and with
@@ -42,6 +44,7 @@ from pepflowww_torch.models.flow import build_model
 from pepflowww_torch.sampling import euler_sample
 
 CATEGORIES = (  # (category, substrings of the kernel name), first match wins
+    ("edge_transition_int8 (K6)", ("edge_int8_",)),
     ("ipa2_bwd (K8)", ("ipa2_bwd_",)),
     ("ipa2 (K7)", ("ipa2_fwd_",)),
     ("edge_transition_bwd (K4)", ("edge_bwd_",)),
@@ -60,13 +63,15 @@ CATEGORIES = (  # (category, substrings of the kernel name), first match wins
 def production_model(dev, cfg, use_kernels: bool = True, seed: int = 0):
     """The model of `cfg` (a FlowModelConfig, e.g. ``load_config`` of
     configs/learn_angle_tpu.yaml) with seeded random weights; without
-    `use_kernels`, every kernel flag off. Every
+    `use_kernels`, every kernel flag off (``quant_int8`` too, which needs the
+    kernels: the int8 profile's plain run is the bf16 one). Every
     parameter gets seeded noise on top of the reference init, whose zero
     ("final") layers would otherwise make each EdgeTransition output its
     LayerNorm bias."""
     if not use_kernels:
         cfg = dataclasses.replace(cfg, ipa=dataclasses.replace(cfg.ipa, use_pallas=False,
-                                                               use_pallas_ipa=False))
+                                                               use_pallas_ipa=False,
+                                                               quant_int8=False))
     model = build_model(cfg, dev, seed=seed)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     with torch.no_grad():
@@ -139,10 +144,12 @@ def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
         raise RuntimeError("the profiler recorded no device kernels")
     w0, w1 = window[0].time_range.start, window[0].time_range.end
     busy = _busy_us((k.time_range.start, k.time_range.end) for k in kernels)
-    by_cat, by_name = {}, {}
+    by_cat, by_name, n_cat = {}, {}, {}
     for k in kernels:
         d = k.time_range.end - k.time_range.start
-        by_cat[_category(k.name)] = by_cat.get(_category(k.name), 0.0) + d
+        cat = _category(k.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + d
+        n_cat[cat] = n_cat.get(cat, 0) + 1
         n, t = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, t + d)
     summary = {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3,
@@ -150,6 +157,7 @@ def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
                "kernels_per_pass": len(kernels) / passes,
                "by_category_ms_per_pass": {c: t / 1e3 / passes for c, t in
                                            sorted(by_cat.items(), key=lambda x: -x[1])},
+               "launches_per_pass": {c: n / passes for c, n in n_cat.items()},
                "top": sorted(by_name.items(), key=lambda x: -x[1][1])[:15]}
     print(f"[profile] window {summary['window_ms']:.3f} ms over {passes} x {unit}; device busy "
           f"{summary['busy_ms']:.3f} ms, idle share {summary['idle_share']:.4f}; "
@@ -157,7 +165,8 @@ def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
           f"({len(device) - len(kernels)} host ranges on the device timeline left out)",
           flush=True)
     for cat, ms in summary["by_category_ms_per_pass"].items():
-        print(f"[profile] device ms per {unit}: {cat:28s} {ms:.4f}", flush=True)
+        print(f"[profile] device ms per {unit}: {cat:28s} {ms:.4f} "
+              f"({summary['launches_per_pass'][cat]:.1f} launches)", flush=True)
     for name, (n, t) in summary["top"]:
         print(f"[profile] top: {t / 1e3:9.3f} ms  {n:6d} launches  {name[:110]}", flush=True)
     return summary
@@ -217,7 +226,8 @@ def main(argv=None):
     cfg = load_config(args.config)
     ipa = cfg.ipa
     print(f"[profile] config {args.config}: {ipa.num_blocks} blocks, dtype {ipa.dtype}, "
-          f"use_pallas {ipa.use_pallas}, use_pallas_ipa {ipa.use_pallas_ipa}", flush=True)
+          f"use_pallas {ipa.use_pallas}, use_pallas_ipa {ipa.use_pallas_ipa}, "
+          f"quant_int8 {ipa.quant_int8}", flush=True)
     if args.train:
         _profile_train(dev, card, args.out, cfg)
         return

@@ -17,7 +17,13 @@ The fused IPA forward (K7) has fp32 outputs: each within 2e-2 + 1e-3 of
 |plain| (one bf16 rounding of an attention weight that flips between kernel
 and plain version moves the scalar output by at most 2^-9 |v|; the point
 sums run in fp32 in another order); its backward (K8) is held like the
-other backward kernels.
+other backward kernels. The int8 EdgeTransition (K6) is held to its plain
+version at 6e-2 + 2e-2 |plain| (K2's bound: a row quantization that rounds
+the other way, where fp32 sums run in another order, moves one int8 step of
+a hidden lane). The v1 IPA attention (K9) has fp32 outputs: with bf16
+inputs at the model's widths 2e-2 + 1e-3 |plain| (K7's), with fp32 inputs
+at the JAX tests' widths 1e-3 + 1e-4 |plain| (the sums run in another
+order).
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ import pytest
 import torch
 
 from pepflowww_torch import native
-from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
+from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa, cuda_ipa1
 
 pytestmark = pytest.mark.cuda
 
@@ -247,3 +253,91 @@ def test_ipa2_wrappers_reject_what_they_do_not_take(dev):
     for i, x in enumerate(leaves):
         if i != 8:
             assert x.grad is not None and bool(torch.isfinite(x.grad).all()), i
+
+
+def _within(got, want, atol, rtol, name):
+    assert bool(torch.isfinite(got).all()), name
+    excess = float(((got.float() - want.float()).abs() - rtol * want.float().abs()).max())
+    assert excess <= atol, (name, excess)
+
+
+@pytest.mark.parametrize("L", [24, 64])
+@pytest.mark.parametrize("with_readout", [False, True])
+def test_int8_edge_kernel_matches_plain(dev, L, with_readout):
+    """K6 against its plain version; it launches instead of the bf16 kernel."""
+    edge, nb, mask, p, readout = _edge_inputs(dev, 2, L, seed=L + 7)
+    ro = readout if with_readout else None
+    before = dict(native.LAUNCHES)
+    got = cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=ro)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["edge_transition_int8"] == before["edge_transition_int8"] + 1
+    assert native.LAUNCHES["edge_transition"] == before["edge_transition"]
+    want = cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro)
+    for name, a, b in zip(("out", "b", "pz"), got if ro else (got,), want if ro else (want,)):
+        _within(a, b, 6e-2, 2e-2, name)
+
+
+def ipa1_inputs(dev, B, L, widths, dtype, seed=0):
+    """Inputs of the v1 attention core, head-major, at the model's widths
+    (H 8, C 128, Pq 8, Pv 12, CZ4 16) or the JAX tests' (H 4, C 32, Pq 4,
+    Pv 6, CZ4 8): q, k, v, bias and pair_z in `dtype`, points float32,
+    about 15% of the keys masked."""
+    H, C, Pq, Pv, CZ4 = (8, 128, 8, 12, 16) if widths == "model" else (4, 32, 4, 6, 8)
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((B, L)) > 0.15).astype(np.float32)).to(dev)
+    return [f(B, H, L, C).to(dtype), f(B, H, L, C).to(dtype), f(B, H, L, C).to(dtype),
+            f(B, H, L, 3 * Pq), f(B, H, L, 3 * Pq), f(B, H, L, 3 * Pv), f(B, H, L, L).to(dtype),
+            f(B, L, L, CZ4).to(dtype), mask]
+
+
+@pytest.mark.parametrize("widths,dtype,L", [("model", torch.bfloat16, 64),
+                                            ("test", torch.float32, 40),
+                                            ("test", torch.float32, 256)])
+def test_ipa1_kernel_matches_plain(dev, widths, dtype, L):
+    """K9 through both wrappers (the JAX package's two grid variants)."""
+    args = ipa1_inputs(dev, 2, L, widths, dtype, seed=L)
+    atol, rtol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-3, 1e-4)
+    want = cuda_ipa1.ipa_attention_plain(*args)
+    for fn in (cuda_ipa1.fused_ipa_attention, cuda_ipa1.fused_ipa_attention_bh):
+        before = native.LAUNCHES["ipa1"]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["ipa1"] == before + 1
+        for name, a, b in zip(("o", "o_pt", "o_pair"), got, want):
+            _within(a, b, atol, rtol, name)
+
+
+def test_int8_and_ipa1_wrappers_reject_what_they_do_not_take(dev):
+    """K6: float32 compute, a float32 edge tensor and grad mode are refused;
+    K9: a width it does not take (C 64), mixed input dtypes and grad mode;
+    all with no launch. IPAAttentionFn launches K9 once and fills every
+    gradient but the mask's."""
+    edge, nb, mask, p, _ = _edge_inputs(dev, 1, 8)
+    before = dict(native.LAUNCHES)
+    with pytest.raises(ValueError):
+        cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        cuda_edge.fused_edge_transition_int8(edge.float(), nb, mask, p)
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    with pytest.raises(RuntimeError, match="quant_int8"):
+        cuda_edge.fused_edge_transition_int8(edge, nb, mask, leaves)
+    args = ipa1_inputs(dev, 1, 8, "model", torch.bfloat16)
+    wide = list(args)
+    wide[:3] = [x[..., :64].contiguous() for x in args[:3]]
+    with pytest.raises(ValueError):
+        cuda_ipa1.fused_ipa_attention(*wide)
+    mixed = list(args)
+    mixed[6] = args[6].float()
+    with pytest.raises(ValueError):
+        cuda_ipa1.fused_ipa_attention(*mixed)
+    leaves = [a.detach().clone().requires_grad_() if i < 8 else a for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="no autograd"):
+        cuda_ipa1.fused_ipa_attention_bh(*leaves)
+    assert native.LAUNCHES == before
+    out = cuda_ipa1.IPAAttentionFn.apply(*leaves, 1e5)
+    sum(o.square().sum() for o in out).backward()
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa1"] == before["ipa1"] + 1
+    for i, x in enumerate(leaves[:8]):
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all()), i

@@ -46,7 +46,7 @@ from pepflowww_torch.config import load_config
 from pepflowww_torch.data.collate import device_batch
 from pepflowww_torch.models import cuda_ipa
 from pepflowww_torch.models.flow import FlowModelConfig, build_model
-from pepflowww_torch.models.ipa import InvariantPointAttention
+from pepflowww_torch.models.ipa import EdgeTransition, InvariantPointAttention
 from pepflowww_torch.models.trunk import IPAConfig
 from pepflowww_torch.training.optim import Optimizer
 from pepflowww_torch.training.train_step import train_step
@@ -75,7 +75,8 @@ def _t(x, grad=False):
 def test_config_keys_reach_the_model(tmp_path):
     """A YAML with use_pallas_ipa builds every IPA block with the kernels
     on; quant_int8 raises ValueError without use_pallas (as the JAX package
-    does) and NotImplementedError with it, where the port had run bf16."""
+    does) and with it reaches every EdgeTransition, where the port had once
+    run bf16."""
     def write(ipa):
         path = tmp_path / "cfg.yaml"
         path.write_text(yaml.safe_dump({"model": {"encoder": {"ipa": ipa}}}))
@@ -90,8 +91,10 @@ def test_config_keys_reach_the_model(tmp_path):
     assert not any(m.use_kernels for m in off.modules() if isinstance(m, InvariantPointAttention))
     with pytest.raises(ValueError, match="requires use_pallas"):
         load_config(write({"quant_int8": True}))
-    with pytest.raises(NotImplementedError, match="K6"):
-        load_config(write({"quant_int8": True, "use_pallas": True}))
+    int8 = build_model(load_config(write({"num_blocks": 3, "quant_int8": True,
+                                          "use_pallas": True})), "cpu", seed=0)
+    ets = [m for m in int8.modules() if isinstance(m, EdgeTransition)]
+    assert len(ets) == 2 and all(m.quant_int8 and m.use_kernels for m in ets)
 
 
 def test_plain_forward_matches_jax_kernel():
