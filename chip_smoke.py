@@ -7,14 +7,17 @@ Phases, each on its own lines:
 
 1. setup: the card's name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
-   per source, all at once).
+   per source, all at once); ``ptxas -v``'s registers and spills, and the
+   dynamic shared memory, of both EdgeTransition variants (K1, K2), which
+   must not spill.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
-   kernel's, the plain version's and the bound's times; the backward kernels
-   at the training shapes (B=32, L=64) and a ragged L, each called twice to
-   show bit-identical gradients, and the forward EdgeTransition (readout
-   off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
+   kernel's, the plain version's and the bound's times; K1/K2 also at
+   (B, L) = (3, 37), (1, 1), (2, 100) and (64, 128), readout on and off;
+   the backward kernels at the training shapes (B=32, L=64) and a ragged
+   L, each called twice to show bit-identical gradients, and the forward
+   EdgeTransition (readout off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
    and L=64, 40 and 256 in the sampler's input layouts; its backward (K8)
    at B=32 and L=64, 24 and 256 in the training step's. The int8
    EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
@@ -50,11 +53,13 @@ Phases, each on its own lines:
    raise its forward-only error, with no EdgeTransition launched.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
-EdgeTransition and distance forward kernels on the production sampler's,
-their backward kernels on the production training step's, K7 on the
-fused-IPA sampler's, K8 on the fused-IPA training step's and K6 on the
-int8 sampler's. K9 has no model path in either package: its launches are
-the kernels phase's checks.
+EdgeTransition forward with the readout (K2) and the distance forward
+kernel on the production sampler's, the EdgeTransition forward without it
+(K1, its own entry ``edge_transition_k1``, same counter) and the backward
+kernels on the production training step's, K7 on the fused-IPA sampler's,
+K8 on the fused-IPA training step's and K6 on the int8 sampler's. K9 has
+no model path in either package: its launches are the kernels phase's
+checks.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -167,7 +172,32 @@ def phase_setup():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say("setup", f"ptxas {name}: {line.strip()}")
+    # K1/K2: registers, spills and shared memory of both variants; no spills allowed.
+    variants = [(("K2 (readout)" if "ILb1E" in entry else "K1"), use, spill)
+                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("edge_transition", ""))
+                if "edge_transition_kernel" in entry]
+    check(len(variants) == 2, "edge_transition: ptxas -v reported no entry for both variants")
+    smem = native.function("edge_transition", "edge_transition_smem_bytes", [])()
+    for tag, use, spill in variants:
+        say("setup", f"edge_transition {tag}: {use}; {spill}; {smem} bytes of dynamic shared "
+                     f"memory a block")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"edge_transition {tag}: the consumer path spills ({spill})")
     return card
+
+
+def ptxas_entries(log: str):
+    """(entry function, its "Used ... registers" line, its stack and spill
+    line) for each kernel in a ``ptxas -v`` log."""
+    entries = []
+    for line in (s.strip() for s in log.splitlines()):
+        if "Compiling entry function" in line:
+            entries.append([line.split("'")[1], "", ""])
+        elif entries and "spill" in line:
+            entries[-1][2] = line
+        elif entries and "registers" in line:
+            entries[-1][1] = line.split(":", 1)[1].strip()
+    return entries
 
 
 def _edge_inputs(B, L, dev, seed):
@@ -252,15 +282,26 @@ def phase_kernels():
         if L == 64:
             rows["distance_embed"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                           bound_by=by)
-    # Kernel B forward with readout off, as the training step runs it.
+    # K1/K2 at the shapes that stress the tile mapping: a tile crossing batch
+    # rows at a ragged L, L=1, fewer tiles than SMs, L > 64, readout on and off.
+    for B, L in ((3, 37), (1, 1), (2, 100), (64, 128)):
+        edge, nb, mask, p, ro = _edge_inputs(B, L, dev, seed=B * 1000 + L)
+        ops = cuda_edge.kernel_operands(p, ro)
+        for r in (None, ro):
+            tag = f"edge_transition{'+readout' if r else ''} B={B} L={L}"
+            got = _launch_once("edge_transition", lambda: cuda_edge.fused_edge_transition(
+                edge, nb, mask, p, readout=r, ops=ops), tag)
+            want = cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16, r)
+            for n, a, b in zip(("out", "b", "pz"), got if r else (got,), want if r else (want,)):
+                compare(f"{tag} [{n}]", a, b, EDGE_TOL)
+    # K1: the forward with readout off, as the training step runs it.
     edge, nb, mask, p, _ = _edge_inputs(32, 64, dev, seed=32)
     ops = cuda_edge.kernel_operands(p)
-    k_ms = cuda_ms(lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, ops=ops))
-    p_ms = cuda_ms(lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16),
-                   reps=5)
-    bound, by = edge_bound_ms(32, 64, n_ro=0)
-    say("kernels", f"edge_transition B=32 L=64 (training shape): kernel {k_ms:.4f} ms, plain "
-                   f"{p_ms:.4f} ms, bound {bound:.4f} ms by {by} ({100 * bound / k_ms:.1f}% of bound)")
+    tag = "edge_transition B=32 L=64 (training shape)"
+    call = lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, ops=ops)
+    plain = lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16)
+    err = compare(tag, _launch_once("edge_transition", call, tag), plain(), EDGE_TOL)
+    rows["edge_transition_k1"] = _time_row(tag, call, plain, edge_bound_ms(32, 64, n_ro=0), err)
 
     # Backward kernels at the training shape and a ragged L.
     for L in (64, 24):
@@ -778,6 +819,7 @@ def main():
                      f"production profile {ms:.3f} on {card}")
     phase_train_int8(int8)
     launches = {"edge_transition": sampled["edge_transition"],
+                "edge_transition_k1": trained["edge_transition"],
                 "distance_embed": sampled["distance_embed"],
                 "edge_transition_bwd": trained["edge_transition_bwd"],
                 "distance_embed_bwd": trained["distance_embed_bwd"],
@@ -787,6 +829,8 @@ def main():
 
     meta = {"edge_transition": ("pepflowww_torch/csrc/edge_transition.cu",
                                 "pepflowww_tpu/models/pallas_edge.py:160"),
+            "edge_transition_k1": ("pepflowww_torch/csrc/edge_transition.cu",
+                                   "pepflowww_tpu/models/pallas_edge.py:160"),
             "distance_embed": ("pepflowww_torch/csrc/distance_embed.cu",
                                "pepflowww_tpu/models/pallas_dist.py:101"),
             "edge_transition_bwd": ("pepflowww_torch/csrc/edge_transition_bwd.cu",
@@ -806,6 +850,10 @@ def main():
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None} for name, r in rows.items()]
     for k in kernels:
+        if k["name"] == "edge_transition":
+            k["variant"] = "readout on (K2), B=64, the sampler's"
+        if k["name"] == "edge_transition_k1":
+            k["variant"] = "readout off (K1), B=32, the training step's"
         if k["name"] == "ipa1":
             k["path"] = ("none in either package (tests only): launches are the kernels "
                          "phase's checks")

@@ -1,8 +1,10 @@
-// Shared pieces of the fused EdgeTransition forward kernels
-// (edge_transition.cu: bf16 hidden products, K1/K2; edge_transition_int8.cu:
-// int8 hidden products, K6): widths and the pair tile, bf16 WMMA helpers,
-// the node-resolution pre-pass, and the epilogue (LayerNorm, pair mask and
-// the optional pair-resident readout).
+// Pieces of the int8 EdgeTransition forward kernel (edge_transition_int8.cu,
+// K6): widths and the pair tile, bf16 WMMA helpers, the node-resolution
+// pre-pass (node_proj and its scratch P), and the epilogue (LayerNorm, pair
+// mask and the optional pair-resident readout). Only K6 uses them: the bf16
+// kernels K1/K2 (edge_transition.cu) run their products on wgmma
+// (wgmma.cuh), gather the node rows per pair instead of a pre-pass, and
+// keep their epilogues in registers.
 
 #pragma once
 

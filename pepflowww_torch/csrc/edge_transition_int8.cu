@@ -26,10 +26,10 @@
 //
 // What bounds it on this card: the bytes (edge in, out and the readouts out,
 // ~80 MB at B=64, L=64: ~24 us at 3.35 TB/s); its 12.9 G int8 MACs (~13 us
-// at 1,979 TOP/s) and 4.9 G bf16 MACs (~10 us) take less. Design: K2's tile
-// structure (persistent grid of one 8-warp block per SM walking 64-pair
-// tiles of the flattened (b, i, j) rows, so any L runs; node products in a
-// pre-pass) with the two hidden-width products on the int8 tensor cores
+// at 1,979 TOP/s) and 4.9 G bf16 MACs (~10 us) take less. Design: a
+// persistent grid of one 8-warp block per SM walking 64-pair tiles of the
+// flattened (b, i, j) rows, so any L runs; node products in a pre-pass;
+// with the two hidden-width products on the int8 tensor cores
 // (mma.sync m16n8k32 s8.s8.s32 from shared memory). The int8 weights (48 KB)
 // stay in shared memory for the block's life; each hidden tile is quantized
 // in shared memory, one warp per row (row max by shuffles, rounding with

@@ -40,8 +40,8 @@ from pepflowww_torch import native
 
 CZ, HID, RO = 64, 192, 32
 PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
-# edge_transition_forward: 17 pointers, B, L, n_b, n_pz, eps, stream.
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_forward: 16 pointers, B, L, n_b, n_pz, eps, stream.
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_int8_forward: 20 pointers, B, L, n_b, n_pz, eps, stream.
 _INT8_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_backward: 31 pointers, B, L, grid, nchunk, d_edge_f32, eps, stream.
@@ -56,6 +56,9 @@ _OPERANDS = {"k1": ((HID, HID), torch.bfloat16), "k2": ((HID, HID), torch.bfloat
              "k3": ((HID, CZ), torch.bfloat16), "b1": ((HID,), torch.float32),
              "b2": ((HID,), torch.float32), "b3": ((CZ,), torch.float32),
              "ln_scale": ((CZ,), torch.float32), "ln_bias": ((CZ,), torch.float32),
+             "w1t": ((HID, HID), torch.bfloat16), "w2t": ((HID, HID), torch.bfloat16),
+             "w3t": ((CZ, HID), torch.bfloat16), "wr": ((CZ, RO), torch.bfloat16),
+             "wrt": ((RO, CZ), torch.bfloat16), "bro": ((RO,), torch.float32),
              "w2qt": ((HID, HID), torch.int8), "w2s": ((HID,), torch.float32),
              "w3qt": ((CZ, HID), torch.int8), "w3s": ((CZ,), torch.float32)}
 
@@ -166,11 +169,14 @@ def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.
 
 # ---------------------------------------------------------------- kernels
 def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool = False) -> dict:
-    """The weights as the kernels take them: bf16 matrices, float32 vectors,
-    the readout packed as [kb | kdz | 0] (64, 32) with its bias (32,); with
-    `quant_int8`, in place of the bf16 k2, k2 and k3 quantized per output
-    column (from float32) and transposed to [out, in] int8 (w2qt, w3qt) with
-    their scales (w2s, w3s)."""
+    """The weights as the kernels take them: bf16 matrices [in, out] (k1, k2,
+    k3: the backward kernel's), float32 vectors, the readout packed as [kb |
+    kdz | 0] (64, 32) with its bias (32,). The bf16 forward kernel reads its
+    matrices K-major, the same bf16 values transposed to [out, in]: w1t,
+    w2t, w3t and the readout as wrt (32, 64). With `quant_int8`, in place of
+    the bf16 k2, k2 and k3 quantized per output column (from float32) and
+    transposed to [out, in] int8 (w2qt, w3qt) with their scales (w2s, w3s),
+    and the readout as wr (64, 32)."""
     bf = torch.bfloat16
     ops = {k: p[k].to(bf).contiguous() for k in (("k1", "k3") if quant_int8 else ("k1", "k2", "k3"))}
     ops.update({k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")})
@@ -178,6 +184,8 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         for k in ("2", "3"):
             q, scale = quant_cols(p[f"k{k}"])
             ops.update({f"w{k}qt": q.t().contiguous(), f"w{k}s": scale.reshape(-1).contiguous()})
+    else:
+        ops.update({f"w{k}t": ops[f"k{k}"].t().contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
@@ -190,7 +198,11 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         bro = torch.zeros(RO, dtype=torch.float32, device=kb.device)
         bro[:n_b] = bb.float()
         bro[n_b:n_b + n_pz] = bdz.float()
-        ops.update(wr=wr, bro=bro, n_b=n_b, n_pz=n_pz)
+        ops.update(bro=bro, n_b=n_b, n_pz=n_pz)
+        if quant_int8:
+            ops["wr"] = wr
+        else:
+            ops["wrt"] = wr.t().contiguous()
     return ops
 
 
@@ -227,7 +239,7 @@ def fused_edge_transition_int8(edge, node_bias, node_mask, p: dict, dtype=torch.
     return _launch("edge_transition_int8", _INT8_ARGTYPES, edge, node_bias, node_mask, dtype,
                    readout, ops, eps,
                    ("k1", "b1", "w2qt", "w2s", "b2", "k3", "w3qt", "w3s", "b3", "ln_scale",
-                    "ln_bias"))
+                    "ln_bias"), ("wr", "bro"), node_scratch=True)
 
 
 def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1e-5):
@@ -236,13 +248,17 @@ def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1
     if ops is None:
         ops = kernel_operands(p, readout)
     return _launch("edge_transition", _ARGTYPES, edge, node_bias, node_mask, dtype, readout, ops,
-                   eps, ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias"))
+                   eps, ("w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias"),
+                   ("wrt", "bro"))
 
 
-def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps, weights):
+def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps, weights,
+            readout_weights, node_scratch=False):
     """Check what the forward kernels read and launch csrc/<name>.cu's
     ``<name>_forward`` with (edge, node_bias, mask, the `weights` of `ops`,
-    readout weights, scratch, outputs, B, L, n_b, n_pz, eps, stream)."""
+    the `readout_weights` of `ops` (null without a readout), with
+    `node_scratch` the int8 kernel's node-product scratch (B*L, 512) fp32,
+    outputs, B, L, n_b, n_pz, eps, stream)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
     B, L = edge.shape[:2]
@@ -257,25 +273,27 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
 
-    scratch = torch.empty(B * L, 512, dtype=f32, device=edge.device)
+    # Held until the launch has been enqueued, so no output reuses its memory.
+    scratch = [torch.empty(B * L, 512, dtype=f32, device=edge.device)] if node_scratch else []
     out = torch.empty(B, L, L, CZ, dtype=bf, device=edge.device)
     if readout is not None:
-        if "wr" not in ops:
+        if any(k not in ops for k in readout_weights):
             raise ValueError("readout requested but ops were made without it")
-        native.check_tensor(ops["wr"], "readout weights", (CZ, RO), bf)
-        native.check_tensor(ops["bro"], "readout bias", (RO,), f32)
+        for k in readout_weights:
+            native.check_tensor(ops[k], k, *_OPERANDS[k])
         n_b, n_pz = ops["n_b"], ops["n_pz"]
         b_out = torch.empty(B, n_b, L, L, dtype=bf, device=edge.device)
         pz_out = torch.empty(B, n_pz, L, L, dtype=bf, device=edge.device)
-        ro_ptrs = [t.data_ptr() for t in (ops["wr"], ops["bro"])]
+        ro_ptrs = [ops[k].data_ptr() for k in readout_weights]
         out_ptrs = [b_out.data_ptr(), pz_out.data_ptr()]
     else:
         n_b = n_pz = 0
         ro_ptrs, out_ptrs = [None, None], [None, None]
     fn = native.function(name, f"{name}_forward", argtypes)
     ins = [edge, node_bias, mask] + [ops[k] for k in weights]
-    rc = fn(*[t.data_ptr() for t in ins], *ro_ptrs, scratch.data_ptr(), out.data_ptr(),
-            *out_ptrs, B, L, n_b, n_pz, eps, torch.cuda.current_stream(edge.device).cuda_stream)
+    ptrs = lambda ts: [t.data_ptr() for t in ts]
+    rc = fn(*ptrs(ins), *ro_ptrs, *ptrs(scratch + [out]), *out_ptrs, B, L, n_b, n_pz, eps,
+            torch.cuda.current_stream(edge.device).cuda_stream)
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     if readout is None:

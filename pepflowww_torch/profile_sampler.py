@@ -49,7 +49,7 @@ CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("ipa2 (K7)", ("ipa2_fwd_",)),
     ("edge_transition_bwd (K4)", ("edge_bwd_",)),
     ("distance_embed_bwd (K5)", ("dist_bwd_",)),
-    ("edge_transition (kernel B)", ("edge_transition_kernel", "node_proj_kernel")),
+    ("edge_transition (kernel B)", ("edge_transition_kernel",)),
     ("distance_embed (kernel A)", ("distance_embed_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("softmax", ("softmax",)),

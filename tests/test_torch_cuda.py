@@ -66,10 +66,12 @@ def _dist_inputs(dev, B, L, seed=13):
     return args, p
 
 
-@pytest.mark.parametrize("L", [24, 64])
+# (B, L): ragged L with tiles that cross batch rows (24, 37, 100), L=1,
+# fewer tiles than SMs, and L > 64 at the sampler's batch.
+@pytest.mark.parametrize("B,L", [(2, 24), (2, 64), (3, 37), (1, 1), (2, 100), (64, 128)])
 @pytest.mark.parametrize("with_readout", [False, True])
-def test_edge_kernel_matches_plain(dev, L, with_readout):
-    edge, nb, mask, p, readout = _edge_inputs(dev, 2, L)
+def test_edge_kernel_matches_plain(dev, B, L, with_readout):
+    edge, nb, mask, p, readout = _edge_inputs(dev, B, L)
     ro = readout if with_readout else None
     before = native.LAUNCHES["edge_transition"]
     got = cuda_edge.fused_edge_transition(edge, nb, mask, p, readout=ro)
