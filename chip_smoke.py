@@ -8,13 +8,13 @@ Phases, each on its own lines:
 1. setup: the card's name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once); ``ptxas -v``'s registers and spills, and the
-   dynamic shared memory, of both EdgeTransition variants (K1, K2), which
-   must not spill.
+   dynamic shared memory, of both variants of the EdgeTransition kernels
+   (K1/K2 and K6), which must not spill.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
-   kernel's, the plain version's and the bound's times; K1/K2 also at
-   (B, L) = (3, 37), (1, 1), (2, 100) and (64, 128), readout on and off;
+   kernel's, the plain version's and the bound's times; K1/K2 and K6 also
+   at (B, L) = (3, 37), (1, 1), (2, 100) and (64, 128), readout on and off;
    the backward kernels at the training shapes (B=32, L=64) and a ragged
    L, each called twice to show bit-identical gradients, and the forward
    EdgeTransition (readout off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
@@ -172,17 +172,20 @@ def phase_setup():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say("setup", f"ptxas {name}: {line.strip()}")
-    # K1/K2: registers, spills and shared memory of both variants; no spills allowed.
-    variants = [(("K2 (readout)" if "ILb1E" in entry else "K1"), use, spill)
-                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("edge_transition", ""))
-                if "edge_transition_kernel" in entry]
-    check(len(variants) == 2, "edge_transition: ptxas -v reported no entry for both variants")
-    smem = native.function("edge_transition", "edge_transition_smem_bytes", [])()
-    for tag, use, spill in variants:
-        say("setup", f"edge_transition {tag}: {use}; {spill}; {smem} bytes of dynamic shared "
-                     f"memory a block")
-        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
-              f"edge_transition {tag}: the consumer path spills ({spill})")
+    # K1/K2 and K6: registers, spills and shared memory of both variants of
+    # each (readout off, on: template argument false, true); no spills allowed.
+    for lib, kernel, tags in (("edge_transition", "edge_transition_kernel", ("K1", "K2 (readout)")),
+                              ("edge_transition_int8", "edge_int8_kernel", ("K6", "K6 (readout)"))):
+        variants = [(tags["ILb1E" in entry], use, spill)
+                    for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
+                    if kernel in entry]
+        check(len(variants) == 2, f"{lib}: ptxas -v reported no entry for both variants")
+        smem = native.function(lib, f"{lib}_smem_bytes", [])()
+        for tag, use, spill in variants:
+            say("setup", f"{lib} {tag}: {use}; {spill}; {smem} bytes of dynamic shared memory "
+                         f"a block")
+            check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                                   "loads"), f"{lib} {tag}: the consumer path spills ({spill})")
     return card
 
 
@@ -282,18 +285,24 @@ def phase_kernels():
         if L == 64:
             rows["distance_embed"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                           bound_by=by)
-    # K1/K2 at the shapes that stress the tile mapping: a tile crossing batch
-    # rows at a ragged L, L=1, fewer tiles than SMs, L > 64, readout on and off.
+    # K1/K2 and K6 at the shapes that stress the tile mapping: a tile crossing
+    # batch rows at a ragged L, L=1, fewer tiles than SMs, L > 64, readout on
+    # and off.
+    forwards = (("edge_transition", cuda_edge.fused_edge_transition,
+                 cuda_edge.edge_transition_plain, False),
+                ("edge_transition_int8", cuda_edge.fused_edge_transition_int8,
+                 cuda_edge.edge_transition_int8_plain, True))
     for B, L in ((3, 37), (1, 1), (2, 100), (64, 128)):
         edge, nb, mask, p, ro = _edge_inputs(B, L, dev, seed=B * 1000 + L)
-        ops = cuda_edge.kernel_operands(p, ro)
-        for r in (None, ro):
-            tag = f"edge_transition{'+readout' if r else ''} B={B} L={L}"
-            got = _launch_once("edge_transition", lambda: cuda_edge.fused_edge_transition(
-                edge, nb, mask, p, readout=r, ops=ops), tag)
-            want = cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16, r)
-            for n, a, b in zip(("out", "b", "pz"), got if r else (got,), want if r else (want,)):
-                compare(f"{tag} [{n}]", a, b, EDGE_TOL)
+        for name, fwd, fwd_plain, int8 in forwards:
+            ops = cuda_edge.kernel_operands(p, ro, quant_int8=int8)
+            for r in (None, ro):
+                tag = f"{name}{'+readout' if r else ''} B={B} L={L}"
+                got = _launch_once(name, lambda: fwd(edge, nb, mask, p, readout=r, ops=ops), tag)
+                want = fwd_plain(edge, nb, mask, p, torch.bfloat16, r)
+                for n, a, b in zip(("out", "b", "pz"), got if r else (got,),
+                                   want if r else (want,)):
+                    compare(f"{tag} [{n}]", a, b, EDGE_TOL)
     # K1: the forward with readout off, as the training step runs it.
     edge, nb, mask, p, _ = _edge_inputs(32, 64, dev, seed=32)
     ops = cuda_edge.kernel_operands(p)

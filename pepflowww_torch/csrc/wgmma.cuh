@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: warpgroup
-// matrix products (wgmma) with bf16 operands and fp32 accumulators, their
-// shared-memory descriptors for the 128-byte swizzled K-major layout,
-// cp.async 16-byte copies, named barriers and the proxy fence between them.
-// Used by edge_transition.cu (K1/K2).
+// matrix products (wgmma) with bf16 operands and fp32 accumulators or int8
+// operands and int32 accumulators, their shared-memory descriptors for the
+// 128-byte swizzled K-major layout, cp.async 16-byte copies, named barriers
+// and the proxy fence between them. Used by edge_transition.cuh (K1/K2 and
+// K6).
 //
 // Layout that the descriptors name (K-major, 128-byte swizzle): a matrix
 // of R rows (M for A, N for B) by K bf16 columns is stored as K/64 panels,
@@ -25,6 +26,19 @@
 // 2q..; a[3] row + 8. So the packed bf16 pairs of an accumulator's blocks
 // 2s and 2s + 1 are the A operand of depth step s of the next product
 // (pack_bf16: the lower column in the low half).
+//
+// int8 products (m64nNk32, s8 x s8 -> s32) read the same layout byte for
+// byte: a depth step of 32 int8 columns is 32 bytes, as 16 bf16 are, so
+// step s of a K-deep operand reads panel s / 4 at byte offset 32 (s % 4)
+// and the descriptors are the same. Both operands must be K-major. The
+// int32 accumulator has the fp32 layout above. The int8 A operand from
+// registers of a depth step holds, in warp w, lane (g, q): a[0] row 16w +
+// g, columns 4q..4q+3 (the lowest column in the low byte); a[1] row + 8;
+// a[2] row 16w + g, columns 16 + 4q..; a[3] row + 8. That is the same
+// count as the accumulator's eight columns 2q, 2q+1, 8+2q, 9+2q, 16+2q,
+// 17+2q, 24+2q, 25+2q of each 32-column block, in another order; a kernel
+// that feeds an accumulator to the next int8 product packs it as it lies
+// and permutes the K axis of that product's B operand to match.
 
 #pragma once
 
@@ -75,6 +89,13 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// And for int32 accumulators.
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Makes this thread's generic-proxy writes to shared memory (st.shared,
@@ -241,6 +262,69 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, ui
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// Four int8 values (the low byte of each int) packed into one register, a
+// in the low byte.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// d = A . B (+ d when scale_d), m64n192k32, int8 x int8 -> int32: A from
+// registers (four packed int8 quadruples a thread), B from shared memory.
+__device__ __forceinline__ void mma_rs_s8_n192(int (&d)[96], const uint32_t* a, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
+      " {%96, %97, %98, %99}, %100, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// d = A . B (+ d when scale_d), m64n64k32, int8 x int8 -> int32: A from
+// registers, B from shared memory.
+__device__ __forceinline__ void mma_rs_s8_n64(int (&d)[32], const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }

@@ -15,7 +15,11 @@ kernel's ``quant_int8=True``) runs the two hidden-width products (h1.k2,
 h2.k3) as int8 x int8 -> int32 with per-row activation scales
 (:func:`quant_rows`) and per-output-column weight scales (:func:`quant_cols`,
 of the float32 parameters); everything else is the bf16 function's. It is
-forward-only, as in the JAX package.
+forward-only, as in the JAX package. Its kernel (K6) shares the bf16
+kernel's tile loop (csrc/edge_transition.cuh) and quantizes the hidden rows
+in registers, feeding them to the int8 products in the order they lie
+there; so the int8 weights it reads have their K axis permuted by
+:data:`INT8_K_PERM`.
 
 The backward (:func:`edge_transition_bwd`) takes the same inputs and the
 output's cotangent ``g`` and returns d_edge, d_node_bias and the eight
@@ -42,8 +46,8 @@ CZ, HID, RO = 64, 192, 32
 PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
 # edge_transition_forward: 16 pointers, B, L, n_b, n_pz, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-# edge_transition_int8_forward: 20 pointers, B, L, n_b, n_pz, eps, stream.
-_INT8_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_int8_forward: 19 pointers, B, L, n_b, n_pz, eps, stream.
+_INT8_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_backward: 31 pointers, B, L, grid, nchunk, d_edge_f32, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 BWD_NCHUNK = 32      # pair chunks of the weight-gradient products (partials summed in order)
@@ -57,7 +61,7 @@ _OPERANDS = {"k1": ((HID, HID), torch.bfloat16), "k2": ((HID, HID), torch.bfloat
              "b2": ((HID,), torch.float32), "b3": ((CZ,), torch.float32),
              "ln_scale": ((CZ,), torch.float32), "ln_bias": ((CZ,), torch.float32),
              "w1t": ((HID, HID), torch.bfloat16), "w2t": ((HID, HID), torch.bfloat16),
-             "w3t": ((CZ, HID), torch.bfloat16), "wr": ((CZ, RO), torch.bfloat16),
+             "w3t": ((CZ, HID), torch.bfloat16),
              "wrt": ((RO, CZ), torch.bfloat16), "bro": ((RO,), torch.float32),
              "w2qt": ((HID, HID), torch.int8), "w2s": ((HID,), torch.float32),
              "w3qt": ((CZ, HID), torch.int8), "w3s": ((CZ,), torch.float32)}
@@ -133,6 +137,22 @@ def quant_cols(w: torch.Tensor):
     return torch.round(w * inv).to(torch.int8), amax / 127.0
 
 
+def _int8_k_perm() -> torch.Tensor:
+    """The order in which K6 feeds a hidden row to its int8 products: entry
+    p is the hidden column at position p of the K axis. Within each 32-column
+    block, the wgmma A fragment of lane q of a quad holds positions 4q..4q+3
+    and 16+4q..19+4q, and the fp32 accumulator it is packed from holds
+    columns 2q, 2q+1, 8+2q, 9+2q and the same +16: position 4q + m holds
+    column 2q + (m & 1) + 8 (m >> 1), and position 16 + 4q + m that + 16."""
+    q, m = torch.meshgrid(torch.arange(4), torch.arange(4), indexing="ij")
+    half = (2 * q + (m & 1) + 8 * (m >> 1)).reshape(-1)
+    block = torch.cat([half, half + 16])
+    return torch.cat([block + 32 * b for b in range(HID // 32)])
+
+
+INT8_K_PERM = _int8_k_perm()
+
+
 def _int_product(q, wq):
     """q . wq of int8 values as a float32 matmul of the integers: exact,
     since |sum| <= 192 * 127 * 127 < 2^24 (float32 products in full float32,
@@ -169,22 +189,25 @@ def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.
 
 # ---------------------------------------------------------------- kernels
 def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool = False) -> dict:
-    """The weights as the kernels take them: bf16 matrices [in, out] (k1, k2,
-    k3: the backward kernel's), float32 vectors, the readout packed as [kb |
-    kdz | 0] (64, 32) with its bias (32,). The bf16 forward kernel reads its
-    matrices K-major, the same bf16 values transposed to [out, in]: w1t,
-    w2t, w3t and the readout as wrt (32, 64). With `quant_int8`, in place of
-    the bf16 k2, k2 and k3 quantized per output column (from float32) and
-    transposed to [out, in] int8 (w2qt, w3qt) with their scales (w2s, w3s),
-    and the readout as wr (64, 32)."""
+    """The weights as the kernels take them: float32 vectors; the forward
+    kernels' matrices K-major, bf16 transposed to [out, in] (w1t, w3t, and
+    without `quant_int8` w2t); the readout packed as [kb | kdz | 0] and
+    transposed, wrt (32, 64), with its bias (32,). Without `quant_int8` also
+    the bf16 matrices [in, out] (k1, k2, k3: the backward kernel's). With
+    it, in place of w2t, k2 and k3 quantized per output column (from
+    float32) and transposed to [out, in] int8, their K axis permuted by
+    :data:`INT8_K_PERM` (w2qt, w3qt), with their column scales (w2s, w3s)."""
     bf = torch.bfloat16
-    ops = {k: p[k].to(bf).contiguous() for k in (("k1", "k3") if quant_int8 else ("k1", "k2", "k3"))}
-    ops.update({k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")})
+    ops = {k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")}
     if quant_int8:
+        ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "3")})
         for k in ("2", "3"):
             q, scale = quant_cols(p[f"k{k}"])
-            ops.update({f"w{k}qt": q.t().contiguous(), f"w{k}s": scale.reshape(-1).contiguous()})
+            perm = INT8_K_PERM.to(q.device)
+            ops.update({f"w{k}qt": q.t()[:, perm].contiguous(),
+                        f"w{k}s": scale.reshape(-1).contiguous()})
     else:
+        ops.update({k: p[k].to(bf).contiguous() for k in ("k1", "k2", "k3")})
         ops.update({f"w{k}t": ops[f"k{k}"].t().contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
@@ -198,11 +221,7 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         bro = torch.zeros(RO, dtype=torch.float32, device=kb.device)
         bro[:n_b] = bb.float()
         bro[n_b:n_b + n_pz] = bdz.float()
-        ops.update(bro=bro, n_b=n_b, n_pz=n_pz)
-        if quant_int8:
-            ops["wr"] = wr
-        else:
-            ops["wrt"] = wr.t().contiguous()
+        ops.update(wrt=wr.t().contiguous(), bro=bro, n_b=n_b, n_pz=n_pz)
     return ops
 
 
@@ -238,8 +257,8 @@ def fused_edge_transition_int8(edge, node_bias, node_mask, p: dict, dtype=torch.
         ops = kernel_operands(p, readout, quant_int8=True)
     return _launch("edge_transition_int8", _INT8_ARGTYPES, edge, node_bias, node_mask, dtype,
                    readout, ops, eps,
-                   ("k1", "b1", "w2qt", "w2s", "b2", "k3", "w3qt", "w3s", "b3", "ln_scale",
-                    "ln_bias"), ("wr", "bro"), node_scratch=True)
+                   ("w1t", "b1", "w2qt", "w2s", "b2", "w3t", "w3qt", "w3s", "b3", "ln_scale",
+                    "ln_bias"), ("wrt", "bro"))
 
 
 def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1e-5):
@@ -253,12 +272,11 @@ def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1
 
 
 def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps, weights,
-            readout_weights, node_scratch=False):
+            readout_weights):
     """Check what the forward kernels read and launch csrc/<name>.cu's
     ``<name>_forward`` with (edge, node_bias, mask, the `weights` of `ops`,
-    the `readout_weights` of `ops` (null without a readout), with
-    `node_scratch` the int8 kernel's node-product scratch (B*L, 512) fp32,
-    outputs, B, L, n_b, n_pz, eps, stream)."""
+    the `readout_weights` of `ops` (null without a readout), outputs, B, L,
+    n_b, n_pz, eps, stream): one launch."""
     if dtype != torch.bfloat16:
         raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
     B, L = edge.shape[:2]
@@ -273,8 +291,6 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
 
-    # Held until the launch has been enqueued, so no output reuses its memory.
-    scratch = [torch.empty(B * L, 512, dtype=f32, device=edge.device)] if node_scratch else []
     out = torch.empty(B, L, L, CZ, dtype=bf, device=edge.device)
     if readout is not None:
         if any(k not in ops for k in readout_weights):
@@ -292,7 +308,7 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     fn = native.function(name, f"{name}_forward", argtypes)
     ins = [edge, node_bias, mask] + [ops[k] for k in weights]
     ptrs = lambda ts: [t.data_ptr() for t in ts]
-    rc = fn(*ptrs(ins), *ro_ptrs, *ptrs(scratch + [out]), *out_ptrs, B, L, n_b, n_pz, eps,
+    rc = fn(*ptrs(ins), *ro_ptrs, out.data_ptr(), *out_ptrs, B, L, n_b, n_pz, eps,
             torch.cuda.current_stream(edge.device).cuda_stream)
     native.check(rc, name)
     native.LAUNCHES[name] += 1

@@ -18,9 +18,11 @@ The fused IPA forward (K7) has fp32 outputs: each within 2e-2 + 1e-3 of
 and plain version moves the scalar output by at most 2^-9 |v|; the point
 sums run in fp32 in another order); its backward (K8) is held like the
 other backward kernels. The int8 EdgeTransition (K6) is held to its plain
-version at 6e-2 + 2e-2 |plain| (K2's bound: a row quantization that rounds
-the other way, where fp32 sums run in another order, moves one int8 step of
-a hidden lane). The v1 IPA attention (K9) has fp32 outputs: with bf16
+version at 6e-2 + 2e-2 |plain| (K2's bound: the kernel sums h1 on the
+concatenated row, in another order than the plain version's factorized
+form, so a row quantization may round the other way, which moves one int8
+step of a hidden lane; tests/test_torch_edge_operands.py counts such rows on
+the CPU). The v1 IPA attention (K9) has fp32 outputs: with bf16
 inputs at the model's widths 2e-2 + 1e-3 |plain| (K7's), with fp32 inputs
 at the JAX tests' widths 1e-3 + 1e-4 |plain| (the sums run in another
 order).
@@ -263,10 +265,11 @@ def _within(got, want, atol, rtol, name):
     assert excess <= atol, (name, excess)
 
 
-@pytest.mark.parametrize("L", [24, 64])
+@pytest.mark.parametrize("L", [24, 37, 64])
 @pytest.mark.parametrize("with_readout", [False, True])
 def test_int8_edge_kernel_matches_plain(dev, L, with_readout):
-    """K6 against its plain version; it launches instead of the bf16 kernel."""
+    """K6 against its plain version (L=37: tiles that cross batch rows); it
+    launches instead of the bf16 kernel."""
     edge, nb, mask, p, readout = _edge_inputs(dev, 2, L, seed=L + 7)
     ro = readout if with_readout else None
     before = dict(native.LAUNCHES)

@@ -6,12 +6,9 @@ runs in float32 against the JAX Pallas kernel ``fused_edge_transition``
 tests/test_pallas.py holds those two; its readout outputs against GEMMs over
 its own output at 2e-5 (test_fused_readout_matches_xla). In bf16 it is held
 to the JAX kernel's bf16 run within one bf16 step of the output (3e-2).
-The CUDA kernel's own arithmetic (the first layer and the residual
-projection on the concatenated row [e | n_i | n_j], K-major bf16 weights)
-is written out here and held to the JAX kernel in bf16 (3e-2) and to the
-plain version in fp32 (1e-5: the same sums in another order). The CUDA
-kernel itself is held against the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+The CUDA kernels' own arithmetic and operands are held in
+tests/test_torch_edge_operands.py; the CUDA kernel itself is held against
+the plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -24,7 +21,6 @@ from pepflowww_tpu.models.pallas_edge import fused_edge_transition as jax_fused
 
 from pepflowww_torch.models import cuda_edge
 from pepflowww_torch.models.ipa import EdgeTransition
-from pepflowww_torch.models.layers import cached_operands
 
 torch.set_num_threads(1)
 B, L, CS, CZ, H, DZ = 2, 32, 128, 64, 8, 16
@@ -145,80 +141,6 @@ def test_plain_bf16_matches_jax_pallas_bf16():
     for a, b in ((got, want), (gb, wb), (gpz, wpz)):
         assert a.dtype == torch.bfloat16
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b.astype(jnp.float32)), atol=3e-2)
-
-
-def _concat_form(edge, node_bias, node_mask, p, readout, dtype):
-    """csrc/edge_transition.cu's arithmetic: operands rounded to `dtype`,
-    float32 sums; h1 = relu(x.W1 + b1) and o = x.W3 + h2.W3 + b3 on the
-    concatenated row x = [e | n_i | n_j]; LayerNorm, pair mask, rounding;
-    the readout from the rounded output, transposed."""
-    rnd = lambda t: t.to(dtype).float()
-    B, L = edge.shape[:2]
-    e, n = rnd(edge), rnd(node_bias)
-    x = torch.cat([e, n[:, :, None].expand(B, L, L, -1), n[:, None].expand(B, L, L, -1)], -1)
-    k1, k2, k3 = (rnd(p[k]) for k in ("k1", "k2", "k3"))
-    h = torch.relu(x @ k1 + p["b1"])
-    h = torch.relu(rnd(h) @ k2 + p["b2"])
-    o = x @ k3 + rnd(h) @ k3 + p["b3"]
-    mu = o.mean(-1, keepdim=True)
-    y = (o - mu) * torch.rsqrt((o - mu).square().mean(-1, keepdim=True) + 1e-5)
-    y = y * p["ln_scale"] + p["ln_bias"]
-    out = rnd(y * (node_mask[:, :, None] * node_mask[:, None, :])[..., None])
-    kb, bb, kdz, bdz = readout
-    return (out, rnd(out @ rnd(kb) + bb).permute(0, 3, 1, 2),
-            rnd(out @ rnd(kdz) + bdz).permute(0, 3, 1, 2))
-
-
-def test_concat_form_matches_jax_pallas_and_plain():
-    """The kernel's concatenated first layer and residual projection give
-    the JAX kernel's factorized function: in bf16 within one bf16 step of
-    the O(1) outputs (3e-2), in fp32 the plain version within 1e-5."""
-    node, edge, mask, params, readout = _inputs(7, B=2, L=16)
-    nb = _node_bias(params, node)
-    p = _port_kernel_params(params)
-    ro = tuple(torch.from_numpy(x) for x in readout)
-    args = (torch.from_numpy(edge), torch.from_numpy(nb), torch.from_numpy(mask), p)
-    bf = jnp.bfloat16
-    want = jax_fused(jnp.asarray(edge).astype(bf), jnp.asarray(nb).astype(bf), jnp.asarray(mask),
-                     _jax_kernel_params(params), dtype=bf, interpret=True,
-                     readout=tuple(jnp.asarray(x) for x in readout))
-    got = _concat_form(*args, ro, torch.bfloat16)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b.astype(jnp.float32)), atol=3e-2)
-    got = _concat_form(*args, ro, torch.float32)
-    want = cuda_edge.edge_transition_plain(*args, torch.float32, ro)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
-
-
-def test_kernel_operands_k_major_copies_cached():
-    """The bf16 forward kernel's K-major weights are the bf16 parameters
-    transposed, bit for bit, and are built once per module until a
-    parameter changes."""
-    _, _, _, params, readout = _inputs(8)
-    m = _port_module(params, dtype=torch.bfloat16, use_kernels=True)
-    ro = tuple(torch.from_numpy(x) for x in readout)
-    calls = []
-
-    def make():
-        calls.append(1)
-        return cuda_edge.kernel_operands(m.params(), ro)
-
-    tensors = lambda: list(m.params().values()) + list(ro)
-    ops = cached_operands(m, tensors(), make)
-    bf = torch.bfloat16
-    for k, lin in (("1", m.trunk[0]), ("2", m.trunk[2]), ("3", m.final_layer)):
-        t = ops[f"w{k}t"]
-        assert t.dtype == bf and t.is_contiguous()
-        assert torch.equal(t, lin.weight.detach().to(bf)) and torch.equal(t, ops[f"k{k}"].t())
-    wr = torch.cat([ro[0], ro[2]], 1).to(bf)
-    assert ops["wrt"].shape == (32, CZ) and ops["wrt"].is_contiguous()
-    assert torch.equal(ops["wrt"][:H + DZ], wr.t()) and not ops["wrt"][H + DZ:].any()
-    assert cached_operands(m, tensors(), make) is ops and len(calls) == 1
-    with torch.no_grad():
-        m.trunk[0].weight.mul_(2.0)
-    ops = cached_operands(m, tensors(), make)
-    assert len(calls) == 2 and torch.equal(ops["w1t"], m.trunk[0].weight.detach().to(bf))
 
 
 def test_cuda_tensor_without_card_raises():

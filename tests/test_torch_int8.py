@@ -110,7 +110,8 @@ def test_quantizers_match_jax_exactly():
 def test_int8_operands_from_flax_params_equal_jax(golden):
     """Flax parameters carried across by state_dict_from_flax give the
     kernel the same int8 weights and column scales as the JAX wrapper
-    quantizes (from the float32 k2 and k3)."""
+    quantizes (from the float32 k2 and k3); the kernel's copies have their K
+    axis permuted (cuda_edge.INT8_K_PERM), undone here."""
     g = golden("model_parity")
     nb = int(g["num_blocks"])
     params = convert_state_dict(_sd(g), num_blocks=nb, seq_tfmr_num_layers=2)
@@ -127,7 +128,8 @@ def test_int8_operands_from_flax_params_equal_jax(golden):
         jp = params["ga_encoder"][f"edge_transition_{b}"]
         for k, layer in (("2", "Linear_2"), ("3", "Linear_3")):
             jq, js = _quant_cols(jp[layer]["Dense_0"]["kernel"])
-            np.testing.assert_array_equal(ops[f"w{k}qt"].t().numpy(), np.asarray(jq))
+            wqt = ops[f"w{k}qt"][:, torch.argsort(cuda_edge.INT8_K_PERM)]
+            np.testing.assert_array_equal(wqt.t().numpy(), np.asarray(jq))
             np.testing.assert_array_equal(ops[f"w{k}s"].numpy(), np.asarray(js).reshape(-1))
 
 
