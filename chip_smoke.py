@@ -9,7 +9,8 @@ Phases, each on its own lines:
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once); ``ptxas -v``'s registers and spills, and the
    dynamic shared memory, of both variants of the EdgeTransition kernels
-   (K1/K2 and K6), which must not spill.
+   (K1/K2 and K6) and of the six of the fused IPA forward (K7), none of
+   which may spill.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
@@ -18,8 +19,10 @@ Phases, each on its own lines:
    the backward kernels at the training shapes (B=32, L=64) and a ragged
    L, each called twice to show bit-identical gradients, and the forward
    EdgeTransition (readout off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
-   and L=64, 40 and 256 in the sampler's input layouts; its backward (K8)
-   at B=32 and L=64, 24 and 256 in the training step's. The int8
+   and L=64, 40 and 256 in the sampler's input layouts, at (B, L) = (1, 1),
+   (3, 37), (2, 100), (64, 128) in the sampler's and the training step's,
+   and at B=32, L=64 in the training step's, with both layouts' times; its
+   backward (K8) at B=32 and L=64, 24 and 256 in the training step's. The int8
    EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
    L=40. The v1 IPA attention core (K9), through both of its wrappers, at
    B=64, L=64 at the model's widths in bf16 and at the JAX tests' widths in
@@ -71,6 +74,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -186,6 +190,21 @@ def phase_setup():
                          f"a block")
             check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
                                    "loads"), f"{lib} {tag}: the consumer path spills ({spill})")
+    # K7: every variant (the sampler's layout, training's, strided loads;
+    # each for one key tile or several); no spills.
+    variants = [(re.search(r"ipa2_fwd_kernelILb(\d)ELi(\d)ELb(\d)E", entry), use, spill)
+                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("ipa2", ""))
+                if "ipa2_fwd_kernel" in entry]
+    check(len(variants) == 6 and all(m for m, _, _ in variants),
+          "ipa2: ptxas -v reported no entry for each K7 variant")
+    smem = native.function("ipa2", "ipa2_smem_bytes", [])()
+    for m, use, spill in variants:
+        tag = (f"bias {('strided', 'rows')[int(m[1])]}, pair {('j', 'd', 'strided')[int(m[2])]}, "
+               f"{('L <= 64', 'L > 64')[int(m[3])]}")
+        say("setup", f"ipa2 K7 ({tag}): {use}; {spill}; {smem} bytes of dynamic shared memory "
+                     f"a block")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"ipa2 K7 ({tag}) spills ({spill})")
     return card
 
 
@@ -348,20 +367,31 @@ def phase_kernels():
         if L == 64:
             rows["distance_embed_bwd"] = row
 
-    # K7: the fused IPA forward, in the sampler's layouts.
-    for L in (64, 40, 256):
-        args = _ipa_inputs(64, L, dev, seed=500 + L, layout="sampler")
-        tag = f"ipa2 B=64 L={L}"
+    # K7: the fused IPA forward, in the sampler's layouts; then both layouts at
+    # the shapes that stress the tiling (L=1, a ragged single key tile, two
+    # key tiles with a ragged edge, two full ones at the sampler's batch) and
+    # at the training step's B=32.
+    def ipa2_check(B, L, layout, seed):
+        args = _ipa_inputs(B, L, dev, seed=seed, layout=layout)
+        tag = f"ipa2 B={B} L={L} ({layout} layout)"
         got = _launch_once("ipa2", lambda: cuda_ipa.fused_ipa2(*args), tag)
         want = cuda_ipa.ipa2_plain(*args)
-        err = max(compare(f"{tag} [{n}]", a, b, IPA_TOL)
-                  for n, a, b in zip(("o", "optl", "norm", "opair"), got, want))
+        return args, tag, max(compare(f"{tag} [{n}]", a, b, IPA_TOL)
+                              for n, a, b in zip(("o", "optl", "norm", "opair"), got, want))
+
+    for L in (64, 40, 256):
+        args, tag, err = ipa2_check(64, L, "sampler", 500 + L)
         if L == 64:
             rows["ipa2"] = _time_row(tag, lambda: cuda_ipa.fused_ipa2(*args),
                                      lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(64, L), err)
-    args = _ipa_inputs(32, 64, dev, seed=632, layout="train")
-    _time_row("ipa2 B=32 L=64 (training layout)", lambda: cuda_ipa.fused_ipa2(*args),
-              lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(32, 64), 0.0)
+    for B, L in ((1, 1), (3, 37), (2, 100), (64, 128)):
+        for layout in ("sampler", "train"):
+            ipa2_check(B, L, layout, 550 + B * 1000 + L)
+    args, tag, err = ipa2_check(32, 64, "train", 632)
+    train_row = _time_row(tag, lambda: cuda_ipa.fused_ipa2(*args),
+                          lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(32, 64), err)
+    say("kernels", f"ipa2 (K7) per launch: sampler layout B=64 L=64 {1e3 * rows['ipa2']['ms']:.1f} "
+                   f"us, training layout B=32 L=64 {1e3 * train_row['ms']:.1f} us")
     # K8: its backward, in the training step's layouts.
     names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
     for L in (64, 24, 256):
@@ -506,11 +536,12 @@ def compare_grads(tag, names, got, want, again) -> float:
 
 
 def _time_row(tag, call, plain, bound, err) -> dict:
+    """The kernel's, the plain version's and the bound's times."""
     k_ms = cuda_ms(call)
     p_ms = cuda_ms(plain, reps=3, warmup=1)
     bound_ms, by = bound
-    say("kernels", f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                   f"by {by} ({100 * bound_ms / k_ms:.1f}% of bound)")
+    say("kernels", f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                   f"{bound_ms:.4f} ms by {by} ({100 * bound_ms / k_ms:.1f}% of bound)")
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by)
 
 

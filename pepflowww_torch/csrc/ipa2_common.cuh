@@ -1,9 +1,10 @@
-// Shared pieces of the fused IPA interior kernels (ipa2.cu, ipa2_bwd.cu):
-// widths, tile shapes, the input layout, tile loaders and the logits of one
-// query tile against one key tile. Both kernels compute in fp32 on the CUDA
-// cores from bf16 inputs: a product of two bf16 values is exact in fp32, so
-// each dot product is the bf16-operand, fp32-accumulate product the JAX
-// kernel asks for, summed in another order.
+// Shared pieces of the fused IPA interior kernels: the widths and the input
+// layout (ipa2.cu, ipa2_bwd.cu), and the backward's tile shapes, tile
+// loaders and the logits of one query tile against one key tile
+// (ipa2_bwd.cu). The backward computes in fp32 on the CUDA cores from bf16
+// inputs: a product of two bf16 values is exact in fp32, so each dot
+// product is the bf16-operand, fp32-accumulate product the JAX kernel asks
+// for, summed in another order.
 
 #pragma once
 

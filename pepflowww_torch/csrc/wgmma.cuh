@@ -3,7 +3,7 @@
 // operands and int32 accumulators, their shared-memory descriptors for the
 // 128-byte swizzled K-major layout, cp.async 16-byte copies, named barriers
 // and the proxy fence between them. Used by edge_transition.cuh (K1/K2 and
-// K6).
+// K6) and ipa2.cu (K7).
 //
 // Layout that the descriptors name (K-major, 128-byte swizzle): a matrix
 // of R rows (M for A, N for B) by K bf16 columns is stored as K/64 panels,
@@ -59,7 +59,8 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 }
 
 // Descriptor of a K-major, 128-byte swizzled operand whose rows start at
-// shared address `addr` (see the layout above).
+// shared address `addr` (see the layout above); also of an MN-major B
+// operand of an n64 product (mma_rs_n64<1>).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
@@ -122,6 +123,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -229,7 +235,14 @@ __device__ __forceinline__ void mma_rs_n192(float (&d)[96], const uint32_t* a, u
 }
 
 // d = A . B (+ d when scale_d), m64n64k16: A from registers (four bf16
-// pairs a thread), B from shared memory.
+// pairs a thread), B from shared memory, K-major or, with TRANS_B = 1,
+// MN-major: rows are then the K axis, each 128 bytes of the 64 N columns
+// stored as sw128_offset places them, and desc_sw128 describes them too
+// (8-row groups 1024 bytes apart; the leading byte offset, the distance
+// between 64-column blocks, is unused at N = 64). That is CUTLASS's
+// canonical MN-major layout Sw<3,4,3> o ((8,8,m),(8,k)) : ((1,8,LBO),(64,SBO))
+// in elements.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -238,14 +251,14 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, ui
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B)
       : "memory");
 }
 

@@ -46,7 +46,7 @@ import torch
 from pepflowww_torch import native
 
 C_K, PQ_K, PV_K, CZ4_K = 128, 8, 12, 16   # the widths the kernels take
-TILE = 32                                 # query / key rows per block (T in csrc/ipa2_common.cuh)
+TILE = 32                                 # rows per block of the backward (T in csrc/ipa2_common.cuh)
 _LAYOUT = ctypes.c_longlong * 18          # element strides of qp, kvp (5 each), bias, pz (4 each)
 # ipa2_forward: 14 pointers, strides, B, L, H, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + \

@@ -198,9 +198,18 @@ def ipa_inputs(dev, B, L, seed=0, module_layout=False):
             f(B, L, 3, sc=5.0), bias, pz, (1e5 * (mask - 1.0))[:, None, :], sw]
 
 
-@pytest.mark.parametrize("L,module_layout", [(64, False), (40, True), (256, False)])
-def test_ipa2_kernel_matches_plain(dev, L, module_layout):
-    args = ipa_inputs(dev, 2, L, seed=L, module_layout=module_layout)
+# L: one key tile (1, 24, 40, 64), two with a ragged edge (65, 100), four
+# (256); layouts: the sampler's (bias (B, H, L, L), the pair readout a view of
+# (B, CZ4, L, L)) and the training step's (bias a view of (B, L, L, H), the
+# pair readout (B, L, L, CZ4)); L % 8 != 0 takes the strided loads.
+@pytest.mark.parametrize("L", [1, 24, 40, 64, 65, 100, 256])
+@pytest.mark.parametrize("layout", ["sampler", "train"])
+def test_ipa2_kernel_matches_plain(dev, L, layout):
+    args = ipa_inputs(dev, 2, L, seed=L, module_layout=True)
+    if layout == "sampler":
+        args[6] = args[6].contiguous()
+    else:
+        args[7] = args[7].contiguous()
     before = native.LAUNCHES["ipa2"]
     got = cuda_ipa.fused_ipa2(*args)
     torch.cuda.synchronize()
