@@ -9,16 +9,18 @@ Phases, each on its own lines:
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once); ``ptxas -v``'s registers and spills, and the
    dynamic shared memory, of both variants of the EdgeTransition kernels
-   (K1/K2 and K6) and of the six of the fused IPA forward (K7), none of
-   which may spill.
+   (K1/K2 and K6), of the six of the fused IPA forward (K7) and of the
+   three kernels of the EdgeTransition backward (K4), none of which may
+   spill.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
    kernel's, the plain version's and the bound's times; K1/K2 and K6 also
    at (B, L) = (3, 37), (1, 1), (2, 100) and (64, 128), readout on and off;
    the backward kernels at the training shapes (B=32, L=64) and a ragged
-   L, each called twice to show bit-identical gradients, and the forward
-   EdgeTransition (readout off, as in training) timed at B=32. The fused IPA forward (K7) at B=64
+   L (K4 also at B=3, L=37), each called twice to show bit-identical
+   gradients, and the forward EdgeTransition (readout off, as in training)
+   timed at B=32. The fused IPA forward (K7) at B=64
    and L=64, 40 and 256 in the sampler's input layouts, at (B, L) = (1, 1),
    (3, 37), (2, 100), (64, 128) in the sampler's and the training step's,
    and at B=32, L=64 in the training step's, with both layouts' times; its
@@ -205,6 +207,16 @@ def phase_setup():
                      f"a block")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"ipa2 K7 ({tag}) spills ({spill})")
+    # K4: its chain, weight-gradient and reduction kernels; no spills.
+    entries = [(re.search(r"edge_bwd_\w+?_kernel", entry), use, spill)
+               for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("edge_transition_bwd", ""))
+               if "edge_bwd_" in entry]
+    check(len(entries) == 3 and all(m for m, _, _ in entries),
+          "edge_transition_bwd: ptxas -v reported no entry for each K4 kernel")
+    for m, use, spill in entries:
+        say("setup", f"edge_transition_bwd K4 {m[0]}: {use}; {spill}")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"edge_transition_bwd K4 {m[0]} spills ({spill})")
     return card
 
 
@@ -331,12 +343,13 @@ def phase_kernels():
     err = compare(tag, _launch_once("edge_transition", call, tag), plain(), EDGE_TOL)
     rows["edge_transition_k1"] = _time_row(tag, call, plain, edge_bound_ms(32, 64, n_ro=0), err)
 
-    # Backward kernels at the training shape and a ragged L.
-    for L in (64, 24):
-        edge, nb, mask, p, _ = _edge_inputs(32, L, dev, seed=100 + L)
-        g = _randn((32, L, L, 64), dev, 200 + L).bfloat16()
+    # Backward kernels at the training shape, a ragged L and (K4) a shape
+    # whose 8 x 8 tiles are cut at both edges.
+    for B, L in ((32, 64), (32, 24), (3, 37)):
+        edge, nb, mask, p, _ = _edge_inputs(B, L, dev, seed=100 + L)
+        g = _randn((B, L, L, 64), dev, 200 + L).bfloat16()
         ops = cuda_edge.kernel_operands(p)
-        tag = f"edge_transition_bwd B=32 L={L}"
+        tag = f"edge_transition_bwd B={B} L={L}"
         call = lambda: cuda_edge.edge_transition_bwd(edge, nb, mask, p, g, ops=ops,
                                                      d_edge_dtype=torch.bfloat16)
         plain = lambda: cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, torch.bfloat16)
@@ -344,8 +357,8 @@ def phase_kernels():
         names = ("d_edge", "d_node") + cuda_edge.PARAM_NAMES
         flat = lambda r: (r[0], r[1], *(r[2][k] for k in cuda_edge.PARAM_NAMES))
         err = compare_grads(tag, names, flat(got), flat(plain()), flat(call()))
-        row = _time_row(tag, call, plain, edge_bwd_bound_ms(32, L), err)
-        if L == 64:
+        row = _time_row(tag, call, plain, edge_bwd_bound_ms(B, L), err)
+        if (B, L) == (32, 64):
             rows["edge_transition_bwd"] = row
     for L, (rec, pep) in ((64, (48, 12)), (40, (28, 10))):
         b = device_batch(make_batch(np.random.default_rng(300 + L), batch_size=32, pep_len=pep,

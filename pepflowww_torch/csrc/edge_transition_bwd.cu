@@ -1,7 +1,8 @@
-// Fused EdgeTransition backward for Hopper, sm_90a.
+// Fused EdgeTransition backward for Hopper, sm_90a (K4).
 //
-// Replaces: pepflowww_tpu/models/pallas_edge_bwd.py::edge_transition_bwd
-// (body `_bwd_kernel`), the backward half of fused_edge_transition_vjp.
+// Replaces: pepflowww_tpu/models/pallas_edge_bwd.py:148 edge_transition_bwd
+// (body `_bwd_kernel` :26, pallas_call :221), the backward half of
+// fused_edge_transition_vjp (:255).
 //
 // For the cotangent g of out = LN(o) * mask_i * mask_j (see
 // edge_transition.cu for the forward), per pair with x = [e | n_i | n_j]:
@@ -15,534 +16,790 @@
 //   outputs    d_edge = dx[:64]; d_node[b,k] = sum_j dx_(k,j)[64:128]
 //              + sum_i dx_(i,k)[128:192]; dW1 = x^T.bf16(da1),
 //              dW2 = bf16(h1)^T.bf16(da2), dW3 = bf16(r)^T.bf16(do),
-//              db = column sums, d_ln_scale = sum g'*y, d_ln_bias = sum g'.
+//              db = column sums of the fp32 da1, da2, do,
+//              d_ln_scale = sum g'*y, d_ln_bias = sum g'.
 // GEMM operands are bf16 with fp32 accumulation, at the JAX kernel's
 // rounding points; LayerNorm statistics and every sum are fp32.
 //
-// What bounds it on this card: per pair ~61k MAC of recompute (e.W1e, W2,
-// r.W3) and ~123k MAC of backward products (dr, dh1, d_edge, dW1e, dW2,
-// dW3), all bf16 on the tensor cores; the node terms run at node
-// resolution. So operations bound it (~49 us at B=32, L=64 at 989 TFLOP/s).
+// What bounds it on this card: per pair ~61k MAC of recompute and ~123k
+// MAC of backward products, all bf16 on the tensor cores: operations
+// (~49 us at B=32, L=64 at 989 TFLOP/s). This design does ~184k MAC a pair
+// in the chain (x.W1 and dx on the concatenated row, dr twice) and ~86k in
+// the weight gradients (dW1 on the whole row), and moves ~4.4 KB a pair
+// through device memory (~172 us at B=32, L=64 at 3.35 TB/s): mostly the
+// weight gradients' bf16 operands (1.66 KB), written once by the chain and
+// read once by the weight kernel.
 //
-// Design. The TPU kernel sums its weight and node gradients across grid
-// steps in place, relying on the TPU grid running in order. GPU blocks run
-// concurrently and in no order, so every cross-block sum here goes through
-// partials added in a fixed order, and no float atomics: two runs give
-// bit-identical gradients. Stages:
-//  1. edge_bwd_node_proj_kernel: the node products P = n.[W1i | W1j | W3i | W3j]
-//     once per residue (as in the forward).
-//  2. edge_bwd_tile_kernel: a persistent grid (one block per SM) walks 32-pair
-//     tiles; W1e, W2 and W3 stay in shared memory. Per tile it recomputes
-//     the forward and runs the LayerNorm backward and the three backward
-//     products (dr, dh1, d_edge) on bf16 WMMA, writes d_edge, and writes
-//     the bf16 GEMM operands of the weight gradients (h1, r, do, da2, da1)
-//     to scratch. Bias and LayerNorm-parameter sums stay in registers and
-//     leave as one partial per block.
-//  3. edge_bwd_atb_kernel (x3): the weight gradients dW1e = e^T.da1, dW2 = h1^T.da2,
-//     dW3 = r^T.do as split-K products over the pairs, one fp32 partial per
-//     pair chunk.
-//  4. edge_bwd_node_sum_kernel: per residue the sums of da1 and do over its row and
-//     its column of pairs, then d_node from them and W1i, W1j, W3i, W3j.
-//  5. edge_bwd_node_weight_kernel: the node rows of dW1 from those sums.
-//  6. edge_bwd_reduce_kernel: the partials summed in a fixed order.
-// Writing the weight-gradient operands to device memory (~1.7 KB per pair)
-// is this design's cost, not the function's: it keeps every cross-block sum
-// out of registers and atomics. Pairs are flattened over (b, i, j), so any
-// L runs: the ragged last tile is masked here.
+// Design: three launches a call, every cross-block sum through partials
+// added in a fixed order (no float atomics: two calls give bit-identical
+// results).
+//  1. edge_bwd_chain_kernel: a persistent grid, two warpgroups a block,
+//     each walking its own tiles of 64 pairs: an 8 x 8 block (i0..i0+7,
+//     j0..j0+7) of one batch row, so any L runs (pairs past L are
+//     zero-filled and their g' is 0, so they add nothing). W1^T, W2^T, W3^T
+//     stay in shared memory, K-major in the 128-byte swizzle as the forward
+//     holds them (edge_transition.cuh); the backward products read the same
+//     copies MN-major (transpose-B, wgmma.cuh desc_sw128_mn). Per tile a
+//     warpgroup gathers C = [e | n_i | n_j] with cp.async and runs C.W1,
+//     then, by 64-column thirds, h1.W2, r.W3, do.W3^T, da2.W2^T and
+//     do.W3^T + da1.W1^T, each third's accumulator turned into the next
+//     product's A operand: h1, do and da1 as bf16 fragments in registers,
+//     r and da2 written in place over C and read from there. LayerNorm
+//     forward and backward run in registers with quad shuffles. It writes
+//     d_edge, and the bf16 h1, r, do, da2, da1 as the tile's 128-byte
+//     swizzled panel images (so the weight kernel copies them as they
+//     lie). A tile's column sums (biases and LayerNorm parameters) are
+//     summed over each quad column's eight lanes by a butterfly and kept a
+//     lane; the node terms leave as partials: a tile row's sum of dx[64:128]
+//     over its 8 j (one slot per j block) and a warp's sum of dx[128:192]
+//     over its 2 i (one slot per i block and warp).
+//  2. edge_bwd_weight_kernel: dW1 = C^T.bf16(da1) (C gathered again),
+//     dW2 = bf16(h1)^T.bf16(da2), dW3 = bf16(r)^T.bf16(do), split over
+//     chunks of tiles; both operands MN-major from shared memory
+//     (transpose-A and -B), a 4-stage cp.async ring; one fp32 partial per
+//     chunk. Each operand is read once.
+//  3. edge_bwd_reduce_kernel: every partial summed in a fixed order.
+// Pair rows are 32-bit: the launcher refuses B*L*L > INT_MAX.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include <climits>
 
-#include <cstdint>
-#include <type_traits>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "wgmma.cuh"
 
 namespace {
 
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
 constexpr int CZ = 64;     // pair channels in and out; node-bias width
-constexpr int HID = 192;   // hidden width = 3 * CZ
-constexpr int NP = 512;    // node-product lanes: [W1i 192 | W1j 192 | W3i 64 | W3j 64]
-constexpr int TM = 32;     // pair rows per tile
-constexpr int NT = 256;    // threads per block (8 warps)
-constexpr int VEC = 2 * HID + 3 * CZ;  // d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
-constexpr int NS = 2 * HID + 2 * CZ;   // node sums: da1 row | da1 col | do row | do col
+constexpr int HID = 192;   // hidden width = the concat row's
+constexpr int TM = 64;     // pairs a tile: one warpgroup product
+constexpr int TI = 8;      // a tile is TI x TI pairs of one batch row
+constexpr int PANEL = TM * 128;            // 64 rows of 128 bytes
+constexpr int TILE_H = 3 * PANEL;          // a tile's 192-wide bf16 image
+constexpr int TILE_Z = PANEL;              // a tile's 64-wide bf16 image
+constexpr int VEC = 2 * HID + 3 * CZ;      // d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
+constexpr int NW12 = HID * HID;            // dW1, dW2
+constexpr int NW3 = HID * CZ;              // dW3
+constexpr int COL_SLOTS = 4;               // column partials a tile writes per column
+constexpr unsigned FULL = 0xffffffffu;
 
-constexpr int LD_H = HID + 8;
-constexpr int LD_Z = CZ + 8;
-constexpr int LD_S = HID + 4;
-constexpr int LD_E = CZ + 4;
+constexpr int N_WG = 2;                    // chain kernel: consumer warpgroups a block
+constexpr int NT_C = 128 * N_WG;
+constexpr int WG_W = 3;                    // weight kernel: warpgroups a block
+constexpr int NT_W = 128 * WG_W;
+constexpr int NST = 4;                     // weight kernel: stages of its ring
+constexpr int STAGE_W = 2 * TILE_H;
 
-constexpr int OFF_W1 = 0;                              // W1e [64][LD_H]
-constexpr int OFF_W2 = OFF_W1 + CZ * LD_H * 2;         // W2 [192][LD_H]
-constexpr int OFF_W3 = OFF_W2 + HID * LD_H * 2;        // W3 [192][LD_Z]
-constexpr int OFF_E = OFF_W3 + HID * LD_Z * 2;         // edge tile [32][LD_Z]
-constexpr int OFF_HA = OFF_E + TM * LD_Z * 2;          // h1, then da2 [32][LD_H]
-constexpr int OFF_HB = OFF_HA + TM * LD_H * 2;         // r, then da1 [32][LD_H]
-constexpr int OFF_DO = OFF_HB + TM * LD_H * 2;         // do [32][LD_Z]
-constexpr int OFF_S = OFF_DO + TM * LD_Z * 2;          // fp32 accumulators [32][LD_S]
-constexpr int OFF_DR = OFF_S + TM * LD_S * 4;          // dr[:, :64] fp32 [32][LD_E]
-constexpr int OFF_M1 = OFF_DR + TM * LD_E * 4;         // a1 > 0 [32][192] bytes
-constexpr int OFF_M2 = OFF_M1 + TM * HID;              // a2 > 0 [32][192] bytes
-constexpr int OFF_V = OFF_M2 + TM * HID;               // b1 b2 b3 ln_s
-constexpr int SMEM_BYTES = OFF_V + (2 * HID + 2 * CZ) * 4;
+// Chain kernel shared memory (bytes): W1^T, W2^T [3][192][128 B], W3^T
+// [3][64][128 B], one C tile a warpgroup [3][64][128 B], the fp32 vectors
+// b1 b2 b3 ln_s, and each thread's (a1 > 0), (a2 > 0) bits [6][256] u32:
+// 229,376 of the 232,448 a block may use.
+struct ChainSmem {
+  static constexpr int W1 = 0;
+  static constexpr int W2 = W1 + HID * HID * 2;
+  static constexpr int W3 = W2 + HID * HID * 2;
+  static constexpr int C = W3 + CZ * HID * 2;
+  static constexpr int V = C + N_WG * TILE_H;
+  static constexpr int MASK = V + (2 * HID + 2 * CZ) * 4;
+  static constexpr int BYTES = MASK + 6 * NT_C * 4;
+  static_assert(W2 % 1024 == 0 && W3 % 1024 == 0 && C % 1024 == 0, "panels on 1024 bytes");
+  static_assert(BYTES <= 232448, "more shared memory than a block may use");
+  static_assert(8 * VEC * 4 <= N_WG * TILE_H, "the block's vector reduction fits in C");
+};
+constexpr int WEIGHT_SMEM = NST * STAGE_W;
+static_assert(WEIGHT_SMEM <= 232448, "more shared memory than a block may use");
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+struct Tile {
+  int b, ib, jb;
+};
+__device__ __forceinline__ Tile tile_at(int t, int nbi) {
+  const int per_b = nbi * nbi, b = t / per_b, rem = t - b * per_b, ib = rem / nbi;
+  return {b, ib, rem - ib * nbi};
+}
 
-// acc[n] += A[rm-th 16 rows, K] . B[K, (cn0+n)-th 16 cols]; B is either a
-// row-major [K][ldb] matrix or, with col_major, the transpose of a
-// row-major [N][ldb] one (so W^T is read from W as it is stored).
-template <int N, typename BLayout>
-__device__ __forceinline__ void mma_acc(Acc (&acc)[N], const bf16* A, int lda, const bf16* Bm,
-                                        int ldb, int ksteps, int rm, int cn0) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-  for (int k = 0; k < ksteps; ++k) {
-    wmma::load_matrix_sync(a, A + rm * 16 * lda + k * 16, lda);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      if constexpr (std::is_same<BLayout, wmma::row_major>::value)
-        wmma::load_matrix_sync(b, Bm + k * 16 * ldb + (cn0 + n) * 16, ldb);
-      else
-        wmma::load_matrix_sync(b, Bm + (cn0 + n) * 16 * ldb + k * 16, ldb);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
+// The tile's concat rows C = [e | n_i | n_j] into the swizzled panels at
+// `dst`; row r is pair (b, 8 ib + r / 8, 8 jb + r % 8), zero past L. Copies
+// the 16-byte chunks first, first + step, ... of 3 parts x 64 rows x 8: eight
+// threads in a row read one 128-byte row, and a row's 8 pairs are
+// consecutive in `edge`.
+__device__ __forceinline__ void gather(uint32_t dst, const bf16* __restrict__ edge,
+                                       const bf16* __restrict__ node, Tile t, int L, int first,
+                                       int step) {
+  for (int v = first; v < 3 * TM * 8; v += step) {
+    const int part = v >> 9, r = (v >> 3) & (TM - 1), c = v & 7;
+    const int i = t.ib * TI + (r >> 3), j = t.jb * TI + (r & 7);
+    const bool valid = i < L && j < L;
+    const bf16* src = edge;
+    if (valid)
+      src = part == 0 ? edge + ((size_t)(t.b * L + i) * L + j) * CZ + c * 8
+                      : node + (size_t)(t.b * L + (part == 1 ? i : j)) * CZ + c * 8;
+    cp_async16(dst + part * PANEL + sw128_offset(r, c), src, valid);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_acc(Acc (&acc)[N], float* S, int lds, int rm, int cn0) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-    wmma::store_matrix_sync(S + rm * 16 * lds + (cn0 + n) * 16, acc[n], lds, wmma::mem_row_major);
+// `bytes` of a tile image from global to shared memory as they lie.
+__device__ __forceinline__ void copy_image(uint32_t dst, const bf16* __restrict__ src, int bytes,
+                                           int first, int step) {
+  const char* s = reinterpret_cast<const char*>(src);
+  for (int v = first; v < bytes / 16; v += step) cp_async16(dst + v * 16, s + v * 16, true);
 }
 
-template <int N>
-__device__ __forceinline__ void zero_acc(Acc (&acc)[N]) {
+// The thread's A fragments of n 8-column blocks (pairs of columns 8j + 2q,
+// j < n, of rows ra = 16 warp + g and ra + 8; v[2j] row ra, v[2j + 1] row
+// ra + 8) into a tile image in global memory starting at panel `img`, at
+// the places its swizzled panels hold them.
+__device__ __forceinline__ void store_image(bf16* __restrict__ img, const uint32_t* v, int n,
+                                            int ra, int g, int q) {
+  char* base = reinterpret_cast<char*>(img) + ra * 128 + 4 * q;
 #pragma unroll
-  for (int n = 0; n < N; ++n) wmma::fill_fragment(acc[n], 0.0f);
-}
-
-__device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, int lds, int rows,
-                                      int cols) {
-  const int per_row = cols / 8;
-  for (int v = threadIdx.x; v < rows * per_row; v += blockDim.x) {
-    const int r = v / per_row, c = (v % per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
+  for (int j = 0; j < n; ++j) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(base + (j >> 3) * PANEL + (((j & 7) ^ g) << 4));
+    d[0] = v[2 * j];
+    d[8 * 128 / 4] = v[2 * j + 1];
   }
 }
 
-// Node-resolution products, once per residue (as in the forward):
-// P[r] = [n.W1[64:128] | n.W1[128:192] | n.W3[64:128] | n.W3[128:192]].
-__global__ void edge_bwd_node_proj_kernel(const bf16* __restrict__ node,
-                                          const bf16* __restrict__ w1,
-                                          const bf16* __restrict__ w3, float* __restrict__ P) {
-  __shared__ float n_s[CZ];
-  const int r = blockIdx.x;
-  if (threadIdx.x < CZ) n_s[threadIdx.x] = __bfloat162float(node[(size_t)r * CZ + threadIdx.x]);
-  __syncthreads();
-  for (int c = threadIdx.x; c < NP; c += blockDim.x) {
-    const bf16* w;
-    int ldw, col, row0;
-    if (c < HID) { w = w1; ldw = HID; col = c; row0 = CZ; }
-    else if (c < 2 * HID) { w = w1; ldw = HID; col = c - HID; row0 = 2 * CZ; }
-    else if (c < 2 * HID + CZ) { w = w3; ldw = CZ; col = c - 2 * HID; row0 = CZ; }
-    else { w = w3; ldw = CZ; col = c - 2 * HID - CZ; row0 = 2 * CZ; }
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < CZ; ++k) acc += n_s[k] * __bfloat162float(w[(row0 + k) * ldw + col]);
-    P[(size_t)r * NP + c] = acc;
+// The sum of entry g = lane / 4 of v over the eight lanes of a quad column
+// (the lanes with the same lane % 4), in a fixed butterfly order: a step
+// over lane bit m halves the n entries still held, the lane with that bit
+// set keeping the upper half. Eight entries are the pairs of columns 2q,
+// 2q + 1 of four 8-column blocks, so lane g is left with column
+// 8 (g / 2) + 2q + g % 2 of them.
+template <int n, int m, int N>
+__device__ __forceinline__ void butterfly_step(float (&v)[N], int lane) {
+  const bool up = lane & m;
+#pragma unroll
+  for (int k = 0; k < n / 2; ++k) {
+    const float send = up ? v[k] : v[k + n / 2];
+    const float keep = up ? v[k + n / 2] : v[k];
+    v[k] = keep + __shfl_xor_sync(FULL, send, m);
   }
 }
+__device__ __forceinline__ float quad_column_sum(float (&v)[8], int lane) {
+  butterfly_step<8, 16>(v, lane);
+  butterfly_step<4, 8>(v, lane);
+  butterfly_step<2, 4>(v, lane);
+  return v[0];
+}
 
-__global__ void __launch_bounds__(NT, 1)
-edge_bwd_tile_kernel(const bf16* __restrict__ edge, const bf16* __restrict__ node,
-                     const float* __restrict__ P, const float* __restrict__ mask,
-                     const bf16* __restrict__ g, const bf16* __restrict__ w1,
-                     const float* __restrict__ b1, const bf16* __restrict__ w2,
-                     const float* __restrict__ b2, const bf16* __restrict__ w3,
-                     const float* __restrict__ b3, const float* __restrict__ ln_s,
-                     bf16* __restrict__ H1, bf16* __restrict__ R, bf16* __restrict__ DA1,
-                     bf16* __restrict__ DA2, bf16* __restrict__ DO, float* __restrict__ vpart,
-                     void* __restrict__ d_edge, int d_edge_f32, int L, long long total, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* w1_s = reinterpret_cast<bf16*>(smem + OFF_W1);
-  bf16* w2_s = reinterpret_cast<bf16*>(smem + OFF_W2);
-  bf16* w3_s = reinterpret_cast<bf16*>(smem + OFF_W3);
-  bf16* e_s = reinterpret_cast<bf16*>(smem + OFF_E);
-  bf16* ha_s = reinterpret_cast<bf16*>(smem + OFF_HA);
-  bf16* hb_s = reinterpret_cast<bf16*>(smem + OFF_HB);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + OFF_DO);
-  float* s_s = reinterpret_cast<float*>(smem + OFF_S);
-  float* dr_s = reinterpret_cast<float*>(smem + OFF_DR);
-  uint8_t* m1_s = smem + OFF_M1;
-  uint8_t* m2_s = smem + OFF_M2;
-  float* b1_s = reinterpret_cast<float*>(smem + OFF_V);
+// 0 at run time (zero is a kernel argument that is 0), but computed from
+// x: a product whose first scale-d operand is it cannot be issued before x
+// exists. The compiler would otherwise start each product as soon as its
+// operands are ready, put off the previous third's epilogue, and hold
+// several thirds' values at once: more registers than a thread has.
+__device__ __forceinline__ int after(uint32_t x, uint32_t zero) { return (int)(x & zero); }
+__device__ __forceinline__ uint32_t bits_of(float x) { return __float_as_uint(x); }
+// The bits of n words folded into one, for after(): the product then waits
+// for every one of them.
+__device__ __forceinline__ uint32_t fold(const uint32_t* v, int n) {
+  uint32_t x = 0u;
+#pragma unroll
+  for (int k = 0; k < n; ++k) x ^= v[k];
+  return x;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ bool bit(uint32_t m, int i) { return (m >> i) & 1u; }
+
+struct ChainArgs {
+  const bf16* edge;
+  const bf16* node;
+  const float* mask;
+  const bf16* g;
+  const bf16* w1t;
+  const float* b1;
+  const bf16* w2t;
+  const float* b2;
+  const bf16* w3t;
+  const float* b3;
+  const float* ln_s;
+  bf16* h1s;   // scratch tile images: [ntiles][3 panels], r, da2, da1 alike
+  bf16* rs;
+  bf16* dos;   // [ntiles][1 panel]
+  bf16* da2s;
+  bf16* da1s;
+  float* vpart;     // [gridDim.x][VEC]
+  float* rowpart;   // [B*L][nbi][64]: tile row sums of dx[64:128], slot jb
+  float* colpart;   // [B*L][4 nbi][64]: warp sums of dx[128:192], slot 4 ib + warp
+  void* d_edge;
+  int d_edge_f32, L, nbi, ntiles;
+  float eps;
+  uint32_t zero;   // 0: see after()
+};
+
+__global__ void __launch_bounds__(NT_C, 1)
+edge_bwd_chain_kernel(const __grid_constant__ ChainArgs a) {
+  using S = ChainSmem;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  if (base & 1023) __trap();   // the swizzle is taken from the address bits
+  float* b1_s = reinterpret_cast<float*>(smem + S::V);
   float* b2_s = b1_s + HID;
   float* b3_s = b2_s + HID;
   float* lns_s = b3_s + CZ;
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(smem + S::MASK) + threadIdx.x;   // [6][NT_C]
+  const int L = a.L, nbi = a.nbi, ntiles = a.ntiles;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int ra = 16 * warp + g;   // this thread's rows: ra and ra + 8 of each tile
+  const int stride = gridDim.x * N_WG;
+  const uint32_t c_s = base + S::C + wg * TILE_H;
+  unsigned char* c_p = smem + S::C + wg * TILE_H;
+  // Word (columns 8u + 2q, 8u + 2q + 1) of row ra in panel p of C; row ra + 8 is 256 words on.
+  auto c_word = [&](int p, int u) {
+    return reinterpret_cast<uint32_t*>(c_p + p * PANEL + ra * 128 + ((u ^ g) << 4) + 4 * q);
+  };
+  int tile = blockIdx.x * N_WG + wg;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  stage(w1_s, LD_H, w1, HID, CZ, HID);   // W1 rows 0..63: the edge part
-  stage(w2_s, LD_H, w2, HID, HID, HID);
-  stage(w3_s, LD_Z, w3, CZ, HID, CZ);
-  for (int c = tid; c < HID; c += NT) { b1_s[c] = b1[c]; b2_s[c] = b2[c]; }
-  for (int c = tid; c < CZ; c += NT) { b3_s[c] = b3[c]; lns_s[c] = ln_s[c]; }
+  for (int v = tid; v < HID * 24; v += NT_C) {   // W1^T, W2^T: 192 rows of 24 chunks
+    const int n = v / 24, c = v % 24;
+    const uint32_t off = (c >> 3) * (HID * 128) + sw128_offset(n, c & 7);
+    cp_async16(base + S::W1 + off, a.w1t + n * HID + c * 8, true);
+    cp_async16(base + S::W2 + off, a.w2t + n * HID + c * 8, true);
+  }
+  for (int v = tid; v < CZ * 24; v += NT_C) {    // W3^T: 64 rows of 24 chunks
+    const int n = v / 24, c = v % 24;
+    cp_async16(base + S::W3 + (c >> 3) * (CZ * 128) + sw128_offset(n, c & 7),
+               a.w3t + n * HID + c * 8, true);
+  }
+  for (int c = tid; c < HID; c += NT_C) {
+    b1_s[c] = a.b1[c];
+    b2_s[c] = a.b2[c];
+  }
+  for (int c = tid; c < CZ; c += NT_C) {
+    b3_s[c] = a.b3[c];
+    lns_s[c] = a.ln_s[c];
+  }
+  if (tile < ntiles) gather(c_s, a.edge, a.node, tile_at(tile, nbi), L, wt, 128);
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_proxy_async();
   __syncthreads();
 
-  // Per-thread partial sums: column tid of d_b1 and d_b2 (tid < 192), and
-  // channels 2*lane, 2*lane+1 of d_b3, d_ln_scale, d_ln_bias (per warp).
-  float acc_b1 = 0.f, acc_b2 = 0.f;
-  float acc_b3[2] = {0.f, 0.f}, acc_sc[2] = {0.f, 0.f}, acc_bi[2] = {0.f, 0.f};
+  // Column sums of this lane over its tiles (quad_column_sum of each tile's
+  // rows): entry c is column 32c + 8 (g / 2) + 2q + g % 2 of d_b1, d_b2
+  // (c < 6) and of d_b3, d_ln_scale, d_ln_bias (c < 2).
+  float s_b1[6] = {}, s_b2[6] = {}, s_b3[2] = {}, s_sc[2] = {}, s_bi[2] = {};
 
-  const long long LL = (long long)L * L;
-  const long long ntiles = (total + TM - 1) / TM;
-  const int rm = warp & 1, cg = warp >> 1;   // 16-row block, column group of this warp
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long row0 = tile * TM;
-    for (int v = tid; v < TM * (CZ / 8); v += NT) {
-      const int r = v >> 3, c8 = (v & 7) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row0 + r < total) val = *reinterpret_cast<const uint4*>(edge + (row0 + r) * CZ + c8);
-      *reinterpret_cast<uint4*>(e_s + r * LD_Z + c8) = val;
-    }
-    __syncthreads();
+  const int bar = 1 + wg;   // this warpgroup's named barrier
+  for (; tile < ntiles; tile += stride) {
+    const Tile t = tile_at(tile, nbi);
+    cp_async_wait_all();
+    fence_proxy_async();
+    named_bar(bar, 128);
 
-    {  // a1 accumulators: E[32x64] . W1e[64x192]
-      Acc acc[3];
-      zero_acc(acc);
-      mma_acc<3, wmma::row_major>(acc, e_s, LD_Z, w1_s, LD_H, CZ / 16, rm, cg * 3);
-      store_acc(acc, s_s, LD_S, rm, cg * 3);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TM * HID; idx += NT) {
-      const int r = idx / HID, c = idx % HID;
-      const long long row = row0 + r;
-      float a = 0.f;
-      if (row < total) {
-        const long long bi = row / L, bj = (row / LL) * L + row % L;
-        a = s_s[r * LD_S + c] + P[bi * NP + c] + P[bj * NP + HID + c] + b1_s[c];
-      }
-      const bf16 h = __float2bfloat16(fmaxf(a, 0.f));
-      ha_s[r * LD_H + c] = h;
-      m1_s[r * HID + c] = a > 0.f;
-      if (row < total) H1[row * HID + c] = h;
-    }
-    __syncthreads();
+    // The products after the first run as three 64-column thirds
+    // (m64n64k16), each third turned into its successor's A operand and
+    // column sums before the next: 32 accumulators are live, not 96. r and
+    // da2 go to the warpgroup's C tile in place, each element where this
+    // thread read it, and the next products read them from there; so no
+    // thread holds two 48-register A operands at once.
+    const int i_a = t.ib * TI + 2 * warp, j = t.jb * TI + g;
+    const bool va = i_a < L && j < L, vb = i_a + 1 < L && j < L;
+    const int pa = va ? (t.b * L + i_a) * L + j : 0, pb = vb ? pa + L : 0;
+    uint32_t h[48];   // A fragments: h1, then da1
+    float acc[32];
+    int first = 0;   // scale-d of a third's first product: 0, after the last epilogue
 
-    {  // a2 accumulators: bf16(h1)[32x192] . W2[192x192]
-      Acc acc[3];
-      zero_acc(acc);
-      mma_acc<3, wmma::row_major>(acc, ha_s, LD_H, w2_s, LD_H, HID / 16, rm, cg * 3);
-      store_acc(acc, s_s, LD_S, rm, cg * 3);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TM * HID; idx += NT) {
-      const int r = idx / HID, c = idx % HID;
-      const long long row = row0 + r;
-      float rv = 0.f;
-      uint8_t pos = 0;
-      if (row < total) {
-        const float a = s_s[r * LD_S + c] + b2_s[c];
-        pos = a > 0.f;
-        float xc;
-        if (c < CZ) xc = __bfloat162float(e_s[r * LD_Z + c]);
-        else if (c < 2 * CZ) xc = __bfloat162float(node[(row / L) * CZ + c - CZ]);
-        else xc = __bfloat162float(node[((row / LL) * L + row % L) * CZ + c - 2 * CZ]);
-        rv = fmaxf(a, 0.f) + xc;
-      }
-      const bf16 rb = __float2bfloat16(rv);
-      hb_s[r * LD_H + c] = rb;
-      m2_s[r * HID + c] = pos;
-      if (row < total) R[row * HID + c] = rb;
-    }
-    __syncthreads();
-
-    {  // o accumulators: bf16(r)[32x192] . W3[192x64]
-      Acc acc[1];
-      zero_acc(acc);
-      mma_acc<1, wmma::row_major>(acc, hb_s, LD_H, w3_s, LD_Z, HID / 16, rm, cg);
-      store_acc(acc, s_s, LD_S, rm, cg);
-    }
-    __syncthreads();
-
-    // LayerNorm forward and backward, one warp per pair row, two channels per lane.
-    for (int r = warp; r < TM; r += NT / 32) {
-      const long long row = row0 + r;
-      const int c0 = 2 * lane;
-      if (row >= total) {
-        *reinterpret_cast<__nv_bfloat162*>(do_s + r * LD_Z + c0) = __floats2bfloat162_rn(0.f, 0.f);
-        continue;
-      }
-      const long long bi = row / L, bj = (row / LL) * L + row % L;
-      const float o0 = s_s[r * LD_S + c0] + b3_s[c0];
-      const float o1 = s_s[r * LD_S + c0 + 1] + b3_s[c0 + 1];
-      float sum = o0 + o1;
+    // 1. a1 = C.W1 from shared memory; meanwhile the rows' g is fetched to
+    // L2 (it is read in step 4). h1 = bf16(relu(a1 + b1)) into h.
+    {
+      float a1[96];
+      wgmma_fence();
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float mu = sum * (1.f / CZ);
-      const float d0 = o0 - mu, d1 = o1 - mu;
-      float sq = d0 * d0 + d1 * d1;
+      for (int s = 0; s < 12; ++s)
+        mma_ss_n192(a1, desc_sw128(c_s + (s >> 2) * PANEL + (s & 3) * 32),
+                    desc_sw128(base + S::W1 + (s >> 2) * (HID * 128) + (s & 3) * 32), s > 0);
+      wgmma_commit();
+      if (va) prefetch_l2(a.g + (size_t)pa * CZ);
+      if (vb) prefetch_l2(a.g + (size_t)pb * CZ);
+      wgmma_wait_all();
+      fence_regs(a1);
+      uint32_t m1[3] = {0u, 0u, 0u};
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      const float inv = rsqrtf(sq * (1.f / CZ) + eps);
-      const float y0 = d0 * inv, y1 = d1 * inv;
-      const float pm = mask[bi] * mask[bj];
-      const __nv_bfloat162 gb = *reinterpret_cast<const __nv_bfloat162*>(g + row * CZ + c0);
-      const float g0 = __low2float(gb) * pm, g1 = __high2float(gb) * pm;
-      acc_sc[0] += g0 * y0; acc_sc[1] += g1 * y1;
-      acc_bi[0] += g0; acc_bi[1] += g1;
-      const float dy0 = g0 * lns_s[c0], dy1 = g1 * lns_s[c0 + 1];
-      float m1 = dy0 + dy1, m2 = dy0 * y0 + dy1 * y1;
+      for (int jb = 0; jb < 24; ++jb) {
+        const float2 bb = *reinterpret_cast<const float2*>(b1_s + 8 * jb + 2 * q);
+        const float v0 = a1[4 * jb] + bb.x, v1 = a1[4 * jb + 1] + bb.y;
+        const float v2 = a1[4 * jb + 2] + bb.x, v3 = a1[4 * jb + 3] + bb.y;
+        h[2 * jb] = pack_bf16_relu(v0, v1);
+        h[2 * jb + 1] = pack_bf16_relu(v2, v3);
+        const uint32_t bits = (v0 > 0.f) | (v1 > 0.f) << 1 | (v2 > 0.f) << 2 | (v3 > 0.f) << 3;
+        m1[jb >> 3] |= bits << (4 * (jb & 7));
+      }
+      // The bits go to shared memory before the barrier, so the compiler
+      // cannot put off computing them and keep a1 live until step 6.
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        m1 += __shfl_xor_sync(0xffffffffu, m1, o);
-        m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-      }
-      m1 *= (1.f / CZ);
-      m2 *= (1.f / CZ);
-      const float do0 = (dy0 - m1 - y0 * m2) * inv, do1 = (dy1 - m1 - y1 * m2) * inv;
-      acc_b3[0] += do0; acc_b3[1] += do1;
-      const __nv_bfloat162 db = __floats2bfloat162_rn(do0, do1);
-      *reinterpret_cast<__nv_bfloat162*>(do_s + r * LD_Z + c0) = db;
-      *reinterpret_cast<__nv_bfloat162*>(DO + row * CZ + c0) = db;
+      for (int k = 0; k < 3; ++k) mask_s[k * NT_C] = m1[k];
     }
-    __syncthreads();
+    store_image(a.h1s + (size_t)tile * (TILE_H / 2), h, 24, ra, g, q);
+    named_bar(bar, 128);   // every warp's C.W1 has read C: r may overwrite x
 
-    {  // dr accumulators: bf16(do)[32x64] . W3^T[64x192]
-      Acc acc[3];
-      zero_acc(acc);
-      mma_acc<3, wmma::col_major>(acc, do_s, LD_Z, w3_s, LD_Z, CZ / 16, rm, cg * 3);
-      store_acc(acc, s_s, LD_S, rm, cg * 3);
+    // 2. By thirds p: a2 = bf16(h1).W2 (W2^T rows 64p.., K-major);
+    // r = bf16(relu(a2 + b2) + x) over x in C, and to the scratch.
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 12; ++s)
+        mma_rs_n64(acc, &h[4 * s],
+                   desc_sw128(base + S::W2 + (s >> 2) * (HID * 128) + p * PANEL + (s & 3) * 32),
+                   s > 0 ? 1 : first);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      uint32_t r[16], m2 = 0u;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float2 bb = *reinterpret_cast<const float2*>(b2_s + 64 * p + 8 * u + 2 * q);
+        const float v0 = acc[4 * u] + bb.x, v1 = acc[4 * u + 1] + bb.y;
+        const float v2 = acc[4 * u + 2] + bb.x, v3 = acc[4 * u + 3] + bb.y;
+        uint32_t* xp = c_word(p, u);
+        const float2 xa = unpack_bf16(xp[0]), xb = unpack_bf16(xp[8 * 128 / 4]);
+        r[2 * u] = pack_bf16(fmaxf(v0, 0.f) + xa.x, fmaxf(v1, 0.f) + xa.y);
+        r[2 * u + 1] = pack_bf16(fmaxf(v2, 0.f) + xb.x, fmaxf(v3, 0.f) + xb.y);
+        xp[0] = r[2 * u];
+        xp[8 * 128 / 4] = r[2 * u + 1];
+        const uint32_t bits = (v0 > 0.f) | (v1 > 0.f) << 1 | (v2 > 0.f) << 2 | (v3 > 0.f) << 3;
+        m2 |= bits << (4 * u);
+      }
+      mask_s[(3 + p) * NT_C] = m2;
+      store_image(a.rs + (size_t)tile * (TILE_H / 2) + p * (PANEL / 2), r, 8, ra, g, q);
+      first = after(fold(r, 16) ^ m2, a.zero);
     }
-    __syncthreads();
-    if (tid < HID) {  // da2 = dr * (a2 > 0); thread tid owns column tid
-      const int c = tid;
-      for (int r = 0; r < TM; ++r) {
-        const long long row = row0 + r;
-        const float dr = s_s[r * LD_S + c];
-        if (c < CZ) dr_s[r * LD_E + c] = dr;
-        const float da2 = m2_s[r * HID + c] ? dr : 0.f;
-        acc_b2 += da2;
-        const bf16 v = __float2bfloat16(da2);
-        ha_s[r * LD_H + c] = v;
-        if (row < total) DA2[row * HID + c] = v;
+    fence_regs(h);
+    fence_proxy_async();
+    named_bar(bar, 128);   // r is in C for every warp
+
+    // 3. o = bf16(r).W3 (m64n64k16 x 12), r from C; then C may take da2.
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 12; ++s)
+      mma_ss_n64(acc, desc_sw128(c_s + (s >> 2) * PANEL + (s & 3) * 32),
+                 desc_sw128(base + S::W3 + (s >> 2) * (CZ * 128) + (s & 3) * 32), s > 0);
+    wgmma_commit();
+    // While it runs: the rows' pair masks and g.
+    const float pma = va ? a.mask[t.b * L + i_a] * a.mask[t.b * L + j] : 0.f;
+    const float pmb = vb ? a.mask[t.b * L + i_a + 1] * a.mask[t.b * L + j] : 0.f;
+    const uint32_t* ga = reinterpret_cast<const uint32_t*>(a.g + (size_t)pa * CZ + 2 * q);
+    const uint32_t* gb = reinterpret_cast<const uint32_t*>(a.g + (size_t)pb * CZ + 2 * q);
+    uint32_t gr[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      gr[2 * jj] = va ? ga[4 * jj] : 0u;
+      gr[2 * jj + 1] = vb ? gb[4 * jj] : 0u;
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    named_bar(bar, 128);   // every warp's product has read r
+
+    // 5. + b3, LayerNorm forward over each row's 64 lanes (16 here, the
+    // rest in the quad), then its backward: bf16(do) as A
+    // fragments in dp; the tile's column sums of do, g'y and g'.
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const float2 bb = *reinterpret_cast<const float2*>(b3_s + 8 * jb + 2 * q);
+      acc[4 * jb] += bb.x;
+      acc[4 * jb + 1] += bb.y;
+      acc[4 * jb + 2] += bb.x;
+      acc[4 * jb + 3] += bb.y;
+      sa += acc[4 * jb] + acc[4 * jb + 1];
+      sb += acc[4 * jb + 2] + acc[4 * jb + 3];
+    }
+    sa += __shfl_xor_sync(FULL, sa, 1);
+    sa += __shfl_xor_sync(FULL, sa, 2);
+    sb += __shfl_xor_sync(FULL, sb, 1);
+    sb += __shfl_xor_sync(FULL, sb, 2);
+    const float mua = sa * (1.f / CZ), mub = sb * (1.f / CZ);
+    float qa = 0.f, qb = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      acc[4 * jb] -= mua;
+      acc[4 * jb + 1] -= mua;
+      acc[4 * jb + 2] -= mub;
+      acc[4 * jb + 3] -= mub;
+      qa += acc[4 * jb] * acc[4 * jb] + acc[4 * jb + 1] * acc[4 * jb + 1];
+      qb += acc[4 * jb + 2] * acc[4 * jb + 2] + acc[4 * jb + 3] * acc[4 * jb + 3];
+    }
+    qa += __shfl_xor_sync(FULL, qa, 1);
+    qa += __shfl_xor_sync(FULL, qa, 2);
+    qb += __shfl_xor_sync(FULL, qb, 1);
+    qb += __shfl_xor_sync(FULL, qb, 2);
+    const float rsa = rsqrtf(qa * (1.f / CZ) + a.eps), rsb = rsqrtf(qb * (1.f / CZ) + a.eps);
+    float v_sc[16], v_bi[16], n1a = 0.f, n2a = 0.f, n1b = 0.f, n2b = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const float2 ls = *reinterpret_cast<const float2*>(lns_s + 8 * jb + 2 * q);
+      const float2 ga = unpack_bf16(gr[2 * jb]), gb = unpack_bf16(gr[2 * jb + 1]);
+      const float g0 = ga.x * pma, g1 = ga.y * pma, g2 = gb.x * pmb, g3 = gb.y * pmb;
+      acc[4 * jb] *= rsa;   // acc now holds y
+      acc[4 * jb + 1] *= rsa;
+      acc[4 * jb + 2] *= rsb;
+      acc[4 * jb + 3] *= rsb;
+      v_sc[2 * jb] = g0 * acc[4 * jb] + g2 * acc[4 * jb + 2];
+      v_sc[2 * jb + 1] = g1 * acc[4 * jb + 1] + g3 * acc[4 * jb + 3];
+      v_bi[2 * jb] = g0 + g2;
+      v_bi[2 * jb + 1] = g1 + g3;
+      const float d0 = g0 * ls.x, d1 = g1 * ls.y, d2 = g2 * ls.x, d3 = g3 * ls.y;
+      n1a += d0 + d1;
+      n2a += d0 * acc[4 * jb] + d1 * acc[4 * jb + 1];
+      n1b += d2 + d3;
+      n2b += d2 * acc[4 * jb + 2] + d3 * acc[4 * jb + 3];
+    }
+#pragma unroll
+    for (int m = 1; m <= 2; m <<= 1) {
+      n1a += __shfl_xor_sync(FULL, n1a, m);
+      n2a += __shfl_xor_sync(FULL, n2a, m);
+      n1b += __shfl_xor_sync(FULL, n1b, m);
+      n2b += __shfl_xor_sync(FULL, n2b, m);
+    }
+    n1a *= 1.f / CZ;
+    n2a *= 1.f / CZ;
+    n1b *= 1.f / CZ;
+    n2b *= 1.f / CZ;
+    float v_b3[16];
+    uint32_t dp[16];
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const float2 ls = *reinterpret_cast<const float2*>(lns_s + 8 * jb + 2 * q);
+      const float2 ga = unpack_bf16(gr[2 * jb]), gb = unpack_bf16(gr[2 * jb + 1]);
+      const float d0 = (ga.x * pma * ls.x - n1a - acc[4 * jb] * n2a) * rsa;
+      const float d1 = (ga.y * pma * ls.y - n1a - acc[4 * jb + 1] * n2a) * rsa;
+      const float d2 = (gb.x * pmb * ls.x - n1b - acc[4 * jb + 2] * n2b) * rsb;
+      const float d3 = (gb.y * pmb * ls.y - n1b - acc[4 * jb + 3] * n2b) * rsb;
+      v_b3[2 * jb] = d0 + d2;
+      v_b3[2 * jb + 1] = d1 + d3;
+      dp[2 * jb] = pack_bf16(d0, d1);
+      dp[2 * jb + 1] = pack_bf16(d2, d3);
+    }
+    store_image(a.dos + (size_t)tile * (TILE_Z / 2), dp, 8, ra, g, q);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float t3[8], tc[8], tb[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        t3[k] = v_b3[8 * c + k];
+        tc[k] = v_sc[8 * c + k];
+        tb[k] = v_bi[8 * c + k];
+      }
+      s_b3[c] += quad_column_sum(t3, lane);
+      s_sc[c] += quad_column_sum(tc, lane);
+      s_bi[c] += quad_column_sum(tb, lane);
+    }
+    first = after(fold(dp, 16) ^ bits_of(s_b3[1]) ^ bits_of(s_sc[1]) ^ bits_of(s_bi[1]), a.zero);
+
+    // 5. By thirds p: dr = bf16(do).W3^T (W3^T read MN-major: K = its 64
+    // rows, N = panel p); da2 = dr * (a2 > 0): its column sums, then
+    // bf16(da2) into C over r, and to the scratch.
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const uint32_t m2 = mask_s[(3 + p) * NT_C];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        mma_rs_n64<1>(acc, &dp[4 * s], desc_sw128_mn(base + S::W3 + p * PANEL + s * 2048, PANEL),
+                      s > 0 ? 1 : first);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {   // blocks 4c .. 4c + 3 of the third
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int k = 4 * (4 * c + u);
+          v[2 * u] = (bit(m2, k) ? acc[k] : 0.f) + (bit(m2, k + 2) ? acc[k + 2] : 0.f);
+          v[2 * u + 1] = (bit(m2, k + 1) ? acc[k + 1] : 0.f) + (bit(m2, k + 3) ? acc[k + 3] : 0.f);
+        }
+        s_b2[2 * p + c] += quad_column_sum(v, lane);
+      }
+      uint32_t d[16];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = 4 * u;
+        d[2 * u] = pack_bf16(bit(m2, k) ? acc[k] : 0.f, bit(m2, k + 1) ? acc[k + 1] : 0.f);
+        d[2 * u + 1] =
+            pack_bf16(bit(m2, k + 2) ? acc[k + 2] : 0.f, bit(m2, k + 3) ? acc[k + 3] : 0.f);
+        uint32_t* cp = c_word(p, u);
+        cp[0] = d[2 * u];
+        cp[8 * 128 / 4] = d[2 * u + 1];
+      }
+      store_image(a.da2s + (size_t)tile * (TILE_H / 2) + p * (PANEL / 2), d, 8, ra, g, q);
+      first = after(fold(d, 16) ^ bits_of(s_b2[2 * p + 1]), a.zero);
+    }
+    fence_regs(dp);
+    fence_proxy_async();
+    named_bar(bar, 128);   // da2 is in C for every warp
+
+    // 6. By thirds p: dh1 = bf16(da2).W2^T, da2 from C (K-major), W2^T
+    // MN-major (N = panel p); da1 = dh1 * (a1 > 0): its column sums, then
+    // bf16(da1) into h. After the last third C is free: the next tile's
+    // gather goes into it.
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const uint32_t m1 = mask_s[p * NT_C];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 12; ++s)
+        mma_ss_n64<0, 1>(acc, desc_sw128(c_s + (s >> 2) * PANEL + (s & 3) * 32),
+                         desc_sw128_mn(base + S::W2 + p * (HID * 128) + s * 2048, HID * 128),
+                         s > 0 ? 1 : first);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (p == 2) {
+        named_bar(bar, 128);   // every warp's products have read da2
+        if (tile + stride < ntiles)
+          gather(c_s, a.edge, a.node, tile_at(tile + stride, nbi), L, wt, 128);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int k = 4 * (4 * c + u);
+          v[2 * u] = (bit(m1, k) ? acc[k] : 0.f) + (bit(m1, k + 2) ? acc[k + 2] : 0.f);
+          v[2 * u + 1] = (bit(m1, k + 1) ? acc[k + 1] : 0.f) + (bit(m1, k + 3) ? acc[k + 3] : 0.f);
+        }
+        s_b1[2 * p + c] += quad_column_sum(v, lane);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = 4 * u, jb = 8 * p + u;
+        h[2 * jb] = pack_bf16(bit(m1, k) ? acc[k] : 0.f, bit(m1, k + 1) ? acc[k + 1] : 0.f);
+        h[2 * jb + 1] =
+            pack_bf16(bit(m1, k + 2) ? acc[k + 2] : 0.f, bit(m1, k + 3) ? acc[k + 3] : 0.f);
+      }
+      first = after(fold(&h[16 * p], 16) ^ bits_of(s_b1[2 * p + 1]), a.zero);
+    }
+    store_image(a.da1s + (size_t)tile * (TILE_H / 2), h, 24, ra, g, q);
+
+    // 7. By thirds p: dx = bf16(do).W3^T + bf16(da1).W1^T (dr again, in the
+    // same accumulator; both MN-major, N = panel p). Third 0 is d_edge;
+    // third 1 leaves as this tile's row partial of dx[64:128] (its 8 j of a
+    // row, slot jb), third 2 as this warp's column partial of dx[128:192]
+    // (its 2 i of a column, slot 4 ib + warp).
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        mma_rs_n64<1>(acc, &dp[4 * s], desc_sw128_mn(base + S::W3 + p * PANEL + s * 2048, PANEL),
+                      s > 0 ? 1 : first);
+#pragma unroll
+      for (int s = 0; s < 12; ++s)
+        mma_rs_n64<1>(acc, &h[4 * s],
+                      desc_sw128_mn(base + S::W1 + p * (HID * 128) + s * 2048, HID * 128), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (p == 0) {
+        if (a.d_edge_f32) {
+          float* da = static_cast<float*>(a.d_edge) + (size_t)pa * CZ + 2 * q;
+          float* db = static_cast<float*>(a.d_edge) + (size_t)pb * CZ + 2 * q;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (va) *reinterpret_cast<float2*>(da + 8 * u) = make_float2(acc[4 * u], acc[4 * u + 1]);
+            if (vb)
+              *reinterpret_cast<float2*>(db + 8 * u) = make_float2(acc[4 * u + 2], acc[4 * u + 3]);
+          }
+        } else {
+          bf16* da = static_cast<bf16*>(a.d_edge) + (size_t)pa * CZ + 2 * q;
+          bf16* db = static_cast<bf16*>(a.d_edge) + (size_t)pb * CZ + 2 * q;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (va) *reinterpret_cast<uint32_t*>(da + 8 * u) = pack_bf16(acc[4 * u], acc[4 * u + 1]);
+            if (vb)
+              *reinterpret_cast<uint32_t*>(db + 8 * u) = pack_bf16(acc[4 * u + 2], acc[4 * u + 3]);
+          }
+        }
+        first = after(bits_of(acc[31]), a.zero);
+      } else if (p == 1) {   // rows i_a (h = 0) and i_a + 1 (h = 1)
+        float* d = a.rowpart + ((size_t)(t.b * L + i_a) * nbi + t.jb) * CZ + 8 * (g >> 1) + 2 * q +
+                   (g & 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {   // row h = c / 2, blocks 4 (c % 2) + u
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = 4 * (4 * (c & 1) + u) + 2 * (c >> 1);
+            v[2 * u] = acc[k];
+            v[2 * u + 1] = acc[k + 1];
+          }
+          const float sum = quad_column_sum(v, lane);
+          if (i_a + (c >> 1) < L) d[(size_t)(c >> 1) * nbi * CZ + 32 * (c & 1)] = sum;
+          first = after(bits_of(sum), a.zero);
+        }
+      } else if (j < L) {
+        const size_t slot = (size_t)(t.b * L + j) * (COL_SLOTS * nbi) + COL_SLOTS * t.ib + warp;
+        float* d = a.colpart + slot * CZ + 2 * q;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          *reinterpret_cast<float2*>(d + 8 * u) =
+              make_float2(acc[4 * u] + acc[4 * u + 2], acc[4 * u + 1] + acc[4 * u + 3]);
       }
     }
-    __syncthreads();
-
-    {  // dh1 accumulators: bf16(da2)[32x192] . W2^T[192x192]
-      Acc acc[3];
-      zero_acc(acc);
-      mma_acc<3, wmma::col_major>(acc, ha_s, LD_H, w2_s, LD_H, HID / 16, rm, cg * 3);
-      store_acc(acc, s_s, LD_S, rm, cg * 3);
-    }
-    __syncthreads();
-    if (tid < HID) {  // da1 = dh1 * (a1 > 0)
-      const int c = tid;
-      for (int r = 0; r < TM; ++r) {
-        const long long row = row0 + r;
-        const float da1 = m1_s[r * HID + c] ? s_s[r * LD_S + c] : 0.f;
-        acc_b1 += da1;
-        const bf16 v = __float2bfloat16(da1);
-        hb_s[r * LD_H + c] = v;
-        if (row < total) DA1[row * HID + c] = v;
-      }
-    }
-    __syncthreads();
-
-    {  // d_edge = dr[:, :64] + bf16(da1)[32x192] . W1e^T[192x64]
-      Acc acc[1];
-      wmma::load_matrix_sync(acc[0], dr_s + rm * 16 * LD_E + cg * 16, LD_E, wmma::mem_row_major);
-      mma_acc<1, wmma::col_major>(acc, hb_s, LD_H, w1_s, LD_H, HID / 16, rm, cg);
-      store_acc(acc, s_s, LD_S, rm, cg);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TM * CZ; idx += NT) {
-      const int r = idx / CZ, c = idx % CZ;
-      const long long row = row0 + r;
-      if (row >= total) continue;
-      const float v = s_s[r * LD_S + c];
-      if (d_edge_f32) static_cast<float*>(d_edge)[row * CZ + c] = v;
-      else static_cast<bf16*>(d_edge)[row * CZ + c] = __float2bfloat16(v);
-    }
-    __syncthreads();
+    fence_regs(h);
+    fence_regs(dp);
   }
 
-  // This block's partial: d_b1, d_b2 by column owner; the LayerNorm-side
-  // channel sums reduced over the 8 warps in order.
-  float* part = vpart + (size_t)blockIdx.x * VEC;
-  if (tid < HID) {
-    part[tid] = acc_b1;
-    part[HID + tid] = acc_b2;
+  // This block's partial of the vectors: the eight warps' lanes summed in order.
+  cp_async_wait_all();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + S::C);   // [8 warps][VEC]
+  float* mine = red + (wg * 4 + warp) * VEC;
+  const int col = 8 * (g >> 1) + 2 * q + (g & 1);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    mine[32 * c + col] = s_b1[c];
+    mine[HID + 32 * c + col] = s_b2[c];
   }
-  float* red = s_s;  // [8 warps][3][64]
-  const int c0 = 2 * lane;
-  for (int q = 0; q < 2; ++q) {
-    red[(warp * 3 + 0) * CZ + c0 + q] = acc_b3[q];
-    red[(warp * 3 + 1) * CZ + c0 + q] = acc_sc[q];
-    red[(warp * 3 + 2) * CZ + c0 + q] = acc_bi[q];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    mine[2 * HID + 32 * c + col] = s_b3[c];
+    mine[2 * HID + CZ + 32 * c + col] = s_sc[c];
+    mine[2 * HID + 2 * CZ + 32 * c + col] = s_bi[c];
   }
   __syncthreads();
-  if (tid < 3 * CZ) {
-    const int k = tid / CZ, c = tid % CZ;
+  for (int c = tid; c < VEC; c += NT_C) {
     float s = 0.f;
-    for (int w = 0; w < NT / 32; ++w) s += red[(w * 3 + k) * CZ + c];
-    part[2 * HID + k * CZ + c] = s;
+    for (int w = 0; w < 8; ++w) s += red[w * VEC + c];
+    a.vpart[(size_t)blockIdx.x * VEC + c] = s;
   }
 }
 
-// out[z][M][N] = sum over the pairs p of chunk z of A[p][m0+m] * B[p][n0+n]:
-// one 64x64 tile of a weight gradient per block, fp32 partial per chunk.
-constexpr int KC = 32;
-__global__ void __launch_bounds__(NT)
-edge_bwd_atb_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ Bm, int ldb,
-                    int M, int N, long long P, long long chunk, float* __restrict__ out) {
-  __shared__ __align__(128) unsigned char ab_raw[2 * KC * LD_Z * 2];
-  bf16* As = reinterpret_cast<bf16*>(ab_raw);
-  bf16* Bs = As + KC * LD_Z;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  const long long p0 = blockIdx.z * chunk;
-  const long long p1 = p0 + chunk < P ? p0 + chunk : P;
-  const int wm = warp >> 1, wn = (warp & 1) * 2;
-  Acc acc[2];
-  zero_acc(acc);
-  for (long long p = p0; p < p1; p += KC) {
-    for (int v = tid; v < KC * 8; v += NT) {
-      const int r = v >> 3, c8 = (v & 7) * 8;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (p + r < p1) {
-        va = *reinterpret_cast<const uint4*>(A + (p + r) * lda + m0 + c8);
-        vb = *reinterpret_cast<const uint4*>(Bm + (p + r) * ldb + n0 + c8);
-      }
-      *reinterpret_cast<uint4*>(As + r * LD_Z + c8) = va;
-      *reinterpret_cast<uint4*>(Bs + r * LD_Z + c8) = vb;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+struct WeightArgs {
+  const bf16* edge;
+  const bf16* node;
+  const bf16* h1s;
+  const bf16* rs;
+  const bf16* dos;
+  const bf16* da2s;
+  const bf16* da1s;
+  float* wpart;   // [n1][192 * 192] dW1 | [n2][192 * 192] dW2 | [n3][192 * 64] dW3
+  int n1, n2, n3, L, nbi, ntiles;
+};
+
+// One chunk of tiles of one weight gradient: D[m][n] = sum over the pairs
+// of A[p][m] B[p][n], A the 192-wide image (C gathered for dW1), B the N-wide
+// one; warpgroup w computes rows 64w .. 64w + 63. NB is N / 64.
+template <int NB>
+__device__ __forceinline__ void weight_chunk(const WeightArgs& a, int kind, int z, int nch,
+                                             float* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, w = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int t0 = (int)((long long)a.ntiles * z / nch);
+  const int t1 = (int)((long long)a.ntiles * (z + 1) / nch);
+  const int n = t1 - t0;
+  const bf16* A = kind == 1 ? a.h1s : a.rs;
+  const bf16* Bm = kind == 0 ? a.da1s : kind == 1 ? a.da2s : a.dos;
+  auto load = [&](int it) {   // tile t0 + it into stage it % NST
+    const uint32_t st = base + (it % NST) * STAGE_W;
+    const int t = t0 + it;
+    if (kind == 0) gather(st, a.edge, a.node, tile_at(t, a.nbi), a.L, tid, NT_W);
+    else copy_image(st, A + (size_t)t * (TILE_H / 2), TILE_H, tid, NT_W);
+    copy_image(st + TILE_H, Bm + (size_t)t * (NB * PANEL / 2), NB * PANEL, tid, NT_W);
+  };
 #pragma unroll
-    for (int k = 0; k < KC / 16; ++k) {
-      wmma::load_matrix_sync(a, As + k * 16 * LD_Z + wm * 16, LD_Z);   // A^T tile
+  for (int it = 0; it < NST - 1; ++it) {
+    if (it < n) load(it);
+    cp_async_commit();
+  }
+  float acc[32 * NB];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        wmma::load_matrix_sync(b, Bs + k * 16 * LD_Z + (wn + n) * 16, LD_Z);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)blockIdx.z * M * N + (size_t)(m0 + wm * 16) * N + n0;
+  for (int k = 0; k < 32 * NB; ++k) acc[k] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait_group<NST - 2>();
+    fence_proxy_async();
+    __syncthreads();   // tile it has landed; every product of tile it - 1 has been waited for
+    if (it + NST - 1 < n) load(it + NST - 1);
+    cp_async_commit();
+    const uint32_t st = base + (it % NST) * STAGE_W;
+    wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
-    wmma::store_matrix_sync(o + (wn + n) * 16, acc[n], N, wmma::mem_row_major);
-}
-
-// Per residue k of row b: the sums of da1 and do over its row (pairs (k, j))
-// and its column (pairs (i, k)), then
-// d_node = rowda1.W1i^T + rowdo.W3i^T + colda1.W1j^T + coldo.W3j^T.
-constexpr int NB = 16;   // residues per block
-__global__ void __launch_bounds__(NT)
-edge_bwd_node_sum_kernel(const bf16* __restrict__ DA1, const bf16* __restrict__ DO,
-                         const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-                         float* __restrict__ nsum, float* __restrict__ d_node, int BL, int L) {
-  __shared__ float s_s[NB * NS];
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * NB;
-  for (int q = 0; q < NB; ++q) {
-    const int n = n0 + q;
-    if (n >= BL) break;
-    const long long b = n / L, k = n % L;
-    if (tid < HID) {
-      float rs = 0.f, cs = 0.f;
-      for (int j = 0; j < L; ++j) {
-        rs += __bfloat162float(DA1[((b * L + k) * L + j) * HID + tid]);
-        cs += __bfloat162float(DA1[((b * L + j) * L + k) * HID + tid]);
-      }
-      s_s[q * NS + tid] = rs;
-      s_s[q * NS + HID + tid] = cs;
-    } else {
-      const int c = tid - HID;
-      float rs = 0.f, cs = 0.f;
-      for (int j = 0; j < L; ++j) {
-        rs += __bfloat162float(DO[((b * L + k) * L + j) * CZ + c]);
-        cs += __bfloat162float(DO[((b * L + j) * L + k) * CZ + c]);
-      }
-      s_s[q * NS + 2 * HID + c] = rs;
-      s_s[q * NS + 2 * HID + CZ + c] = cs;
+    for (int s = 0; s < TM / 16; ++s) {
+      const uint64_t da = desc_sw128_mn(st + w * PANEL + s * 2048, PANEL);
+      const uint64_t db = desc_sw128_mn(st + TILE_H + s * 2048, PANEL);
+      if constexpr (NB == 3) mma_ss_n192<1, 1>(acc, da, db, 1);
+      else mma_ss_n64<1, 1>(acc, da, db, 1);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
   }
-  __syncthreads();
-  for (int v = tid; v < NB * NS; v += NT) {
-    const int n = n0 + v / NS;
-    if (n < BL) nsum[(size_t)n * NS + v % NS] = s_s[v];
-  }
-  for (int o = tid; o < NB * CZ; o += NT) {
-    const int q = o / CZ, m = o % CZ, n = n0 + q;
-    if (n >= BL) continue;
-    const float* s = s_s + q * NS;
-    float acc = 0.f;
-    for (int c = 0; c < HID; ++c)
-      acc += s[c] * __bfloat162float(w1[(CZ + m) * HID + c]) +
-             s[HID + c] * __bfloat162float(w1[(2 * CZ + m) * HID + c]);
-    for (int c = 0; c < CZ; ++c)
-      acc += s[2 * HID + c] * __bfloat162float(w3[(CZ + m) * CZ + c]) +
-             s[2 * HID + CZ + c] * __bfloat162float(w3[(2 * CZ + m) * CZ + c]);
-    d_node[(size_t)n * CZ + m] = acc;
+  cp_async_wait_all();
+  constexpr int N = 64 * NB;
+  float* o = out + (size_t)z * HID * N + (size_t)(64 * w + 16 * warp + g) * N + 2 * q;
+#pragma unroll
+  for (int jb = 0; jb < 8 * NB; ++jb) {
+    *reinterpret_cast<float2*>(o + 8 * jb) = make_float2(acc[4 * jb], acc[4 * jb + 1]);
+    *reinterpret_cast<float2*>(o + 8 * N + 8 * jb) = make_float2(acc[4 * jb + 2], acc[4 * jb + 3]);
   }
 }
 
-// The node rows of dW1: dW1[64 + m][c] = sum over residues of n[m] * rowda1[c],
-// dW1[128 + m][c] = sum over residues of n[m] * colda1[c]. Block: one row.
-__global__ void edge_bwd_node_weight_kernel(const bf16* __restrict__ node,
-                                            const float* __restrict__ nsum,
-                                            float* __restrict__ dw1, int BL) {
-  const int half = blockIdx.x / CZ, m = blockIdx.x % CZ, c = threadIdx.x;
-  float acc = 0.f;
-  for (int n = 0; n < BL; ++n)
-    acc += __bfloat162float(node[(size_t)n * CZ + m]) * nsum[(size_t)n * NS + half * HID + c];
-  dw1[(CZ + blockIdx.x) * HID + c] = acc;
+__global__ void __launch_bounds__(NT_W, 1)
+edge_bwd_weight_kernel(const __grid_constant__ WeightArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (smem_u32(smem) & 1023) __trap();
+  const int z = blockIdx.x;
+  if (z < a.n1) weight_chunk<3>(a, 0, z, a.n1, a.wpart);
+  else if (z < a.n1 + a.n2) weight_chunk<3>(a, 1, z - a.n1, a.n2, a.wpart + (size_t)a.n1 * NW12);
+  else weight_chunk<1>(a, 2, z - a.n1 - a.n2, a.n3, a.wpart + (size_t)(a.n1 + a.n2) * NW12);
 }
 
-// Partials summed in a fixed order: dW1e, dW2, dW3 over the pair chunks and
-// the vectors over the blocks of edge_bwd_tile_kernel.
-__global__ void edge_bwd_reduce_kernel(const float* __restrict__ wpart,
-                                       const float* __restrict__ vpart, int nchunk, int nblocks,
+// Every partial summed in a fixed order: dW1, dW2, dW3 over their chunks,
+// the vectors over the chain kernel's blocks, d_node over its row slots
+// then its column slots.
+__global__ void edge_bwd_reduce_kernel(const float* __restrict__ wpart, int n1, int n2, int n3,
+                                       const float* __restrict__ vpart, int nblocks,
+                                       const float* __restrict__ rowpart,
+                                       const float* __restrict__ colpart, int BL, int nbi,
                                        float* __restrict__ dw1, float* __restrict__ dw2,
                                        float* __restrict__ dw3, float* __restrict__ db1,
                                        float* __restrict__ db2, float* __restrict__ db3,
-                                       float* __restrict__ dsc, float* __restrict__ dbi) {
-  // wpart holds [dW1e chunks][dW2 chunks][dW3 chunks], each [nchunk][size].
-  constexpr int N1 = CZ * HID, N2 = HID * HID, N3 = HID * CZ, NW = N1 + N2 + N3;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < NW) {
-    const float* src;
-    float* dst;
-    int size;
-    int j;
-    if (i < N1) {
-      j = i; src = wpart + j; dst = dw1 + j; size = N1;
-    } else if (i < N1 + N2) {
-      j = i - N1; src = wpart + (size_t)nchunk * N1 + j; dst = dw2 + j; size = N2;
-    } else {
-      j = i - N1 - N2; src = wpart + (size_t)nchunk * (N1 + N2) + j; dst = dw3 + j; size = N3;
-    }
-    float s = 0.f;
-    for (int z = 0; z < nchunk; ++z) s += src[(size_t)z * size];
-    *dst = s;
+                                       float* __restrict__ dsc, float* __restrict__ dbi,
+                                       float* __restrict__ d_node) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int NW = 2 * NW12 + NW3;
+  float s = 0.f;
+  if (i < NW12) {
+    for (int z = 0; z < n1; ++z) s += wpart[(size_t)z * NW12 + i];
+    dw1[i] = s;
+  } else if (i < 2 * NW12) {
+    const float* p = wpart + (size_t)n1 * NW12 + (i - NW12);
+    for (int z = 0; z < n2; ++z) s += p[(size_t)z * NW12];
+    dw2[i - NW12] = s;
+  } else if (i < NW) {
+    const float* p = wpart + (size_t)(n1 + n2) * NW12 + (i - 2 * NW12);
+    for (int z = 0; z < n3; ++z) s += p[(size_t)z * NW3];
+    dw3[i - 2 * NW12] = s;
   } else if (i < NW + VEC) {
-    const int v = i - NW;
-    float s = 0.f;
+    const int v = (int)(i - NW);
     for (int b = 0; b < nblocks; ++b) s += vpart[(size_t)b * VEC + v];
     if (v < HID) db1[v] = s;
     else if (v < 2 * HID) db2[v - HID] = s;
     else if (v < 2 * HID + CZ) db3[v - 2 * HID] = s;
     else if (v < 2 * HID + 2 * CZ) dsc[v - 2 * HID - CZ] = s;
     else dbi[v - 2 * HID - 2 * CZ] = s;
+  } else if (i < NW + VEC + (long long)BL * CZ) {
+    const long long e = i - NW - VEC;
+    const long long r = e / CZ;
+    const int c = (int)(e - r * CZ);
+    const float* rp = rowpart + (size_t)r * nbi * CZ + c;
+    for (int k = 0; k < nbi; ++k) s += rp[(size_t)k * CZ];
+    const float* cp = colpart + (size_t)r * COL_SLOTS * nbi * CZ + c;
+    float sc = 0.f;
+    for (int k = 0; k < COL_SLOTS * nbi; ++k) sc += cp[(size_t)k * CZ];
+    d_node[e] = s + sc;
   }
 }
 
@@ -551,77 +808,65 @@ bool g_smem_opt_in[MAX_DEVICES];
 
 }  // namespace
 
-// Launches every stage on `stream`; returns the first non-zero cudaError_t
-// of the launches (0 on success). Scratch and outputs come from the caller:
-// P [B*L][512] f32; H1, R, DA1, DA2 [B*L*L][192] bf16; DO [B*L*L][64] bf16;
-// vpart [grid][576] f32; wpart [nchunk][64*192 + 192*192 + 192*64] f32;
-// nsum [B*L][512] f32.
+// Launches the three kernels on `stream`; returns the first non-zero
+// cudaError_t (0 on success). Scratch and outputs come from the caller:
+// the tile images h1s, rs, da2s, da1s (64 x 192 bf16 a tile) and dos (64 x
+// 64) for ntiles = B * nbi^2 tiles (nbi = ceil(L/8)), vpart [grid][576]
+// f32, wpart [n1 + n2][192*192] + [n3][192*64] f32, rowpart [B*L][nbi][64]
+// and colpart [B*L][4 nbi][64] f32. w1t, w2t, w3t are the forward kernels'
+// bf16 weights transposed to [out][in].
 extern "C" int edge_transition_backward(
-    const void* edge, const void* node, const void* mask, const void* g, const void* w1,
-    const void* b1, const void* w2, const void* b2, const void* w3, const void* b3,
-    const void* ln_s, const void* ln_b, void* P, void* H1, void* R, void* DA1, void* DA2,
-    void* DO, void* vpart, void* wpart, void* nsum, void* d_edge, void* d_node, void* dw1,
-    void* db1, void* dw2, void* db2, void* dw3, void* db3, void* dsc, void* dbi, int B, int L,
-    int grid, int nchunk, int d_edge_f32, float eps, void* stream) {
-  (void)ln_b;  // the LayerNorm bias does not enter the backward
+    const void* edge, const void* node, const void* mask, const void* g, const void* w1t,
+    const void* b1, const void* w2t, const void* b2, const void* w3t, const void* b3,
+    const void* ln_s, void* h1s, void* rs, void* dos, void* da2s, void* da1s, void* vpart,
+    void* wpart, void* rowpart, void* colpart, void* d_edge, void* d_node, void* dw1, void* db1,
+    void* dw2, void* db2, void* dw3, void* db3, void* dsc, void* dbi, int B, int L, int grid,
+    int n1, int n2, int n3, int d_edge_f32, float eps, void* stream) {
+  const long long total = (long long)B * L * L;
+  if (total > INT_MAX) return (int)cudaErrorInvalidValue;   // pair rows are 32-bit
+  if (total == 0 || grid < 1 || n1 < 1 || n2 < 1 || n3 < 1) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!g_smem_opt_in[dev]) {
-    err = cudaFuncSetAttribute(edge_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
+    err = cudaFuncSetAttribute(edge_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ChainSmem::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(edge_bwd_weight_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WEIGHT_SMEM);
     if (err != cudaSuccess) return (int)err;
     g_smem_opt_in[dev] = true;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nbi = (L + TI - 1) / TI, ntiles = B * nbi * nbi;
   const bf16* e = static_cast<const bf16*>(edge);
   const bf16* n = static_cast<const bf16*>(node);
-  const bf16* W1 = static_cast<const bf16*>(w1);
-  const bf16* W3 = static_cast<const bf16*>(w3);
-  bf16* h1 = static_cast<bf16*>(H1);
-  bf16* r = static_cast<bf16*>(R);
-  bf16* da1 = static_cast<bf16*>(DA1);
-  bf16* da2 = static_cast<bf16*>(DA2);
-  bf16* dO = static_cast<bf16*>(DO);
-  float* wp = static_cast<float*>(wpart);
-  const int BL = B * L;
-  const long long total = (long long)BL * L;
 
-  edge_bwd_node_proj_kernel<<<BL, NT, 0, s>>>(n, W1, W3, static_cast<float*>(P));
+  ChainArgs ca{e, n, static_cast<const float*>(mask), static_cast<const bf16*>(g),
+               static_cast<const bf16*>(w1t), static_cast<const float*>(b1),
+               static_cast<const bf16*>(w2t), static_cast<const float*>(b2),
+               static_cast<const bf16*>(w3t), static_cast<const float*>(b3),
+               static_cast<const float*>(ln_s), static_cast<bf16*>(h1s), static_cast<bf16*>(rs),
+               static_cast<bf16*>(dos), static_cast<bf16*>(da2s), static_cast<bf16*>(da1s),
+               static_cast<float*>(vpart), static_cast<float*>(rowpart),
+               static_cast<float*>(colpart), d_edge, d_edge_f32, L, nbi, ntiles, eps, 0u};
+  edge_bwd_chain_kernel<<<grid, NT_C, ChainSmem::BYTES, s>>>(ca);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  edge_bwd_tile_kernel<<<grid, NT, SMEM_BYTES, s>>>(
-      e, n, static_cast<const float*>(P), static_cast<const float*>(mask),
-      static_cast<const bf16*>(g), W1, static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), W3,
-      static_cast<const float*>(b3), static_cast<const float*>(ln_s), h1, r, da1, da2, dO,
-      static_cast<float*>(vpart), d_edge, d_edge_f32, L, total, eps);
+  WeightArgs wa{e, n, static_cast<const bf16*>(h1s), static_cast<const bf16*>(rs),
+                static_cast<const bf16*>(dos), static_cast<const bf16*>(da2s),
+                static_cast<const bf16*>(da1s), static_cast<float*>(wpart), n1, n2, n3, L, nbi,
+                ntiles};
+  edge_bwd_weight_kernel<<<n1 + n2 + n3, NT_W, WEIGHT_SMEM, s>>>(wa);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const long long chunk = ((total + nchunk - 1) / nchunk + KC - 1) / KC * KC;
-  edge_bwd_atb_kernel<<<dim3(HID / 64, CZ / 64, nchunk), NT, 0, s>>>(
-      e, CZ, da1, HID, CZ, HID, total, chunk, wp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  edge_bwd_atb_kernel<<<dim3(HID / 64, HID / 64, nchunk), NT, 0, s>>>(
-      h1, HID, da2, HID, HID, HID, total, chunk, wp + (size_t)nchunk * CZ * HID);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  edge_bwd_atb_kernel<<<dim3(CZ / 64, HID / 64, nchunk), NT, 0, s>>>(
-      r, HID, dO, CZ, HID, CZ, total, chunk, wp + (size_t)nchunk * (CZ * HID + HID * HID));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  edge_bwd_node_sum_kernel<<<(BL + NB - 1) / NB, NT, 0, s>>>(
-      da1, dO, W1, W3, static_cast<float*>(nsum), static_cast<float*>(d_node), BL, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  edge_bwd_node_weight_kernel<<<2 * CZ, HID, 0, s>>>(n, static_cast<const float*>(nsum),
-                                                     static_cast<float*>(dw1), BL);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int nout = CZ * HID + HID * HID + HID * CZ + VEC;
-  edge_bwd_reduce_kernel<<<(nout + NT - 1) / NT, NT, 0, s>>>(
-      wp, static_cast<const float*>(vpart), nchunk, grid, static_cast<float*>(dw1),
-      static_cast<float*>(dw2), static_cast<float*>(dw3), static_cast<float*>(db1),
-      static_cast<float*>(db2), static_cast<float*>(db3), static_cast<float*>(dsc),
-      static_cast<float*>(dbi));
+  const long long nout = 2LL * NW12 + NW3 + VEC + (long long)B * L * CZ;
+  edge_bwd_reduce_kernel<<<(unsigned)((nout + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(wpart), n1, n2, n3, static_cast<const float*>(vpart), grid,
+      static_cast<const float*>(rowpart), static_cast<const float*>(colpart), B * L, nbi,
+      static_cast<float*>(dw1), static_cast<float*>(dw2), static_cast<float*>(dw3),
+      static_cast<float*>(db1), static_cast<float*>(db2), static_cast<float*>(db3),
+      static_cast<float*>(dsc), static_cast<float*>(dbi), static_cast<float*>(d_node));
   return (int)cudaGetLastError();
 }

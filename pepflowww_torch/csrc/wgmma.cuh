@@ -3,7 +3,7 @@
 // operands and int32 accumulators, their shared-memory descriptors for the
 // 128-byte swizzled K-major layout, cp.async 16-byte copies, named barriers
 // and the proxy fence between them. Used by edge_transition.cuh (K1/K2 and
-// K6) and ipa2.cu (K7).
+// K6), ipa2.cu (K7) and edge_transition_bwd.cu (K4).
 //
 // Layout that the descriptors name (K-major, 128-byte swizzle): a matrix
 // of R rows (M for A, N for B) by K bf16 columns is stored as K/64 panels,
@@ -26,6 +26,19 @@
 // 2q..; a[3] row + 8. So the packed bf16 pairs of an accumulator's blocks
 // 2s and 2s + 1 are the A operand of depth step s of the next product
 // (pack_bf16: the lower column in the low half).
+//
+// MN-major operands (the transpose-A / transpose-B immediates, bf16 only)
+// read the same 128-byte swizzled panels the other way round: a panel's
+// rows are then the K axis and its 64 columns 64 consecutive M (or N)
+// indices. CUTLASS's canonical layout Sw<3,4,3> o ((8,8,m),(8,k)) :
+// ((1,8,LBO),(64,SBO)) in elements: 8-row (K) groups lie SBO = 1024 bytes
+// apart and the m-th block of 64 M (N) indices at m * LBO, the leading byte
+// offset, which is the distance between panels (desc_sw128_mn). A product
+// of depth 16 at K row 16s starts 2048 s bytes into the first panel. So a
+// matrix kept K-major for one product, [N][K] as panels of 64 K columns,
+// is the MN-major B operand of the product with its transpose: e.g.
+// W^T [out][in] K-major gives x.W through it and dy.W^T read MN-major, K =
+// out (its rows), N = in (across its panels).
 //
 // int8 products (m64nNk32, s8 x s8 -> s32) read the same layout byte for
 // byte: a depth step of 32 int8 columns is 32 bytes, as 16 bf16 are, so
@@ -64,6 +77,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
+}
+
+// Descriptor of an MN-major, 128-byte swizzled operand whose first panel
+// starts at shared address `addr` and whose panels (blocks of 64 M or N
+// indices) lie `lbo` bytes apart (see the layout above).
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -143,7 +164,9 @@ __device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// d = A . B (+ d when scale_d), m64n192k16: A and B from shared memory.
+// d = A . B (+ d when scale_d), m64n192k16: A and B from shared memory,
+// each K-major or, with TRANS_A / TRANS_B = 1, MN-major (desc_sw128_mn).
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void mma_ss_n192(float (&d)[96], uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -157,7 +180,7 @@ __device__ __forceinline__ void mma_ss_n192(float (&d)[96], uint64_t da, uint64_
       " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
       " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
       " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
-      " %96, %97, p, 1, 1, 0, 0;\n}\n"
+      " %96, %97, p, 1, 1, %99, %100;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -174,11 +197,13 @@ __device__ __forceinline__ void mma_ss_n192(float (&d)[96], uint64_t da, uint64_
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(scale_d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B)
       : "memory");
 }
 
-// d = A . B (+ d when scale_d), m64n64k16: A and B from shared memory.
+// d = A . B (+ d when scale_d), m64n64k16: A and B from shared memory,
+// K-major or MN-major as for mma_ss_n192.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -187,14 +212,14 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B)
       : "memory");
 }
 

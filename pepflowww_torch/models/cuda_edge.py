@@ -48,16 +48,15 @@ PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_int8_forward: 19 pointers, B, L, n_b, n_pz, eps, stream.
 _INT8_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-# edge_transition_backward: 31 pointers, B, L, grid, nchunk, d_edge_f32, eps, stream.
-_BWD_ARGTYPES = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-BWD_NCHUNK = 32      # pair chunks of the weight-gradient products (partials summed in order)
-BWD_TM = 32          # pair rows per tile of the backward kernel
+# edge_transition_backward: 30 pointers, B, L, grid, n1, n2, n3, d_edge_f32, eps, stream.
+_BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+BWD_TI = 8           # the backward kernel's tile: 8 x 8 pairs (i, j) of one batch row
+BWD_COL_SLOTS = 4    # column partials of d_node a tile writes per column (one a warp)
 VEC = 2 * HID + 3 * CZ   # per-block partial: d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
 INT8_HINT = ("train without quant_int8: the int8 serving profile is forward-only, as in the "
              "JAX package")
-# What the forward kernels read of their operands: name -> (shape, dtype).
-_OPERANDS = {"k1": ((HID, HID), torch.bfloat16), "k2": ((HID, HID), torch.bfloat16),
-             "k3": ((HID, CZ), torch.bfloat16), "b1": ((HID,), torch.float32),
+# What the kernels read of their operands: name -> (shape, dtype).
+_OPERANDS = {"b1": ((HID,), torch.float32),
              "b2": ((HID,), torch.float32), "b3": ((CZ,), torch.float32),
              "ln_scale": ((CZ,), torch.float32), "ln_bias": ((CZ,), torch.float32),
              "w1t": ((HID, HID), torch.bfloat16), "w2t": ((HID, HID), torch.bfloat16),
@@ -189,14 +188,14 @@ def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.
 
 # ---------------------------------------------------------------- kernels
 def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool = False) -> dict:
-    """The weights as the kernels take them: float32 vectors; the forward
-    kernels' matrices K-major, bf16 transposed to [out, in] (w1t, w3t, and
-    without `quant_int8` w2t); the readout packed as [kb | kdz | 0] and
-    transposed, wrt (32, 64), with its bias (32,). Without `quant_int8` also
-    the bf16 matrices [in, out] (k1, k2, k3: the backward kernel's). With
-    it, in place of w2t, k2 and k3 quantized per output column (from
-    float32) and transposed to [out, in] int8, their K axis permuted by
-    :data:`INT8_K_PERM` (w2qt, w3qt), with their column scales (w2s, w3s)."""
+    """The weights as the kernels take them: float32 vectors; the matrices
+    K-major, bf16 transposed to [out, in] (w1t, w3t, and without
+    `quant_int8` w2t; the backward kernel reads the same copies); the
+    readout packed as [kb | kdz | 0] and transposed, wrt (32, 64), with its
+    bias (32,). With `quant_int8`, in place of w2t, k2 and k3 quantized per
+    output column (from float32) and transposed to [out, in] int8, their K
+    axis permuted by :data:`INT8_K_PERM` (w2qt, w3qt), with their column
+    scales (w2s, w3s)."""
     bf = torch.bfloat16
     ops = {k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")}
     if quant_int8:
@@ -207,8 +206,7 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
             ops.update({f"w{k}qt": q.t()[:, perm].contiguous(),
                         f"w{k}s": scale.reshape(-1).contiguous()})
     else:
-        ops.update({k: p[k].to(bf).contiguous() for k in ("k1", "k2", "k3")})
-        ops.update({f"w{k}t": ops[f"k{k}"].t().contiguous() for k in ("1", "2", "3")})
+        ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
@@ -365,11 +363,11 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     """Gradients of the EdgeTransition (readout off) with respect to edge,
     node_bias and the parameters, for the cotangent `g` of its output.
     CPU tensors run :func:`edge_transition_bwd_plain`; CUDA tensors run the
-    bf16 backward kernel or raise. Returns (d_edge in `d_edge_dtype`
-    (bfloat16 or float32; float32 by default), d_node_bias float32,
-    {name: float32 grad}). Two calls on the same inputs give bit-identical
-    results: cross-block sums go through per-block partials added in a
-    fixed order, not atomics."""
+    bf16 backward kernel (three launches, counted as one call) or raise.
+    Returns (d_edge in `d_edge_dtype` (bfloat16 or float32; float32 by
+    default), d_node_bias float32, {name: float32 grad}). Two calls on the
+    same inputs give bit-identical results: cross-block sums go through
+    partials added in a fixed order, not atomics."""
     if edge.device.type == "cpu":
         d_edge, d_node, grads = edge_transition_bwd_plain(edge, node_bias, node_mask, p, g,
                                                           dtype, eps)
@@ -377,6 +375,8 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     if dtype != torch.bfloat16:
         raise ValueError(f"the EdgeTransition backward kernel computes in bfloat16, not {dtype}")
     B, L = edge.shape[:2]
+    if B * L * L > 2**31 - 1:
+        raise ValueError(f"B*L*L = {B * L * L} pairs: the backward kernel indexes pairs in 32 bits")
     if ops is None:
         ops = kernel_operands(p)
     bf, f32 = torch.bfloat16, torch.float32
@@ -392,29 +392,51 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     native.check_tensor(nb, "node_bias", (B, L, CZ), bf)
     native.check_tensor(gg, "g", (B, L, L, CZ), bf)
     native.check_tensor(mask, "node_mask", (B, L), f32)
-    for k in PARAM_NAMES:
+    weights = ("w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale")
+    for k in weights:
+        if k not in ops:
+            raise ValueError(f"the backward kernel needs operand {k}: make ops with "
+                             "kernel_operands(p)")
         native.check_tensor(ops[k], k, *_OPERANDS[k])
 
-    pairs = B * L * L
-    grid = min(native.sm_count(dev), (pairs + BWD_TM - 1) // BWD_TM)
+    grid, (n1, n2, n3), ntiles, nbi = bwd_schedule(B, L, native.sm_count(dev))
     empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
-    scratch = {"P": empty(B * L, 512), "H1": empty(pairs, HID, dt=bf), "R": empty(pairs, HID, dt=bf),
-               "DA1": empty(pairs, HID, dt=bf), "DA2": empty(pairs, HID, dt=bf),
-               "DO": empty(pairs, CZ, dt=bf), "vpart": empty(grid, VEC),
-               "wpart": empty(BWD_NCHUNK, CZ * HID + HID * HID + HID * CZ),
-               "nsum": empty(B * L, 2 * HID + 2 * CZ)}
+    rows = ntiles * BWD_TI * BWD_TI
+    scratch = {"h1": empty(rows, HID, dt=bf), "r": empty(rows, HID, dt=bf),
+               "do": empty(rows, CZ, dt=bf), "da2": empty(rows, HID, dt=bf),
+               "da1": empty(rows, HID, dt=bf), "vpart": empty(grid, VEC),
+               "wpart": empty((n1 + n2) * HID * HID + n3 * HID * CZ),
+               "rowpart": empty(B * L * nbi, CZ),
+               "colpart": empty(B * L * BWD_COL_SLOTS * nbi, CZ)}
     d_edge = empty(B, L, L, CZ, dt=d_edge_dtype)
     d_node = empty(B, L, CZ)
     grads = {"k1": empty(HID, HID), "b1": empty(HID), "k2": empty(HID, HID), "b2": empty(HID),
              "k3": empty(HID, CZ), "b3": empty(CZ), "ln_scale": empty(CZ), "ln_bias": empty(CZ)}
     fn = native.function("edge_transition_bwd", "edge_transition_backward", _BWD_ARGTYPES)
-    ins = [e, nb, mask, gg] + [ops[k] for k in PARAM_NAMES]
+    ins = [e, nb, mask, gg] + [ops[k] for k in weights]
     outs = list(scratch.values()) + [d_edge, d_node] + [grads[k] for k in PARAM_NAMES]
-    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid, BWD_NCHUNK,
+    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid, n1, n2, n3,
             int(d_edge_dtype == f32), eps, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "edge_transition_bwd")
     native.LAUNCHES["edge_transition_bwd"] += 1
     return d_edge, d_node, grads
+
+
+def bwd_schedule(B: int, L: int, sms: int):
+    """How the backward kernel splits its work on a card of `sms` SMs:
+    (the chain kernel's grid, the weight kernel's chunks of tiles (n1, n2,
+    n3) for dW1, dW2, dW3, the number of 8 x 8 tiles, tiles a side of a
+    batch row). The chain kernel runs two warpgroups a block, one tile
+    each at a time; the weight kernel one block a chunk, in proportion
+    2 : 3 : 2 to the bytes each reads a tile (dW2 reads two 192-wide
+    images, dW1 one and the edge rows of its gathered C, dW3 one and a
+    64-wide one)."""
+    nbi = -(-L // BWD_TI)
+    ntiles = B * nbi * nbi
+    grid = max(1, min(sms, -(-ntiles // 2)))
+    u = max(1, sms // 7)
+    n1, n2, n3 = (max(1, min(k * u, ntiles)) for k in (2, 3, 2))
+    return grid, (n1, n2, n3), ntiles, nbi
 
 
 class EdgeTransitionFn(torch.autograd.Function):

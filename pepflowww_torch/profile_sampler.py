@@ -15,8 +15,9 @@ random weights on 64 synthetic complexes of L=64 (48-residue pocket +
   (kernels, plain, plain, kernels, three times), and the median of each;
 * a ``torch.profiler`` window of a 5-step run: device busy and idle share
   of the window, kernels launched per denoise pass, device time and
-  launches per pass by category and the top kernels by device time; the
-  trace is written to ``--out``.
+  launches per pass by category, the top kernels by device time and each
+  hand-written kernel category split by kernel name; the trace is written
+  to ``--out``.
 
 With ``--train`` it does the same for the training step at B=32, L=64 (the
 config's batch size): ms/step over 10-step runs with the kernels and with
@@ -169,6 +170,14 @@ def profile_window(run, passes: int, out_dir: str, unit: str = "denoise pass",
               f"({summary['launches_per_pass'][cat]:.1f} launches)", flush=True)
     for name, (n, t) in summary["top"]:
         print(f"[profile] top: {t / 1e3:9.3f} ms  {n:6d} launches  {name[:110]}", flush=True)
+    # The hand-written kernels' categories split by kernel name (a category
+    # such as K4 may launch several kernels a call).
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1]):
+        cat = _category(name)
+        if "(K" in cat or "(kernel" in cat:
+            print(f"[profile] split {cat}: {t / 1e3 / passes:.4f} ms per {unit}, "
+                  f"{n / passes:.1f} launches, {t / n:.2f} us a launch  {name[:90]}",
+                  flush=True)
     return summary
 
 

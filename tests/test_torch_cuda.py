@@ -102,9 +102,11 @@ def _close_in_norm(got, want, name, rel=1e-2):
     assert err <= rel * float(want.norm()) + 1e-6, (name, err, float(want.norm()))
 
 
-@pytest.mark.parametrize("L", [24, 64])
-def test_edge_backward_kernel_matches_plain(dev, L):
-    edge, nb, mask, p, _ = _edge_inputs(dev, 2, L, seed=L)
+# (B, L): the training shape's L, a ragged L, and one whose 8 x 8 tiles
+# are cut at both edges with a pair count that is no multiple of 64.
+@pytest.mark.parametrize("B,L", [(2, 24), (2, 64), (3, 37)])
+def test_edge_backward_kernel_matches_plain(dev, B, L):
+    edge, nb, mask, p, _ = _edge_inputs(dev, B, L, seed=L)
     g = torch.randn(edge.shape, generator=torch.Generator().manual_seed(L)).to(dev).bfloat16()
     before = native.LAUNCHES["edge_transition_bwd"]
     got = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g)
@@ -170,6 +172,14 @@ def test_kernels_reject_what_they_do_not_take(dev):
     args, pd = _dist_inputs(dev, 1, 8)
     with pytest.raises(ValueError):
         cuda_dist.fused_distance_embed(*args, pd, dtype=torch.float32)
+    # The backward kernel indexes pairs in 32 bits: its wrapper refuses more
+    # than 2^31 - 1 pairs before it reads a tensor, and so does its launcher.
+    big = torch.empty(1 << 15, 1 << 8, 1 << 8, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="32 bits"):
+        cuda_edge.edge_transition_bwd(big, nb, mask, p, big)
+    launch = native.function("edge_transition_bwd", "edge_transition_backward",
+                             cuda_edge._BWD_ARGTYPES)
+    assert launch(*[None] * 30, 1 << 15, 1 << 8, 1, 1, 1, 1, 1, 1e-5, None) != 0
     assert native.LAUNCHES == before
 
 
