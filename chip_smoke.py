@@ -9,9 +9,10 @@ Phases, each on its own lines:
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once); ``ptxas -v``'s registers and spills, and the
    dynamic shared memory, of both variants of the EdgeTransition kernels
-   (K1/K2 and K6), of the six of the fused IPA forward (K7) and of the
-   three kernels of the EdgeTransition backward (K4), none of which may
-   spill.
+   (K1/K2 and K6), of the six of the fused IPA forward (K7), of the six
+   kernels of its backward (K8: the tile and pair kernels of L <= 64, the
+   four kernels of L > 64) and of the three kernels of the EdgeTransition
+   backward (K4), none of which may spill; K8's launches a call.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
@@ -24,7 +25,8 @@ Phases, each on its own lines:
    and L=64, 40 and 256 in the sampler's input layouts, at (B, L) = (1, 1),
    (3, 37), (2, 100), (64, 128) in the sampler's and the training step's,
    and at B=32, L=64 in the training step's, with both layouts' times; its
-   backward (K8) at B=32 and L=64, 24 and 256 in the training step's. The int8
+   backward (K8) in the training step's layouts at B=32 and L=64, 24 and 256
+   and at (B, L) = (3, 37), (1, 1), (2, 100), with its launches a call. The int8
    EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
    L=40. The v1 IPA attention core (K9), through both of its wrappers, at
    B=64, L=64 at the model's widths in bf16 and at the JAX tests' widths in
@@ -74,6 +76,7 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -207,6 +210,23 @@ def phase_setup():
                      f"a block")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"ipa2 K7 ({tag}) spills ({spill})")
+    # K8: the tile and pair kernels of L <= 64 and the four kernels of L > 64;
+    # no spills.
+    entries = [(re.search(r"ipa2_bwd_(tile|pairs|query|key|pair|rows)_kernel", entry), use, spill)
+               for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("ipa2_bwd", ""))
+               if "ipa2_bwd_" in entry]
+    check(len(entries) == 6 and all(m for m, _, _ in entries),
+          "ipa2_bwd: ptxas -v reported no entry for each K8 kernel")
+    smem = native.function("ipa2_bwd", "ipa2_bwd_smem_bytes", [ctypes.c_int] * 2)
+    for m, use, spill in entries:
+        extra = (f"; {smem(int(m[1] == 'pairs'), 8)} bytes of dynamic shared memory a block "
+                 f"at H=8" if m[1] in ("tile", "pairs") else "")
+        say("setup", f"ipa2_bwd K8 ({m[1]}): {use}; {spill}{extra}")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"ipa2_bwd K8 ({m[1]}) spills ({spill})")
+    per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])
+    say("setup", f"ipa2_bwd K8 launches a call: {per_call(64)} for L <= 64, {per_call(65)} "
+                 f"for L > 64")
     # K4: its chain, weight-gradient and reduction kernels; no spills.
     entries = [(re.search(r"edge_bwd_\w+?_kernel", entry), use, spill)
                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("edge_transition_bwd", ""))
@@ -405,19 +425,28 @@ def phase_kernels():
                           lambda: cuda_ipa.ipa2_plain(*args), ipa2_bound_ms(32, 64), err)
     say("kernels", f"ipa2 (K7) per launch: sampler layout B=64 L=64 {1e3 * rows['ipa2']['ms']:.1f} "
                    f"us, training layout B=32 L=64 {1e3 * train_row['ms']:.1f} us")
-    # K8: its backward, in the training step's layouts.
+    # K8: its backward, in the training step's layouts: B=32 at L = 64 and 24
+    # (the tile and pair kernels) and 256 (four kernels), and (B, L) = (3,
+    # 37), (1, 1) (two kernels) and (2, 100) (four kernels, a ragged tile).
     names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
-    for L in (64, 24, 256):
-        args = _ipa_inputs(32, L, dev, seed=700 + L, layout="train")
-        cots = [_randn(tuple(o.shape), dev, 800 + L + k)
+    per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])
+    for B, L in ((32, 64), (32, 24), (32, 256), (3, 37), (1, 1), (2, 100)):
+        seed = 700 + L if B == 32 else 700 + 1000 * B + L
+        args = _ipa_inputs(B, L, dev, seed=seed, layout="train")
+        cots = [_randn(tuple(o.shape), dev, seed + 100 + k)
                 for k, o in enumerate(cuda_ipa.ipa2_plain(*args))]
-        tag = f"ipa2_bwd B=32 L={L}"
+        tag = f"ipa2_bwd B={B} L={L}"
         call = lambda: cuda_ipa.ipa2_bwd(*args, *cots)
         plain = lambda: cuda_ipa.ipa2_bwd_plain(*args, *cots)
         got = _launch_once("ipa2_bwd", call, tag)
         err = compare_grads(tag, names, got, plain(), call())
-        if L == 64:
-            rows["ipa2_bwd"] = _time_row(tag, call, plain, ipa2_bwd_bound_ms(32, L), err)
+        say("kernels", f"{tag}: {per_call(L)} kernel launches a call")
+        if (B, L) == (32, 64):
+            rows["ipa2_bwd"] = _time_row(tag, call, plain, ipa2_bwd_bound_ms(B, L), err)
+        elif (B, L) == (32, 24):
+            _time_row(tag, call, plain, ipa2_bwd_bound_ms(B, L), err)
+    say("kernels", f"ipa2_bwd (K8) per call: training layout B=32 L=64 "
+                   f"{1e3 * rows['ipa2_bwd']['ms']:.1f} us")
 
     # K6: the int8 EdgeTransition, readout off and on, flagship and ragged L.
     for L in (64, 40):

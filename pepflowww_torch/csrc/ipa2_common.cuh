@@ -1,10 +1,12 @@
 // Shared pieces of the fused IPA interior kernels: the widths and the input
-// layout (ipa2.cu, ipa2_bwd.cu), and the backward's tile shapes, tile
-// loaders and the logits of one query tile against one key tile
-// (ipa2_bwd.cu). The backward computes in fp32 on the CUDA cores from bf16
-// inputs: a product of two bf16 values is exact in fp32, so each dot
-// product is the bf16-operand, fp32-accumulate product the JAX kernel asks
-// for, summed in another order.
+// layout (ipa2.cu, ipa2_bwd.cu), and the tile shapes, tile loaders and the
+// logits of one query tile against one key tile of the backward's
+// four-kernel path for L > 64 (ipa2_bwd.cu). That path computes in fp32 on
+// the CUDA cores from bf16 inputs: a product of two bf16 values is exact in
+// fp32, so each dot product is the bf16-operand, fp32-accumulate product
+// the JAX kernel asks for, summed in another order. The Hopper pieces of
+// the forward and of the backward's L <= 64 path (64-row swizzled tiles,
+// point fetches, frames) are in ipa2_tile.cuh.
 
 #pragma once
 

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: warpgroup
 // matrix products (wgmma) with bf16 operands and fp32 accumulators or int8
 // operands and int32 accumulators, their shared-memory descriptors for the
-// 128-byte swizzled K-major layout, cp.async 16-byte copies, named barriers
-// and the proxy fence between them. Used by edge_transition.cuh (K1/K2 and
-// K6), ipa2.cu (K7) and edge_transition_bwd.cu (K4).
+// 128-byte swizzled K-major layout, warp-level m16n8k16 products (mma.sync),
+// cp.async 16-byte copies, L2 prefetches, named barriers and the proxy fence
+// between them. Used by
+// edge_transition.cuh (K1/K2 and K6), ipa2.cu (K7), ipa2_bwd.cu (K8) and
+// edge_transition_bwd.cu (K4).
 //
 // Layout that the descriptors name (K-major, 128-byte swizzle): a matrix
 // of R rows (M for A, N for B) by K bf16 columns is stored as K/64 panels,
@@ -149,6 +151,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Brings `bytes` (a multiple of 16) from a 16-byte aligned global address
+// into L2, asynchronously; nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -302,6 +310,20 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, ui
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
+}
+
+// d += A . B, one warp's m16n8k16 product (mma.sync, bf16 operands, fp32
+// accumulators): a[0] row g = lane / 4, columns 2q, 2q + 1 (q = lane % 4);
+// a[1] row g + 8; a[2], a[3] the same rows, columns + 8; b[0] columns
+// (K) 2q, 2q + 1 of row (N) g, b[1] columns + 8; d[0], d[1] row g, N
+// columns 2q, 2q + 1; d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Four int8 values (the low byte of each int) packed into one register, a

@@ -1,16 +1,21 @@
-"""Stage times of the fused IPA forward kernel (K7) on one GPU.
+"""Stage times of the fused IPA kernels (K7 forward, K8 backward) on one GPU.
 
     python -m pepflowww_torch.ipa2_stages [--batch 64] [--length 64]
+    python -m pepflowww_torch.ipa2_stages --backward [--batch 32] [--length 64]
 
-Builds ``csrc/ipa2.cu`` with ``-DIPA2_STAMPS`` (a diagnostic build, beside
-the package's own library), in which each block records the device's global
-timer at its stage boundaries, and calls it three times on seeded inputs in
-the sampler's layout (bias (B, H, L, L), the pair readout a view of
-(B, CZ4, L, L)) at the production widths. It prints, from the last call, the
-mean time a block spends in each stage, for the blocks that started with the
-launch and for those that started later, and the launch's span. L is at most
-64 (one key tile). The stamps cost a global store per stage; the span is not
-the kernel's time (``chip_smoke.py`` times it).
+Builds ``csrc/ipa2.cu`` (or, with ``--backward``, ``csrc/ipa2_bwd.cu``) with
+``-DIPA2_STAMPS`` (a diagnostic build, beside the package's own library), in
+which each block records the device's global timer at its stage boundaries,
+and calls it three times on seeded inputs at the production widths: the
+forward in the sampler's layout (bias (B, H, L, L), the pair readout a view
+of (B, CZ4, L, L)), the backward in the training step's (bias a view of
+(B, L, L, H), the pair readout (B, L, L, CZ4)) with seeded cotangents. It
+prints, from the last call, the mean time a block spends in each stage, for
+the blocks that started with the launch and for those that started later,
+and the launch's span (for the backward, of the tile kernel's blocks). L
+is at most 64 (one key tile; the backward's tile kernel). The stamps cost
+a global store per stage; the span is not the kernel's time
+(``chip_smoke.py`` times it).
 
 Runs on CUDA only: it measures the device.
 """
@@ -28,23 +33,27 @@ from pepflowww_torch import native
 from pepflowww_torch.models import cuda_ipa
 
 H, C, PQ, PV, CZ4 = 8, 128, 8, 12, 16
-N_STAMPS = 11
 STAGES = ("point fetches", "Q/K/V/bias copies", "pair copies", "frames stored",
           "points to global", "copies landed", "logits+softmax", "o product", "aggregations",
           "outputs")
+BWD_STAGES = ("loads, frames", "logits+softmax", "optg, goptg", "g_a product", "point term",
+              "pair term, gs", "gq", "gk, gv, gbias", "point gradients", "frame backwards",
+              "gqp, gkvp written")
 
 
-def stamped_forward():
-    """``ipa2_forward_stamps`` of a fresh diagnostic build of csrc/ipa2.cu."""
+def stamped(source, name, argtypes):
+    """`name` of a fresh diagnostic build of csrc/<source>.cu, taking
+    `argtypes` and then the stamps and the stream."""
     os.makedirs(native.BUILD_DIR, exist_ok=True)
-    out = os.path.join(native.BUILD_DIR, "libipa2_stamps.so")
+    out = os.path.join(native.BUILD_DIR, f"lib{source}_stamps.so")
     res = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-DIPA2_STAMPS", "-o", out,
-                          os.path.join(native.CSRC_DIR, "ipa2.cu")],
+                          os.path.join(native.CSRC_DIR, f"{source}.cu")],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/ipa2.cu -DIPA2_STAMPS:\n{res.stdout}{res.stderr}")
-    fn = ctypes.CDLL(out).ipa2_forward_stamps
-    fn.argtypes = cuda_ipa._ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+        raise RuntimeError(f"nvcc failed for csrc/{source}.cu -DIPA2_STAMPS:\n"
+                           f"{res.stdout}{res.stderr}")
+    fn = getattr(ctypes.CDLL(out), name)
+    fn.argtypes = argtypes[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -65,35 +74,68 @@ def sampler_inputs(B, L, dev, seed=0):
             r(1, H, sc=0.1).abs() + 0.2]
 
 
+def train_inputs(B, L, dev, seed=0):
+    """The backward's inputs as the training step passes them: the bias a
+    view of linear_b's (B, L, L, H), the pair readout down_z's (B, L, L,
+    CZ4); otherwise as :func:`sampler_inputs`."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(dev)
+    bf = torch.bfloat16
+    R = torch.linalg.qr(r(B, L, 3, 3))[0]
+    mask = (torch.rand(B, L, generator=g) > 0.15).float().to(dev)
+    return [r(B, L, H * C).to(bf), r(B, L, 2 * H * C).to(bf),
+            r(B, L, 3, H, PQ, sc=2.0).to(bf).permute(0, 3, 2, 1, 4),
+            r(B, L, 3, H, PQ + PV, sc=2.0).to(bf).permute(0, 3, 2, 1, 4),
+            R.reshape(B, L, 9).contiguous(), r(B, L, 3, sc=5.0),
+            r(B, L, L, H).to(bf).permute(0, 3, 1, 2), r(B, L, L, CZ4).to(bf),
+            (1e5 * (mask - 1.0))[:, None, :], r(1, H, sc=0.1).abs() + 0.2]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--backward", action="store_true", help="K8 in the training layout")
+    ap.add_argument("--batch", type=int, default=None, help="default 64, 32 with --backward")
     ap.add_argument("--length", type=int, default=64)
     args = ap.parse_args(argv)
-    B, L = args.batch, args.length
+    B, L = args.batch or (32 if args.backward else 64), args.length
     if not 1 <= L <= 64:
         ap.error("--length must be 1..64 (one key tile)")
     if not torch.cuda.is_available():
         raise SystemExit("ipa2_stages needs a CUDA device")
     dev = torch.device("cuda")
-    fn = stamped_forward()
-    _, ins, strides = cuda_ipa._kernel_inputs(*sampler_inputs(B, L, dev))
-    outs = [torch.empty(B, L, w, device=dev) for w in (H * C, 3 * H * PV, H * PV, H * CZ4)]
-    st = torch.zeros(B * H * ((L + 63) // 64), N_STAMPS, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if args.backward:
+        name, stages = "ipa2_bwd", BWD_STAGES
+        fn = stamped("ipa2_bwd", "ipa2_backward_stamps", cuda_ipa._BWD_ARGTYPES)
+        _, ins, strides = cuda_ipa._kernel_inputs(*train_inputs(B, L, dev))
+        g = torch.Generator().manual_seed(1)
+        ins += [torch.randn(B, L, w, generator=g).to(dev)
+                for w in (H * C, 3 * H * PV, H * PV, H * CZ4)]
+        outs = [torch.empty(*shape, device=dev) for shape in (
+            (B, L, H * C), (B, L, 2 * H * C), (B, H, 3, L, PQ), (B, H, 3, L, PQ + PV), (B, L, 9),
+            (B, L, 3), (B, H, L, L), (B, L, L, CZ4), (B, H))]
+        rows = torch.empty(B, H, L, 12, device=dev)   # the heads' frame-gradient partials
+        ptrs = ([x.data_ptr() for x in ins] + [None] * 3 + [rows.data_ptr()] + [None] * 3
+                + [x.data_ptr() for x in outs])
+    else:
+        name, stages = "ipa2", STAGES
+        fn = stamped("ipa2", "ipa2_forward_stamps", cuda_ipa._ARGTYPES)
+        _, ins, strides = cuda_ipa._kernel_inputs(*sampler_inputs(B, L, dev))
+        outs = [torch.empty(B, L, w, device=dev) for w in (H * C, 3 * H * PV, H * PV, H * CZ4)]
+        ptrs = [x.data_ptr() for x in ins + outs]
+    st = torch.zeros(B * H, len(stages) + 1, dtype=torch.int64, device=dev)
     for _ in range(3):   # the last of three calls
-        native.check(fn(*[x.data_ptr() for x in ins + outs], strides, B, L, H, 1e-8,
-                        st.data_ptr(), stream), "ipa2 stamps")
+        native.check(fn(*ptrs, strides, B, L, H, 1e-8, st.data_ptr(), stream), f"{name} stamps")
     torch.cuda.synchronize()
     s = st.double().cpu()
     s -= s[:, 0].min()
     first = s[:, 0] < 0.5 * float(s[:, 0].max())   # started with the launch, or after a block ended
     for label, sel in (("first wave", first), ("later blocks", ~first)):
         d = (s[sel, 1:] - s[sel, :-1]).mean(0) / 1e3
-        print(f"ipa2 B={B} L={L} stages, {label} ({int(sel.sum())} blocks), mean us a block: "
-              + ", ".join(f"{n} {float(v):.2f}" for n, v in zip(STAGES, d))
-              + f"; block {float((s[sel, 10] - s[sel, 0]).mean()) / 1e3:.2f}")
-    print(f"ipa2 B={B} L={L} stamped launch: span {float(s[:, 10].max()) / 1e3:.2f} us")
+        print(f"{name} B={B} L={L} stages, {label} ({int(sel.sum())} blocks), mean us a block: "
+              + ", ".join(f"{n} {float(v):.2f}" for n, v in zip(stages, d))
+              + f"; block {float((s[sel, -1] - s[sel, 0]).mean()) / 1e3:.2f}")
+    print(f"{name} B={B} L={L} stamped launch: span {float(s[:, -1].max()) / 1e3:.2f} us")
 
 
 if __name__ == "__main__":

@@ -231,7 +231,9 @@ def test_ipa2_kernel_matches_plain(dev, L, layout):
         assert excess <= 2e-2, (name, excess)
 
 
-@pytest.mark.parametrize("L,module_layout", [(64, False), (24, True)])
+# L <= 64: the tile and pair kernels (a full tile, ragged ones); L = 100:
+# the four-kernel path with a ragged last tile.
+@pytest.mark.parametrize("L,module_layout", [(64, False), (24, True), (37, True), (100, False)])
 def test_ipa2_backward_kernel_matches_plain(dev, L, module_layout):
     args = ipa_inputs(dev, 2, L, seed=L + 1, module_layout=module_layout)
     rng = np.random.default_rng(L)
