@@ -11,8 +11,10 @@ Phases, each on its own lines:
    dynamic shared memory, of both variants of the EdgeTransition kernels
    (K1/K2 and K6), of the six of the fused IPA forward (K7), of the six
    kernels of its backward (K8: the tile and pair kernels of L <= 64, the
-   four kernels of L > 64) and of the three kernels of the EdgeTransition
-   backward (K4), none of which may spill; K8's launches a call.
+   four kernels of L > 64), of the three kernels of the EdgeTransition
+   backward (K4) and of the distance kernels (K3; K5's main and reduction
+   kernels), none of which may spill; K8's, K3's and K5's launches a call,
+   and K3's and K5's blocks an SM.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
@@ -21,7 +23,9 @@ Phases, each on its own lines:
    the backward kernels at the training shapes (B=32, L=64) and a ragged
    L (K4 also at B=3, L=37), each called twice to show bit-identical
    gradients, and the forward EdgeTransition (readout off, as in training)
-   timed at B=32. The fused IPA forward (K7) at B=64
+   timed at B=32. The distance kernels also at (B, L) = (3, 37), (1, 1),
+   (2, 100) (K3 also at (64, 128)) and on a B=32, L=64 batch whose tokens
+   are all one value. The fused IPA forward (K7) at B=64
    and L=64, 40 and 256 in the sampler's input layouts, at (B, L) = (1, 1),
    (3, 37), (2, 100), (64, 128) in the sampler's and the training step's,
    and at B=32, L=64 in the training step's, with both layouts' times; its
@@ -131,6 +135,21 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def exp_floor_ms(B: int, L: int) -> float:
+    """The least time of the distance block's 225 exps a pair on the
+    special function units: 16 a clock an SM (bounds.py counts an exp as one
+    fp32 operation and does not see this), at the card's SM count and its
+    maximum SM clock as nvidia-smi reads it."""
+    import torch
+
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * B * L * L * 225 / (16 * sms * mhz * 1e6)
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of `fn` over `reps` calls (CUDA events, after warm-up)."""
     import torch
@@ -227,6 +246,27 @@ def phase_setup():
     per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])
     say("setup", f"ipa2_bwd K8 launches a call: {per_call(64)} for L <= 64, {per_call(65)} "
                  f"for L > 64")
+    # K3 and K5: the forward kernel, the backward's main and reduction
+    # kernels; no spills; each one's launches a call and blocks an SM.
+    for lib, tag, names in (("distance_embed", "K3", ("distance_embed_kernel",)),
+                            ("distance_embed_bwd", "K5", ("dist_bwd_kernel",
+                                                          "dist_bwd_reduce_kernel"))):
+        entries = [(m[1], use, spill)
+                   for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
+                   if (m := re.search(r"\d(" + "|".join(names) + ")E", entry))]
+        check(sorted(n for n, _, _ in entries) == sorted(names),
+              f"{lib}: ptxas -v reported no entry for each {tag} kernel")
+        smem = native.function(lib, f"{lib}_smem_bytes", [])()
+        for name, use, spill in entries:
+            extra = f"; {smem} bytes of dynamic shared memory a block" if name != \
+                "dist_bwd_reduce_kernel" else ""
+            say("setup", f"{lib} {tag} {name}: {use}; {spill}{extra}")
+            check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                                   "loads"), f"{lib} {tag} {name} spills ({spill})")
+        per_call = native.function(lib, f"{lib}_kernels_per_call", [])()
+        per_sm = native.function(lib, f"{lib}_blocks_per_sm", [])()
+        say("setup", f"{lib} {tag} launches a call: {per_call}; blocks of its main kernel an "
+                     f"SM: {per_sm}")
     # K4: its chain, weight-gradient and reduction kernels; no spills.
     entries = [(re.search(r"edge_bwd_\w+?_kernel", entry), use, spill)
                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("edge_transition_bwd", ""))
@@ -332,10 +372,20 @@ def phase_kernels():
         p_ms = cuda_ms(lambda: cuda_dist.distance_embed_plain(*args, p, torch.bfloat16), reps=5)
         bound, by = dist_bound_ms(64, L)
         say("kernels", f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                       f"{bound:.4f} ms by {by} ({100 * bound / k_ms:.1f}% of bound)")
+                       f"{bound:.4f} ms by {by} ({100 * bound / k_ms:.1f}% of bound); the "
+                       f"exps' floor on the special function units {exp_floor_ms(64, L):.4f} ms")
         if L == 64:
             rows["distance_embed"] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                           bound_by=by)
+    # K3 at the shapes that stress its walk: a ragged single j tile, L=1, two j
+    # tiles with a ragged edge, L > 64 at the sampler's batch; and a batch
+    # whose tokens are all one value (one run of aa_i across every block).
+    for B, L, one in ((3, 37, False), (1, 1, False), (2, 100, False), (64, 128, False),
+                      (32, 64, True)):
+        args, p = _dist_inputs(B, L, dev, seed=800 + B * 1000 + L, one_token=one)
+        tag = f"distance_embed B={B} L={L}{' (one token)' if one else ''}"
+        got = _launch_once("distance_embed", lambda: cuda_dist.fused_distance_embed(*args, p), tag)
+        compare(tag, got, cuda_dist.distance_embed_plain(*args, p, torch.bfloat16), DIST_TOL)
     # K1/K2 and K6 at the shapes that stress the tile mapping: a tile crossing
     # batch rows at a ragged L, L=1, fewer tiles than SMs, L > 64, readout on
     # and off.
@@ -397,8 +447,19 @@ def phase_kernels():
         flat = lambda r: tuple(r[k] for k in cuda_dist.PARAM_NAMES)
         err = compare_grads(tag, cuda_dist.PARAM_NAMES, flat(got), flat(plain()), flat(call()))
         row = _time_row(tag, call, plain, dist_bwd_bound_ms(32, L), err)
+        say("kernels", f"{tag}: the exps' floor on the special function units (once an atom "
+                       f"pair) {exp_floor_ms(32, L):.4f} ms")
         if L == 64:
             rows["distance_embed_bwd"] = row
+    for B, L, one in ((3, 37, False), (1, 1, False), (2, 100, False), (32, 64, True)):
+        args, p = _dist_inputs(B, L, dev, seed=850 + B * 1000 + L, one_token=one)
+        g = _randn((B, L, L, 64), dev, 860 + B * 1000 + L).bfloat16()
+        tag = f"distance_embed_bwd B={B} L={L}{' (one token)' if one else ''}"
+        call = lambda: cuda_dist.distance_embed_bwd(*args, p, g)
+        flat = lambda r: tuple(r[k] for k in cuda_dist.PARAM_NAMES)
+        compare_grads(tag, cuda_dist.PARAM_NAMES, flat(_launch_once("distance_embed_bwd", call, tag)),
+                      flat(cuda_dist.distance_embed_bwd_plain(*args, p, g, torch.bfloat16)),
+                      flat(call()))
 
     # K7: the fused IPA forward, in the sampler's layouts; then both layouts at
     # the shapes that stress the tiling (L=1, a ragged single key tile, two
@@ -494,6 +555,24 @@ def phase_kernels():
                       ipa_v1_bound_ms(64, L, H=4, C=32, Pq=4, Pv=6, cz4=8, in_bytes=4), err)
     rows["ipa1"]["checks"] = checks
     return rows
+
+
+def _dist_inputs(B, L, dev, seed, one_token=False):
+    """Inputs of the distance block: atoms within ~1.5 nm, ~15% of the atoms
+    and ~20% of the residues masked, random tokens (all 5 with
+    `one_token`), the model's weight scales."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    aa = np.full((B, L), 5) if one_token else rng.integers(0, 22, size=(B, L))
+    args = (f(rng.normal(size=(B, L, 15, 3)) * 0.5), f(rng.random((B, L, 15)) > 0.15),
+            torch.from_numpy(aa).to(dev), f(rng.random((B, L)) > 0.2))
+    p = {"table": f(rng.normal(size=(484, 225))), "k1": f(rng.normal(size=(225, 64)) * 0.07),
+         "b1": f(rng.normal(size=64) * 0.1), "k2": f(rng.normal(size=(64, 64)) * 0.12),
+         "b2": f(rng.normal(size=64) * 0.1)}
+    return args, p
 
 
 def _ipa1_inputs(B, L, widths, dtype, dev, seed):

@@ -4,8 +4,8 @@
 // 128-byte swizzled K-major layout, warp-level m16n8k16 products (mma.sync),
 // cp.async 16-byte copies, L2 prefetches, named barriers and the proxy fence
 // between them. Used by
-// edge_transition.cuh (K1/K2 and K6), ipa2.cu (K7), ipa2_bwd.cu (K8) and
-// edge_transition_bwd.cu (K4).
+// edge_transition.cuh (K1/K2 and K6), ipa2.cu (K7), ipa2_bwd.cu (K8),
+// edge_transition_bwd.cu (K4) and distance_tile.cuh (K3 and K5).
 //
 // Layout that the descriptors name (K-major, 128-byte swizzle): a matrix
 // of R rows (M for A, N for B) by K bf16 columns is stored as K/64 panels,
@@ -228,6 +228,44 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B)
+      : "memory");
+}
+
+// d = A . B (+ d when scale_d), m64n32k16: A and B from shared memory, each
+// K-major or, with TRANS_A / TRANS_B = 1, MN-major (desc_sw128_mn); an
+// MN-major B of 32 columns may start 64 bytes into its 128-byte rows.
+template <int TRANS_A = 0, int TRANS_B = 0>
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B)
+      : "memory");
+}
+
+// d = A . B (+ d when scale_d), m64n56k16: A and B from shared memory, both
+// K-major.
+__device__ __forceinline__ void mma_ss_n56(float (&d)[28], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27},"
+      " %28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(da), "l"(db), "r"(scale_d)
       : "memory");
 }
 

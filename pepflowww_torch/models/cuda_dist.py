@@ -15,7 +15,14 @@ only (table, k1, b1, k2, b2): positions, masks and tokens are data.
 the bare forward wrapper has no autograd and raises when asked to record one.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-(csrc/distance_embed.cu, csrc/distance_embed_bwd.cu) or raises.
+or raises. Both kernels share one tile (csrc/distance_tile.cuh): blocks walk
+chunks of the live residues (s_i != 0) in a stable order by token, each run
+of equal aa_i with its 22 coefficient rows in shared memory, and every
+product on wgmma.
+The forward (csrc/distance_embed.cu) is one launch a call. The backward
+(csrc/distance_embed_bwd.cu) is two: the main kernel leaves a table partial
+per block and run of equal aa_i (:func:`bwd_schedule` sizes them) and a
+weight partial per block, and a second kernel sums them in a fixed order.
 """
 
 from __future__ import annotations
@@ -34,7 +41,15 @@ PARAM_NAMES = ("table", "k1", "b1", "k2", "b2")
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 # distance_embed_backward: 18 pointers, B, L, grid, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-BWD_KP = 256         # k1's rows padded for the backward's 16x16 tiles of x^T
+BWD_PART = AA2 * NF + NF * NF + 2 * NF   # a block's weight partial: dK1 | dK2 | db1 | db2
+
+
+def bwd_schedule(B: int, L: int, sms: int):
+    """(grid, table partial slots) of the backward kernel on a card with
+    `sms` SMs: one block an SM, at most one a residue; block z's run of
+    token k leaves its table partial in slot z + k, so grid + 21 slots."""
+    grid = min(sms, B * L)
+    return grid, grid + NAA - 1
 
 
 def distance_embed_plain(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16):
@@ -154,7 +169,7 @@ def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bf
     its output: {table, k1, b1, k2, b2}, float32. CPU tensors run
     :func:`distance_embed_bwd_plain`; CUDA tensors run the bf16 backward
     kernel or raise. Two calls on the same inputs give bit-identical
-    results (per-block partials added in a fixed order, no atomics)."""
+    results (partials added in a fixed order, no atomics)."""
     if pos_nm.device.type == "cpu":
         return distance_embed_bwd_plain(pos_nm, mask_atoms, aa, smask, p, g, dtype)
     if dtype != torch.bfloat16:
@@ -179,10 +194,10 @@ def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bf
     native.check_tensor(ops["k2"], "k2", (NF, NF), bf)
     native.check_tensor(ops["b1"], "b1", (NF,), f32)
     native.check_tensor(ops["b2"], "b2", (NF,), f32)
-    grid = min(native.sm_count(dev), B * L)
+    grid, slots = bwd_schedule(B, L, native.sm_count(dev))
     empty = lambda *s: torch.empty(*s, dtype=f32, device=dev)
-    scratch = [empty(2, NAA * NAA, AA2), empty(B * L, NAA, AA2),
-               empty(grid, BWD_KP * NF + NF * NF + 2 * NF)]
+    scratch = [empty(slots, NAA, AA2), empty(grid, BWD_PART),
+               torch.empty(NAA + 1, dtype=torch.int32, device=dev)]
     grads = {"table": empty(NAA * NAA, AA2), "k1": empty(AA2, NF), "b1": empty(NF),
              "k2": empty(NF, NF), "b2": empty(NF)}
     fn = native.function("distance_embed_bwd", "distance_embed_backward", _BWD_ARGTYPES)

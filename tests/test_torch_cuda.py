@@ -84,7 +84,8 @@ def test_edge_kernel_matches_plain(dev, B, L, with_readout):
         torch.testing.assert_close(a.float(), b.float(), atol=6e-2, rtol=0)
 
 
-@pytest.mark.parametrize("L", [40, 64])
+# L = 37 and 100: a ragged single j tile, and two j tiles with a ragged edge.
+@pytest.mark.parametrize("L", [37, 40, 64, 100])
 def test_distance_kernel_matches_plain(dev, L):
     args, p = _dist_inputs(dev, 2, L)
     before = native.LAUNCHES["distance_embed"]
@@ -121,7 +122,7 @@ def test_edge_backward_kernel_matches_plain(dev, B, L):
         assert torch.equal(a, c), f"{name}: two calls differ"
 
 
-@pytest.mark.parametrize("L", [40, 64])
+@pytest.mark.parametrize("L", [37, 40, 64, 100])
 def test_distance_backward_kernel_matches_plain(dev, L):
     args, p = _dist_inputs(dev, 2, L)
     g = torch.randn(2, L, L, 64, generator=torch.Generator().manual_seed(L)).to(dev).bfloat16()
