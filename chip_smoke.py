@@ -62,6 +62,23 @@ Phases, each on its own lines:
    timed steps. Then the same for the fused-IPA profile (6 K7 and 6 K8
    launches besides those). Then a training step of the int8 profile must
    raise its forward-only error, with no EdgeTransition launched.
+6. data: six complexes written as a PepMerge-style directory
+   (``chiprun_out/structs/<id>/{peptide.pdb,pocket.pdb}``) whose padded
+   lengths cover the buckets 32, 48, 64, 96, 128 and 160, with a 3-residue
+   and a 25-residue peptide and, in the L=160 complex, three pocket
+   residues without their side-chain atoms; preprocessed by the port's
+   ``PepDataset`` (a spawned process pool) into ``chiprun_out/cache``. The
+   L=160 item replicated to B=16 goes through encode and one denoise pass
+   at t=0.5 with the kernels on, the same noised seed weights, every output
+   within DATA_TOL of the same path with the kernels' plain versions (the
+   kernels off, and float32, printed beside it). Then the sample CLI
+   (``pepflowww_torch.sample.main``) in-process on the card: the production
+   profile, 32 samples a complex, 100 steps, with seed-initialized weights;
+   EdgeTransition (K2) 3000 launches and distance (K3) 6, no other kernel;
+   ``outputs.csv`` with 192 finite rows, ``summary.json``, well-formed
+   PDBs, and peptides/s per bucket. Then the port bench's measurement
+   (``pepflowww_torch.bench``) at L64_B64 with one timed run, and the keys
+   of its line.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition forward with the readout (K2) and the distance forward
@@ -80,7 +97,9 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -112,6 +131,22 @@ STEP_REL, STEP_ABS = 5e-2, 1e-3
 IPA_TOL = (2e-2, 1e-3)
 # K9 with fp32 inputs at the JAX tests' widths: the same sums in another order.
 IPA1_FP32_TOL = (1e-3, 1e-4)
+# The production model at L=160, B=16, the kernels against their plain
+# versions on the same path (the same weights and flags), max abs error of
+# each output of encode and of one denoise pass: about three times this
+# gate's readings on the H100 (node 0, no kernel on its path; edge 9.8e-4,
+# one bf16 step of K3's output; rot 1.62e-2, trans 1.04e-2, angles 2.9e-3,
+# logits 3.6e-3, one-step bf16 flips of K2 and K3 carried through six
+# blocks), capped at tests/test_torch_bf16.py's bounds for the port against
+# JAX.
+DATA_TOL = {"node": 1e-6, "edge": 3e-3, "rot": 2e-2, "trans": 1.5e-2, "angles": 9e-3,
+            "logits": 1e-2}
+# (peptide, pocket) lengths of the data phase's complexes: padded to 32, 48,
+# 64, 96, 128 and 160; the L=160 one loses three side chains.
+DATA_SIZES = ((3, 25), (25, 18), (12, 48), (10, 80), (14, 106), (20, 135))
+SUMMARY_KEYS = {"num_complexes", "avg_best_rmsd", "avg_median_rmsd", "avg_mean_ca_rmsd",
+                "avg_mean_aar", "avg_mean_tm_score", "avg_best_tm", "success_rate_2A",
+                "success_rate_5A"}
 
 
 def fail(msg: str) -> None:
@@ -916,6 +951,165 @@ def phase_train_int8(cfg):
                       f"{launches}")
 
 
+def _strip_side_chains(path: str, n: int = 3) -> list:
+    """Delete the side-chain ATOM lines (all but N, CA, C, O) of the first
+    `n` residues of `path` that have at least two; returns their resseq."""
+    lines = open(path).read().splitlines()
+    side = {}
+    for ln in lines:
+        if ln.startswith("ATOM") and ln[12:16].strip() not in ("N", "CA", "C", "O"):
+            side[int(ln[22:26])] = side.get(int(ln[22:26]), 0) + 1
+    cut = [r for r in sorted(side) if side[r] >= 2][:n]
+    keep = [ln for ln in lines if not (ln.startswith("ATOM") and int(ln[22:26]) in cut
+                                       and ln[12:16].strip() not in ("N", "CA", "C", "O"))]
+    with open(path, "w") as f:
+        f.write("\n".join(keep) + "\n")
+    return cut
+
+
+def phase_data(card: str, prod):
+    """The host data path into the sample CLI on the card (phase 6)."""
+    import csv
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import bench, native, sample
+    from pepflowww_torch import constants as C
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
+    from pepflowww_torch.data.dataset import PepDataset
+    from pepflowww_torch.data.synthetic import write_structure_dir
+    from pepflowww_torch.metrics import summarize_outputs
+    from pepflowww_torch.profile_sampler import production_model
+
+    dev = torch.device("cuda", 0)
+    structs, cache, out_dir = (os.path.join(OUT_DIR, d) for d in ("structs", "cache", "samples"))
+    for d in (structs, cache, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    ids = write_structure_dir(structs, sizes=DATA_SIZES, seed=11)
+    cut = _strip_side_chains(os.path.join(structs, ids[-1], "pocket.pdb"))
+    check(len(cut) == 3, f"data: found {cut} pocket residues with side chains to cut")
+    t0 = time.perf_counter()
+    ds = PepDataset(structs, cache, name="smoke")
+    items = [ds[i] for i in range(len(ds))]
+    lengths = [len(it["aa"]) for it in items]
+    buckets = [int(pad_and_collate([it])["aa"].shape[1]) for it in items]
+    say("data", f"preprocessed {len(ds)} complexes ({time.perf_counter() - t0:.1f} s, spawned "
+                f"pool) into {cache}: residues {lengths}, buckets {buckets}")
+    check(ds.ids == ids and buckets == [32, 48, 64, 96, 128, 160],
+          f"data: ids {ds.ids} or buckets {buckets} are not the written ones")
+    big = items[-1]
+    partial = int((big["mask_heavyatom"].sum(-1) < C.HEAVYATOM_MASK_GEN[big["aa"]].sum(-1)).sum())
+    check(partial == 3, f"data: {partial} residues of {ids[-1]} with a partial atom mask, "
+                        f"expected 3")
+    say("data", f"{ids[-1]}: pocket residues {cut} without side chains, {partial} partial "
+                f"rows of mask_heavyatom")
+
+    # Model level: the L=160 item at B=16, the kernels against their plain
+    # versions on the same path.
+    bnp = pad_and_collate(replicate_item(big, 16))
+    batch = device_batch(bnp, dev)
+    # Printed beside the gate, not gates: kernels on against off (the gate's
+    # gap plus the fused readout's against the plain path's rounding), and
+    # the same weights in float32 without kernels (the scale of bf16's).
+    fp32 = dataclasses.replace(prod, ipa=dataclasses.replace(prod.ipa, dtype=None))
+    outs = {}
+    for tag, cfg, on in (("on", prod, True), ("on, plain versions", prod, True),
+                         ("off", prod, False), ("fp32", fp32, False)):
+        model = production_model(dev, cfg, on)
+        native.reset_launch_counts()
+        with torch.no_grad(), (plain_versions() if "plain" in tag else contextlib.nullcontext()):
+            enc = model.encode(batch)
+            den = model.denoise(torch.full((16, 1), 0.5, device=dev), *enc,
+                                batch["generate_mask"], batch["res_mask"],
+                                fused_pair_readout=on)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in native.LAUNCHES.items() if v}
+        want = {"edge_transition": prod.ipa.num_blocks - 1, "distance_embed": 1} \
+            if tag == "on" else {}
+        check(launched == want, f"data: model check ({tag}) launched {launched}, expected {want}")
+        outs[tag] = [x.float() for x in (enc[4], enc[5]) + tuple(den)]
+
+    def gaps(a_tag, b_tag):
+        out = {}
+        for name, a, b in zip(("node", "edge", "rot", "trans", "angles", "logits"), outs[a_tag],
+                              outs[b_tag]):
+            check(bool(torch.isfinite(a).all()), f"data: non-finite {name} ({a_tag})")
+            d = a - b
+            out[name] = float((torch.atan2(torch.sin(d), torch.cos(d)) if name == "angles"
+                               else d).abs().max())
+        return out
+
+    errs = gaps("on", "on, plain versions")
+    say("data", "L=160 B=16 encode + denoise at t=0.5, the kernels vs their plain versions on "
+                "the same path, max abs error: "
+                + ", ".join(f"{k} {v:.3e} (tol {DATA_TOL[k]})" for k, v in errs.items()))
+    for a_tag, b_tag, what in (("on", "off", "kernels on vs off"),
+                               ("off", "fp32", "bf16 without kernels vs float32")):
+        say("data", f"L=160 B=16, {what}: "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in gaps(a_tag, b_tag).items()))
+    for name, err in errs.items():
+        check(err <= DATA_TOL[name], f"data: {name} with the kernels off their plain versions "
+                                     f"by {err:.3e} > {DATA_TOL[name]}")
+
+    # The sample CLI on the card.
+    argv = ["--config", os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"),
+            "--structure_dir", structs, "--dataset_dir", cache, "--dataset_name", "smoke",
+            "--out", out_dir, "--num_samples", "32", "--num_steps", "100", "--device", "cuda"]
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sample.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    want = {**dict.fromkeys(native.SOURCES, 0), "edge_transition": 500 * len(ids),
+            "distance_embed": len(ids)}
+    say("data", f"sample CLI: {len(ids)} complexes x 32 samples x 100 steps in {wall:.1f} s; "
+                f"launches {launches}")
+    check(launches == want, f"data: the sample CLI launched {launches}, expected {want}")
+    with open(os.path.join(out_dir, "outputs.csv"), newline="") as f:
+        reader = csv.DictReader(f)
+        rows, header = list(reader), reader.fieldnames
+    check(header == list(sample.CSV_COLUMNS) and len(rows) == 32 * len(ids)
+          and all(np.isfinite(float(r[k])) for r in rows for k in header[2:]),
+          f"data: outputs.csv has header {header} and {len(rows)} rows, or a non-finite metric")
+    summary = json.load(open(os.path.join(out_dir, "summary.json")))
+    check(set(summary["overall"]) == SUMMARY_KEYS == set(summarize_outputs(rows)["overall"]),
+          f"data: summary.json overall keys {sorted(summary['overall'])}")
+    n_pdb = 0
+    for cid, n_res in zip(ids, lengths):
+        for k in range(32):
+            atoms = [ln for ln in open(os.path.join(out_dir, cid, f"sample_{k}.pdb"))
+                     if ln.startswith("ATOM")]
+            xyz = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
+                            for ln in atoms])
+            ca = sum(1 for ln in atoms if ln[12:16] == " CA ")
+            check(len(atoms) > 4 * n_res and np.isfinite(xyz).all() and ca == n_res
+                  and {ln[21] for ln in atoms} == {"A", "B"},
+                  f"data: {cid}/sample_{k}.pdb: malformed ATOM records")
+            n_pdb += 1
+    say("data", f"outputs.csv: {len(rows)} rows, finite; summary.json overall "
+                f"{json.dumps(summary['overall'], sort_keys=True)}; {n_pdb} PDBs with "
+                f"well-formed ATOM records")
+    for run in res["runs"]:
+        say("data", f"{run['id']} L={run['L']} B=32 100 steps: {run['seconds']:.3f} s, "
+                    f"{run['peptides_per_s']:.3f} peptides/s on {card}; metrics and 32 PDBs "
+                    f"on the host {run['post_seconds']:.3f} s")
+
+    # The bench's measurement at L64_B64, one timed run.
+    line = bench.report(bench.bench_ours(reps=1, buckets=("L64_B64",)))
+    keys = {"metric", "value", "unit", "vs_baseline", "baseline", "sampling_pps",
+            "sampling_pps_plain", "train_samples_per_sec", "train_step_ms",
+            "sampler_flops_per_batch", "mfu", "device"}
+    check(set(line) == keys and set(line["sampling_pps"]) == set(bench.BUCKETS)
+          and set(line["mfu"]) == {"train", "sample", "peak_tflops_assumed"}
+          and set(line["device"]) == {"name", "power_limit"} and line["value"] > 0
+          and line["sampling_pps_plain"] > 0 and line["train_step_ms"] > 0,
+          f"data: the bench line lacks a key or a value: {line}")
+    say("data", f"bench (L64_B64 only, one timed run): {json.dumps(line)}")
+
+
 def write_config(name: str, **ipa) -> str:
     """configs/learn_angle_tpu.yaml with the `ipa` keys set under
     model.encoder.ipa, written to chiprun_out/<name>.yaml
@@ -979,6 +1173,7 @@ def main():
     say("train ipa", f"B=32 L=64 ms/step in this call: fused-IPA profile {ms_ipa:.3f}, "
                      f"production profile {ms:.3f} on {card}")
     phase_train_int8(int8)
+    phase_data(card, prod)
     launches = {"edge_transition": sampled["edge_transition"],
                 "edge_transition_k1": trained["edge_transition"],
                 "distance_embed": sampled["distance_embed"],

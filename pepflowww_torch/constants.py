@@ -6,8 +6,8 @@ live in ``ops/_tables.npz`` (the package's own copy); they are chemical facts,
 snapshotted once from the reference PepFlow table builders.
 
 Only what the sampler, the training objective, the full-atom rebuild and
-the PDB writer read is kept here. All tables are numpy arrays; ops move them
-to the device they need.
+the PDB parser and writer read is kept here. All tables are numpy arrays;
+ops move them to the device they need.
 """
 
 from __future__ import annotations
@@ -43,12 +43,78 @@ class AA(enum.IntEnum):
     SER = 15; THR = 16; VAL = 17; TRP = 18; TYR = 19
     UNK = 20
 
+    @classmethod
+    def _missing_(cls, value):
+        """Three-letter names (modified residues mapped onto their canonical
+        parents) and one-letter symbols."""
+        if isinstance(value, str) and len(value) == 3:
+            name = NON_STANDARD_RESIDUE_SUBSTITUTIONS.get(value, value)
+            if name in cls.__members__:
+                return cls.__members__[name]
+        elif isinstance(value, str) and len(value) == 1:
+            if value in RESSYMB_TO_RESINDEX:
+                return cls(RESSYMB_TO_RESINDEX[value])
+        return super()._missing_(value)
+
+    @classmethod
+    def is_aa(cls, value) -> bool:
+        return (value in RESSYMB_TO_RESINDEX or value in NON_STANDARD_RESIDUE_SUBSTITUTIONS
+                or value in cls.__members__)
+
 
 class BBHeavyAtom(enum.IntEnum):
     """Backbone heavy-atom slots in the 15-atom layout."""
 
     N = 0; CA = 1; C = 2; O = 3; CB = 4; OXT = 14
 
+
+RESSYMB_TO_RESINDEX = {
+    'A': 0, 'C': 1, 'D': 2, 'E': 3, 'F': 4,
+    'G': 5, 'H': 6, 'I': 7, 'K': 8, 'L': 9,
+    'M': 10, 'N': 11, 'P': 12, 'Q': 13, 'R': 14,
+    'S': 15, 'T': 16, 'V': 17, 'W': 18, 'Y': 19,
+    'X': 20,
+}
+RESINDEX_TO_RESSYMB = {v: k for k, v in RESSYMB_TO_RESINDEX.items()}
+
+# PDB chemical-component remapping of modified residues onto their canonical
+# parents (the standard table), for the PDB parser.
+NON_STANDARD_RESIDUE_SUBSTITUTIONS = {
+    '2AS': 'ASP', '3AH': 'HIS', '5HP': 'GLU', 'ACL': 'ARG', 'AGM': 'ARG',
+    'AIB': 'ALA', 'ALM': 'ALA', 'ALO': 'THR', 'ALY': 'LYS', 'ARM': 'ARG',
+    'ASA': 'ASP', 'ASB': 'ASP', 'ASK': 'ASP', 'ASL': 'ASP', 'ASQ': 'ASP',
+    'AYA': 'ALA', 'BCS': 'CYS', 'BHD': 'ASP', 'BMT': 'THR', 'BNN': 'ALA',
+    'BUC': 'CYS', 'BUG': 'LEU', 'C5C': 'CYS', 'C6C': 'CYS', 'CAS': 'CYS',
+    'CCS': 'CYS', 'CEA': 'CYS', 'CGU': 'GLU', 'CHG': 'ALA', 'CLE': 'LEU',
+    'CME': 'CYS', 'CSD': 'ALA', 'CSO': 'CYS', 'CSP': 'CYS', 'CSS': 'CYS',
+    'CSW': 'CYS', 'CSX': 'CYS', 'CXM': 'MET', 'CY1': 'CYS', 'CY3': 'CYS',
+    'CYG': 'CYS', 'CYM': 'CYS', 'CYQ': 'CYS', 'DAH': 'PHE', 'DAL': 'ALA',
+    'DAR': 'ARG', 'DAS': 'ASP', 'DCY': 'CYS', 'DGL': 'GLU', 'DGN': 'GLN',
+    'DHA': 'ALA', 'DHI': 'HIS', 'DIL': 'ILE', 'DIV': 'VAL', 'DLE': 'LEU',
+    'DLY': 'LYS', 'DNP': 'ALA', 'DPN': 'PHE', 'DPR': 'PRO', 'DSN': 'SER',
+    'DSP': 'ASP', 'DTH': 'THR', 'DTR': 'TRP', 'DTY': 'TYR', 'DVA': 'VAL',
+    'EFC': 'CYS', 'FLA': 'ALA', 'FME': 'MET', 'GGL': 'GLU', 'GL3': 'GLY',
+    'GLZ': 'GLY', 'GMA': 'GLU', 'GSC': 'GLY', 'HAC': 'ALA', 'HAR': 'ARG',
+    'HIC': 'HIS', 'HIP': 'HIS', 'HMR': 'ARG', 'HPQ': 'PHE', 'HTR': 'TRP',
+    'HYP': 'PRO', 'IAS': 'ASP', 'IIL': 'ILE', 'IYR': 'TYR', 'KCX': 'LYS',
+    'LLP': 'LYS', 'LLY': 'LYS', 'LTR': 'TRP', 'LYM': 'LYS', 'LYZ': 'LYS',
+    'MAA': 'ALA', 'MEN': 'ASN', 'MHS': 'HIS', 'MIS': 'SER', 'MLE': 'LEU',
+    'MPQ': 'GLY', 'MSA': 'GLY', 'MSE': 'MET', 'MVA': 'VAL', 'NEM': 'HIS',
+    'NEP': 'HIS', 'NLE': 'LEU', 'NLN': 'LEU', 'NLP': 'LEU', 'NMC': 'GLY',
+    'OAS': 'SER', 'OCS': 'CYS', 'OMT': 'MET', 'PAQ': 'TYR', 'PCA': 'GLU',
+    'PEC': 'CYS', 'PHI': 'PHE', 'PHL': 'PHE', 'PR3': 'CYS', 'PRR': 'ALA',
+    'PTR': 'TYR', 'PYX': 'CYS', 'SAC': 'SER', 'SAR': 'GLY', 'SCH': 'CYS',
+    'SCS': 'CYS', 'SCY': 'CYS', 'SEL': 'SER', 'SEP': 'SER', 'SET': 'SER',
+    'SHC': 'CYS', 'SHR': 'LYS', 'SMC': 'CYS', 'SOC': 'CYS', 'STY': 'TYR',
+    'SVA': 'SER', 'TIH': 'ALA', 'TPL': 'TRP', 'TPO': 'THR', 'TPQ': 'ALA',
+    'TRG': 'LYS', 'TRO': 'TRP', 'TYB': 'TYR', 'TYI': 'TYR', 'TYQ': 'TYR',
+    'TYS': 'TYR', 'TYY': 'TYR',
+    'ALA': 'ALA', 'CYS': 'CYS', 'ASP': 'ASP', 'GLU': 'GLU', 'PHE': 'PHE',
+    'GLY': 'GLY', 'HIS': 'HIS', 'ILE': 'ILE', 'LYS': 'LYS', 'LEU': 'LEU',
+    'MET': 'MET', 'ASN': 'ASN', 'PRO': 'PRO', 'GLN': 'GLN', 'ARG': 'ARG',
+    'SER': 'SER', 'THR': 'THR', 'VAL': 'VAL', 'TRP': 'TRP', 'TYR': 'TYR',
+    'UNK': 'UNK',
+}
 
 _TABLES_PATH = os.path.join(os.path.dirname(__file__), "ops", "_tables.npz")
 _T = np.load(_TABLES_PATH, allow_pickle=False)

@@ -1,1 +1,2 @@
-"""Host-side data: batch collation, synthetic complexes and PDB writing."""
+"""Host-side data: PDB parsing and writing, the preprocessing cache, batch
+collation and synthetic complexes."""

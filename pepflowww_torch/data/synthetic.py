@@ -1,6 +1,14 @@
 """Synthetic peptide–pocket complexes for tests, the sample CLI and the chip
 smoke run (counterpart of ``make_complex`` / ``make_batch`` in the JAX
-package's ``data/synthetic.py``).
+package's ``data/synthetic.py``), and PepMerge-style structure directories
+of them (counterpart of ``tools/make_synthetic_structures.py``):
+
+    python -m pepflowww_torch.data.synthetic --out DIR [--n 40] [--seed 0] \
+        [--min_rec 15] [--max_rec 110]
+
+writes ``DIR/synth_<i>/{peptide.pdb,pocket.pdb}`` with peptides of 3-25
+residues and pockets of ``min_rec``-``max_rec``, drawn in the JAX tool's
+order from one numpy generator.
 
 Random backbone frames and valid torsions go through the package's own
 full-atom reconstruction (float32, on the CPU); the schema is the
@@ -12,11 +20,16 @@ float32 rounding in the reconstruction.
 
 from __future__ import annotations
 
+import argparse
+import os
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
 
 from pepflowww_torch import constants as C
 from pepflowww_torch.data.collate import pad_and_collate
+from pepflowww_torch.data.pdb import save_pdb
 from pepflowww_torch.ops import allatom
 
 
@@ -80,3 +93,58 @@ def make_batch(rng: np.random.Generator, batch_size: int = 4, pep_len: int = 12,
     items = [make_complex(rng, pep_len=pep_len, rec_len=rec_len, complex_id=f"synth{i}")
              for i in range(batch_size)]
     return pad_and_collate(items, pad_to=pad_to)
+
+
+def write_complex_pdbs(item: dict, cdir: str) -> None:
+    """`item`'s peptide (generated rows) as ``cdir/peptide.pdb`` and its
+    pocket as ``cdir/pocket.pdb``."""
+    os.makedirs(cdir, exist_ok=True)
+    sel = np.asarray(item["generate_mask"])
+    skip = ("id", "generate_mask", "torsion_angle", "torsion_angle_mask")
+
+    def subset(keep):
+        return {k: (v[keep] if isinstance(v, np.ndarray) else [x for x, s in zip(v, keep) if s])
+                for k, v in item.items() if k not in skip}
+
+    save_pdb(subset(sel), os.path.join(cdir, "peptide.pdb"))
+    save_pdb(subset(~sel), os.path.join(cdir, "pocket.pdb"))
+
+
+def write_structure_dir(out: str, n: int = 40, seed: int = 0, min_rec: int = 15,
+                        max_rec: int = 110,
+                        sizes: Optional[Sequence[tuple]] = None) -> list:
+    """Write ``out/synth_<i>/{peptide.pdb,pocket.pdb}`` for `n` synthetic
+    complexes, or for one complex per (pep_len, rec_len) of `sizes`; returns
+    the ids. Without `sizes` the lengths are drawn as the JAX package's tool
+    draws them (peptide 3-25, pocket `min_rec`-`max_rec`)."""
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ids = []
+    for i in range(n if sizes is None else len(sizes)):
+        if sizes is None:
+            pep_len = int(rng.integers(3, 26))
+            rec_len = int(rng.integers(min_rec, max_rec + 1))
+        else:
+            pep_len, rec_len = sizes[i]
+        cid = f"synth_{i:04d}"
+        write_complex_pdbs(make_complex(rng, pep_len=pep_len, rec_len=rec_len, complex_id=cid),
+                           os.path.join(out, cid))
+        ids.append(cid)
+    return ids
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Write a PepMerge-style structure directory "
+                                             "of synthetic complexes.")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--n", type=int, default=40)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--min_rec", type=int, default=15)
+    ap.add_argument("--max_rec", type=int, default=110)
+    args = ap.parse_args(argv)
+    write_structure_dir(args.out, args.n, args.seed, args.min_rec, args.max_rec)
+    print(f"wrote {args.n} complexes under {args.out}")
+
+
+if __name__ == "__main__":
+    main()

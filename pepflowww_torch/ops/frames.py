@@ -78,3 +78,21 @@ def compose_q_update(R, t, update, update_mask=None):
     m = update_mask[..., None]
     R_new = torch.where((m > 0.5)[..., None], R_upd, R)
     return R_new, t + t_upd * m
+
+
+def kabsch_align(pos_1: torch.Tensor, pos_2: torch.Tensor, weights: torch.Tensor):
+    """Weighted Kabsch: the rigid motion taking `pos_1` (..., N, 3) onto
+    `pos_2`, points weighted by `weights` (..., N) (zero excludes a point).
+    Returns (pos_1 @ Rᵀ + t, R, t), R a proper rotation (the last singular
+    vector flipped where the determinant is negative)."""
+    w = weights.to(pos_1.dtype)[..., None]
+    wsum = w.sum(-2, keepdim=True) + 1e-8
+    mu1 = (pos_1 * w).sum(-2, keepdim=True) / wsum
+    mu2 = (pos_2 * w).sum(-2, keepdim=True) / wsum
+    S = ((pos_1 - mu1) * w).mT @ ((pos_2 - mu2) * w)
+    u, _, vt = torch.linalg.svd(S, full_matrices=False)
+    det = torch.linalg.det(vt.mT @ u.mT)
+    flip = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    R = vt.mT @ (u * flip[..., None, :]).mT
+    t = mu2 - mu1 @ R.mT
+    return pos_1 @ R.mT + t, R, t

@@ -1,6 +1,7 @@
 """Where the time of the sampler, or of its training step, goes on one GPU.
 
-    python -m pepflowww_torch.profile_sampler [--config PATH] [--out chiprun_out/profile]
+    python -m pepflowww_torch.profile_sampler [--config PATH] [--out chiprun_out/profile] \
+        [--batch_size 64] [--complex 12 48 64]
     python -m pepflowww_torch.profile_sampler --train [--config PATH]
 
 The model of ``--config`` (default the production profile,
@@ -8,7 +9,10 @@ configs/learn_angle_tpu.yaml: 6 blocks, c_s 128, c_z 64, bf16; a YAML that
 adds ``use_pallas_ipa: true`` gives the fused-IPA profile, one that adds
 ``quant_int8: true`` the int8 serving profile (sampling only)) with seeded
 random weights on 64 synthetic complexes of L=64 (48-residue pocket +
-12-residue peptide). It prints, each on its own line:
+12-residue peptide; ``--batch_size`` and ``--complex PEP REC PAD`` set
+another sampler workload, e.g. ``--batch_size 32 --complex 20 135 160``,
+the largest bucket of the sample CLI's data phase in chip_smoke.py). It
+prints, each on its own line:
 
 * the wall time and peptides/s of 100-step runs with the hand-written
   kernels and with the config's kernel flags off (plain PyTorch), in turns
@@ -81,11 +85,13 @@ def production_model(dev, cfg, use_kernels: bool = True, seed: int = 0):
     return model
 
 
-def main_path_batch(dev, batch: int = 64, seed: int = 0):
-    """(device batch, numpy batch): B complexes of a 48-residue pocket and a
-    12-residue peptide, padded to L=64."""
-    bnp = make_batch(np.random.default_rng(seed), batch_size=batch, pep_len=12, rec_len=48,
-                     pad_to=64)
+def main_path_batch(dev, batch: int = 64, seed: int = 0, complex_=(12, 48, 64)):
+    """(device batch, numpy batch): B complexes of a `complex_` = (peptide,
+    pocket, padded length), by default a 48-residue pocket and a 12-residue
+    peptide padded to L=64."""
+    pep, rec, pad = complex_
+    bnp = make_batch(np.random.default_rng(seed), batch_size=batch, pep_len=pep, rec_len=rec,
+                     pad_to=pad)
     return device_batch(bnp, dev), bnp
 
 
@@ -224,8 +230,12 @@ def main(argv=None):
     ap.add_argument("--config", default=os.path.join("configs", "learn_angle_tpu.yaml"))
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile"))
     ap.add_argument("--train", action="store_true", help="profile the training step")
+    ap.add_argument("--batch_size", type=int, default=64, help="the sampler's batch")
+    ap.add_argument("--complex", type=int, nargs=3, default=(12, 48, 64),
+                    metavar=("PEP", "REC", "PAD"),
+                    help="the sampler's complexes: peptide and pocket lengths, padded length")
     args = ap.parse_args(argv)
-    batch_size, steps = 64, 100
+    batch_size, steps, L = args.batch_size, 100, args.complex[2]
 
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -242,7 +252,7 @@ def main(argv=None):
         return
     models = {"kernels": production_model(dev, cfg, True),
               "plain": production_model(dev, cfg, False)}
-    batch, _ = main_path_batch(dev, batch_size)
+    batch, _ = main_path_batch(dev, batch_size, complex_=tuple(args.complex))
     for m in models.values():
         _timed_run(m, batch, 2, 0)  # warm-up: kernel build, cuBLAS handles, caches
     secs = {name: [] for name in models}
@@ -250,7 +260,7 @@ def main(argv=None):
         for name in ("kernels", "plain", "plain", "kernels"):
             sec = _timed_run(models[name], batch, steps, 1)
             secs[name].append(sec)
-            print(f"[profile] {name:7s} B={batch_size} L=64 steps={steps}: {sec:.4f} s, "
+            print(f"[profile] {name:7s} B={batch_size} L={L} steps={steps}: {sec:.4f} s, "
                   f"{batch_size / sec:.3f} peptides/s on {card}", flush=True)
     for name, s in secs.items():
         print(f"[profile] {name:7s} median of {len(s)}: {np.median(s):.4f} s, "

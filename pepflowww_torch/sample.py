@@ -1,72 +1,146 @@
-"""Sampling CLI: generate peptides for complexes and write one full-atom PDB
-per sample.
+"""Sampling CLI: generate peptides for each complex, write one PDB per
+sample, the per-sample metrics (``outputs.csv``) and their aggregate
+(``summary.json``).
 
     python -m pepflowww_torch.sample --config configs/learn_angle_tpu.yaml \
-        --synthetic --out results/ --num_samples 16 --num_steps 100 \
-        [--torch_ckpt model1.pt] [--device cpu]
+        --structure_dir Data/PepMerge_new --dataset_dir Data/cache \
+        [--dataset_name pep_pocket_test] --out results/ --num_samples 64 \
+        [--num_steps 100] [--ckpt logs/<run>/checkpoints] [--device cpu]
+    python -m pepflowww_torch.sample --synthetic --out results/ [--ckpt model1.pt]
 
-Runs on CUDA unless ``--device`` names another device. Without a checkpoint
-the weights are random, drawn from ``--seed``. Complexes are synthetic
-(``--synthetic``); reading a dataset comes with the host-path slice.
+Complexes come from a PepMerge-style directory (``<id>/{peptide.pdb,
+pocket.pdb}``), preprocessed once into ``--dataset_dir`` (the cache reads in
+both packages), or are synthetic (``--synthetic``). Weights come from
+``--ckpt`` (also spelled ``--torch_ckpt``): a ``.pt`` file, the reference's
+or one of ``python -m pepflowww_torch.train``, or a directory of the
+latter and its latest; else from ``--seed``. ``--sample_bb/--sample_ang/--sample_seq 0`` keep that
+modality at the data. Runs on CUDA unless ``--device`` names another device.
+
+For each complex: ``num_samples`` copies padded to its length bucket, one
+Euler sampler run, the metrics on the host, and ``<out>/<id>/sample_<i>.pdb``.
+``outputs.csv`` has the columns id, sample, ca_rmsd, ca_rmsd_aligned, aar,
+tm_score.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+CSV_COLUMNS = ("id", "sample", "ca_rmsd", "ca_rmsd_aligned", "aar", "tm_score")
 
-def main(argv=None):
+
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="configs/learn_angle_tpu.yaml")
-    ap.add_argument("--torch_ckpt", default=None, help="reference .pt checkpoint")
+    ap.add_argument("--ckpt", "--torch_ckpt", dest="ckpt", default=None,
+                    help="a .pt checkpoint (the reference's or pepflowww_torch.train's), or "
+                         "a directory of the train CLI's checkpoints (its latest)")
     ap.add_argument("--out", default="./results")
     ap.add_argument("--num_samples", type=int, default=16)
     ap.add_argument("--num_steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=114514)
+    ap.add_argument("--sample_bb", type=int, default=1)
+    ap.add_argument("--sample_ang", type=int, default=1)
+    ap.add_argument("--sample_seq", type=int, default=1)
     ap.add_argument("--synthetic", action="store_true")
-    ap.add_argument("--max_complexes", type=int, default=4)
+    ap.add_argument("--structure_dir", default=None)
+    ap.add_argument("--dataset_dir", default=None)
+    ap.add_argument("--dataset_name", default="pep_pocket_test")
+    ap.add_argument("--max_complexes", type=int, default=None, help="default: all")
     ap.add_argument("--device", default=None, help="default: cuda")
-    args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("only --synthetic complexes are supported so far")
+    return ap
 
+
+def main(argv=None) -> dict:
+    """Runs the CLI; returns {"rows", "summary", "runs"}, ``runs`` one
+    {id, L, seconds, peptides_per_s, post_seconds} per complex: the
+    sampler's time, and the host's for the metrics and the PDBs."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if not args.synthetic and not (args.structure_dir and args.dataset_dir):
+        ap.error("give --structure_dir and --dataset_dir, or --synthetic")
+
+    from pepflowww_torch import metrics as M
     from pepflowww_torch.config import load_config
     from pepflowww_torch.convert import read_torch_checkpoint
     from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
-    from pepflowww_torch.data.synthetic import make_complex
     from pepflowww_torch.device import resolve_device
     from pepflowww_torch.inference import write_sample_pdbs
     from pepflowww_torch.models.flow import build_model
     from pepflowww_torch.sampling import euler_sample
+    from pepflowww_torch.training.checkpoints import latest_checkpoint
 
     dev = resolve_device(args.device)
     cfg = load_config(args.config)
-    sd = read_torch_checkpoint(args.torch_ckpt) if args.torch_ckpt else None
+
+    if args.synthetic:
+        from pepflowww_torch.data.synthetic import make_complex
+
+        rng = np.random.default_rng(args.seed)
+        items = [make_complex(rng, pep_len=12, rec_len=48, complex_id=f"synth{i}")
+                 for i in range(args.max_complexes or 4)]
+    else:
+        from pepflowww_torch.data.dataset import PepDataset
+
+        ds = PepDataset(args.structure_dir, args.dataset_dir, name=args.dataset_name)
+        n = len(ds) if args.max_complexes is None else min(len(ds), args.max_complexes)
+        items = [ds[i] for i in range(n)]
+        print(f"dataset {args.dataset_name}: {len(ds)} complexes, sampling {n}")
+
+    sd = None
+    if args.ckpt:
+        path = latest_checkpoint(args.ckpt) if os.path.isdir(args.ckpt) else args.ckpt
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {args.ckpt}")
+        sd = read_torch_checkpoint(path)
     model = build_model(cfg, dev, state_dict=sd, seed=args.seed)
-    rng = np.random.default_rng(args.seed)
-    items = [make_complex(rng, pep_len=12, rec_len=48, complex_id=f"synth{i}")
-             for i in range(args.max_complexes)]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     os.makedirs(args.out, exist_ok=True)
+    rows, runs = [], []
     for item in items:
         batch_np = pad_and_collate(replicate_item(item, args.num_samples))
         batch = device_batch(batch_np, dev)
+        L = int(batch["aa"].shape[1])
         t0 = time.perf_counter()
-        out = euler_sample(model, batch, gen, num_steps=args.num_steps)
+        out = euler_sample(model, batch, gen, num_steps=args.num_steps,
+                           sample_bb=bool(args.sample_bb), sample_ang=bool(args.sample_ang),
+                           sample_seq=bool(args.sample_seq))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = M.evaluate_sample(out, batch_np)
+        for s in range(args.num_samples):
+            rows.append({"id": item["id"], "sample": s,
+                         **{k: float(m[k][s]) for k in CSV_COLUMNS[2:]}})
         paths = write_sample_pdbs(out, batch_np, os.path.join(args.out, item["id"]))
-        g = batch["generate_mask"].bool()
-        aar = ((out["seqs"] == out["seqs_1"]) & g).sum(-1).float() / g.sum(-1)
-        print(f"{item['id']}: {len(paths)} pdbs, aar={aar.mean().item():.3f}, "
-              f"{sec:.2f} s ({args.num_samples / sec:.2f} peptides/s on {dev})")
+        post = time.perf_counter() - t0
+        runs.append({"id": item["id"], "L": L, "seconds": sec,
+                     "peptides_per_s": args.num_samples / sec, "post_seconds": post})
+        print(f"{item['id']}: {len(paths)} pdbs, L={L}, rmsd={m['ca_rmsd'].mean():.2f} "
+              f"aar={m['aar'].mean():.3f}, {sec:.2f} s ({args.num_samples / sec:.2f} "
+              f"peptides/s on {dev}); metrics and PDBs {post:.2f} s")
+
+    csv_path = os.path.join(args.out, "outputs.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(CSV_COLUMNS))
+        w.writeheader()
+        w.writerows(rows)
+    print(f"wrote {len(rows)} rows to {csv_path}")
+    summary = M.summarize_outputs(rows)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print("summary: " + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                                 for k, v in sorted(summary["overall"].items())))
+    return {"rows": rows, "summary": summary, "runs": runs}
 
 
 if __name__ == "__main__":
