@@ -9,12 +9,12 @@ Phases, each on its own lines:
    build of every CUDA kernel from ``pepflowww_torch/csrc`` (one ``nvcc``
    per source, all at once); ``ptxas -v``'s registers and spills, and the
    dynamic shared memory, of both variants of the EdgeTransition kernels
-   (K1/K2 and K6), of the six of the fused IPA forward (K7), of the six
+   (K1/K2 and K6), of the six of the fused IPA forward (K7), of the five
    kernels of its backward (K8: the tile and pair kernels of L <= 64, the
-   four kernels of L > 64), of the three kernels of the EdgeTransition
-   backward (K4) and of the distance kernels (K3; K5's main and reduction
-   kernels), none of which may spill; K8's, K3's and K5's launches a call,
-   and K3's and K5's blocks an SM.
+   query, key and pair kernels of L > 64), of the three kernels of the
+   EdgeTransition backward (K4) and of the distance kernels (K3; K5's main
+   and reduction kernels), none of which may spill; K8's, K3's and K5's
+   launches a call, and K3's and K5's blocks an SM.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
@@ -29,8 +29,9 @@ Phases, each on its own lines:
    and L=64, 40 and 256 in the sampler's input layouts, at (B, L) = (1, 1),
    (3, 37), (2, 100), (64, 128) in the sampler's and the training step's,
    and at B=32, L=64 in the training step's, with both layouts' times; its
-   backward (K8) in the training step's layouts at B=32 and L=64, 24 and 256
-   and at (B, L) = (3, 37), (1, 1), (2, 100), with its launches a call. The int8
+   backward (K8) in the training step's layouts at B=32 and L=64, 24, 128,
+   160 and 256 (each timed) and at (B, L) = (3, 37), (1, 1), (2, 100), (3,
+   65), with its launches a call (2 at L <= 64, 3 above). The int8
    EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
    L=40. The v1 IPA attention core (K9), through both of its wrappers, at
    B=64, L=64 at the model's widths in bf16 and at the JAX tests' widths in
@@ -60,8 +61,11 @@ Phases, each on its own lines:
    against the same step through the plain versions, 30 Adam steps on one
    batch and one draw lowering the loss, and ms/step and samples/s over 20
    timed steps. Then the same for the fused-IPA profile (6 K7 and 6 K8
-   launches besides those). Then a training step of the int8 profile must
-   raise its forward-only error, with no EdgeTransition launched.
+   launches besides those), and its step at L=128 (116-residue pockets and
+   12-residue peptides: K8 through its three kernels of L > 64; launches,
+   gradients against the plain step, ms/step over 10 steps beside L=64's).
+   Then a training step of the int8 profile must raise its forward-only
+   error, with no EdgeTransition launched.
 6. data: six complexes written as a PepMerge-style directory
    (``chiprun_out/structs/<id>/{peptide.pdb,pocket.pdb}``) whose padded
    lengths cover the buckets 32, 48, 64, 96, 128 and 160, with a 3-residue
@@ -85,7 +89,8 @@ EdgeTransition forward with the readout (K2) and the distance forward
 kernel on the production sampler's, the EdgeTransition forward without it
 (K1, its own entry ``edge_transition_k1``, same counter) and the backward
 kernels on the production training step's, K7 on the fused-IPA sampler's,
-K8 on the fused-IPA training step's and K6 on the int8 sampler's. K9 has
+K8 on the fused-IPA training step's (``ipa2_bwd`` at L=64, its own entry
+``ipa2_bwd_long`` at L=128, same counter) and K6 on the int8 sampler's. K9 has
 no model path in either package: its launches are the kernels phase's
 checks.
 
@@ -264,21 +269,23 @@ def phase_setup():
                      f"a block")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"ipa2 K7 ({tag}) spills ({spill})")
-    # K8: the tile and pair kernels of L <= 64 and the four kernels of L > 64;
-    # no spills.
-    entries = [(re.search(r"ipa2_bwd_(tile|pairs|query|key|pair|rows)_kernel", entry), use, spill)
+    # K8: the tile and pair kernels of L <= 64 and the query, key and pair
+    # kernels of L > 64; no spills.
+    kinds = {"tile": 0, "pairs": 1, "query": 2, "key": 3, "pair": 4}
+    entries = [(re.search(r"ipa2_bwd_(tile|pairs|query|key|pair)_kernel", entry), use, spill)
                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("ipa2_bwd", ""))
                if "ipa2_bwd_" in entry]
-    check(len(entries) == 6 and all(m for m, _, _ in entries),
+    check(sorted(m[1] for m, _, _ in entries if m) == sorted(kinds) and len(entries) == len(kinds),
           "ipa2_bwd: ptxas -v reported no entry for each K8 kernel")
     smem = native.function("ipa2_bwd", "ipa2_bwd_smem_bytes", [ctypes.c_int] * 2)
     for m, use, spill in entries:
-        extra = (f"; {smem(int(m[1] == 'pairs'), 8)} bytes of dynamic shared memory a block "
-                 f"at H=8" if m[1] in ("tile", "pairs") else "")
-        say("setup", f"ipa2_bwd K8 ({m[1]}): {use}; {spill}{extra}")
+        say("setup", f"ipa2_bwd K8 ({m[1]}): {use}; {spill}; {smem(kinds[m[1]], 8)} bytes of "
+                     f"dynamic shared memory a block at H=8")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"ipa2_bwd K8 ({m[1]}) spills ({spill})")
     per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])
+    check((per_call(64), per_call(65)) == (2, 3), "ipa2_bwd: not 2 launches a call for L <= 64 "
+                                                  "and 3 above")
     say("setup", f"ipa2_bwd K8 launches a call: {per_call(64)} for L <= 64, {per_call(65)} "
                  f"for L > 64")
     # K3 and K5: the forward kernel, the backward's main and reduction
@@ -522,11 +529,14 @@ def phase_kernels():
     say("kernels", f"ipa2 (K7) per launch: sampler layout B=64 L=64 {1e3 * rows['ipa2']['ms']:.1f} "
                    f"us, training layout B=32 L=64 {1e3 * train_row['ms']:.1f} us")
     # K8: its backward, in the training step's layouts: B=32 at L = 64 and 24
-    # (the tile and pair kernels) and 256 (four kernels), and (B, L) = (3,
-    # 37), (1, 1) (two kernels) and (2, 100) (four kernels, a ragged tile).
+    # (the tile and pair kernels) and 128, 160 and 256 (the query, key and
+    # pair kernels), and (B, L) = (3, 37), (1, 1) (two kernels), (2, 100) and
+    # (3, 65) (three kernels, ragged last tiles).
     names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
     per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])
-    for B, L in ((32, 64), (32, 24), (32, 256), (3, 37), (1, 1), (2, 100)):
+    k8_us = {}
+    for B, L in ((32, 64), (32, 24), (32, 128), (32, 160), (32, 256), (3, 37), (1, 1), (2, 100),
+                 (3, 65)):
         seed = 700 + L if B == 32 else 700 + 1000 * B + L
         args = _ipa_inputs(B, L, dev, seed=seed, layout="train")
         cots = [_randn(tuple(o.shape), dev, seed + 100 + k)
@@ -536,13 +546,17 @@ def phase_kernels():
         plain = lambda: cuda_ipa.ipa2_bwd_plain(*args, *cots)
         got = _launch_once("ipa2_bwd", call, tag)
         err = compare_grads(tag, names, got, plain(), call())
+        check(per_call(L) == (2 if L <= 64 else 3), f"{tag}: {per_call(L)} kernels a call")
         say("kernels", f"{tag}: {per_call(L)} kernel launches a call")
-        if (B, L) == (32, 64):
-            rows["ipa2_bwd"] = _time_row(tag, call, plain, ipa2_bwd_bound_ms(B, L), err)
-        elif (B, L) == (32, 24):
-            _time_row(tag, call, plain, ipa2_bwd_bound_ms(B, L), err)
-    say("kernels", f"ipa2_bwd (K8) per call: training layout B=32 L=64 "
-                   f"{1e3 * rows['ipa2_bwd']['ms']:.1f} us")
+        if B == 32:
+            row = _time_row(tag, call, plain, ipa2_bwd_bound_ms(B, L), err)
+            k8_us[L] = 1e3 * row["ms"]
+            if L == 64:
+                rows["ipa2_bwd"] = row
+            elif L == 128:
+                rows["ipa2_bwd_long"] = row
+    say("kernels", "ipa2_bwd (K8) per call, training layout B=32: "
+                   + ", ".join(f"L={L} {us:.1f} us" for L, us in k8_us.items()))
 
     # K6: the int8 EdgeTransition, readout off and on, flagship and ragged L.
     for L in (64, 40):
@@ -840,7 +854,13 @@ class plain_versions:
             setattr(mod, name, fn)
 
 
-def phase_train(card: str, cfg, phase: str, want: dict):
+def phase_train(card: str, cfg, phase: str, want: dict, complex_=(12, 48, 64), descent=True,
+                timed_steps=20):
+    """The training step of `cfg` at B=32 on synthetic complexes of
+    `complex_` = (peptide, pocket, padded length): launches per step, a
+    finite gradient for every parameter, the gradients against the same
+    step through the plain versions, with `descent` 30 Adam steps that must
+    lower the loss, and ms/step over `timed_steps` steps."""
     import numpy as np
     import torch
 
@@ -856,8 +876,9 @@ def phase_train(card: str, cfg, phase: str, want: dict):
     tc = raw["train"]
     B, weights = int(tc["batch_size"]), dict(tc["loss_weights"])
     model = production_model(dev, cfg).train()
-    batch, _ = main_path_batch(dev, B, seed=7)
-    noise = draw_noise(B, 64, torch.Generator(device=dev).manual_seed(8), dev)
+    L = complex_[2]
+    batch, _ = main_path_batch(dev, B, seed=7, complex_=complex_)
+    noise = draw_noise(B, L, torch.Generator(device=dev).manual_seed(8), dev)
 
     def grads_of_one_backward():
         model.zero_grad(set_to_none=True)
@@ -871,7 +892,7 @@ def phase_train(card: str, cfg, phase: str, want: dict):
     got = grads_of_one_backward()
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
-    say(phase, f"B={B} L=64 bf16 kernels on: launches per step {launches}")
+    say(phase, f"B={B} L={L} bf16 kernels on: launches per step {launches}")
     check(launches == want, f"{phase} step launched {launches}, expected {want}")
     missing = [n for n, g in got.items() if g is None or not bool(torch.isfinite(g).all())]
     check(not missing, f"{phase} step: parameters without a finite gradient: {missing}")
@@ -895,16 +916,18 @@ def phase_train(card: str, cfg, phase: str, want: dict):
                  f"to its limit {worst_name} at {worst:.3f} of it")
 
     optimizer = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
-    losses = [float(train_step(model, optimizer, batch, weights, noise=noise)["loss"])
-              for _ in range(30)]
-    say(phase, f"30 Adam steps on one batch and one draw: loss {losses[0]:.4f} -> "
-               f"{losses[-1]:.4f}")
-    check(np.isfinite(losses).all() and losses[-1] < losses[0], f"{phase}: loss did not decrease")
+    if descent:
+        losses = [float(train_step(model, optimizer, batch, weights, noise=noise)["loss"])
+                  for _ in range(30)]
+        say(phase, f"30 Adam steps on one batch and one draw: loss {losses[0]:.4f} -> "
+                   f"{losses[-1]:.4f}")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{phase}: loss did not decrease")
 
     gen = torch.Generator(device=dev).manual_seed(9)
     for _ in range(3):
         train_step(model, optimizer, batch, weights, gen)
-    steps = 20
+    steps = timed_steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -912,7 +935,7 @@ def phase_train(card: str, cfg, phase: str, want: dict):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / steps
     check(np.isfinite(float(m["loss"])), f"{phase}: non-finite loss in the timed steps")
-    say(phase, f"B={B} L=64 bf16 kernels on: {ms:.3f} ms/step, {1e3 * B / ms:.3f} samples/s "
+    say(phase, f"B={B} L={L} bf16 kernels on: {ms:.3f} ms/step, {1e3 * B / ms:.3f} samples/s "
                f"over {steps} steps on {card}")
     return launches, ms
 
@@ -1172,6 +1195,14 @@ def main():
     trained_ipa, ms_ipa = phase_train(card, ipa, "train ipa", {**step, "ipa2": 6, "ipa2_bwd": 6})
     say("train ipa", f"B=32 L=64 ms/step in this call: fused-IPA profile {ms_ipa:.3f}, "
                      f"production profile {ms:.3f} on {card}")
+    # The fused-IPA step on the L=128 bucket: K8 through its three kernels of L > 64.
+    trained_long, ms_long = phase_train(card, ipa, "train ipa L=128",
+                                        {**step, "ipa2": 6, "ipa2_bwd": 6},
+                                        complex_=(12, 116, 128), descent=False, timed_steps=10)
+    k8_per_call = native.function("ipa2_bwd", "ipa2_bwd_kernels_per_call", [ctypes.c_int])(128)
+    say("train ipa L=128", f"B=32 ms/step in this call: L=128 {ms_long:.3f}, L=64 {ms_ipa:.3f} "
+                           f"(fused-IPA profile) on {card}; K8 {trained_long['ipa2_bwd']} calls a "
+                           f"step, {k8_per_call} kernels each")
     phase_train_int8(int8)
     phase_data(card, prod)
     launches = {"edge_transition": sampled["edge_transition"],
@@ -1180,6 +1211,7 @@ def main():
                 "edge_transition_bwd": trained["edge_transition_bwd"],
                 "distance_embed_bwd": trained["distance_embed_bwd"],
                 "ipa2": sampled_ipa["ipa2"], "ipa2_bwd": trained_ipa["ipa2_bwd"],
+                "ipa2_bwd_long": trained_long["ipa2_bwd"],
                 "edge_transition_int8": sampled_int8["edge_transition_int8"],
                 "ipa1": rows["ipa1"]["checks"]}
 
@@ -1196,6 +1228,8 @@ def main():
             "ipa2": ("pepflowww_torch/csrc/ipa2.cu", "pepflowww_tpu/models/pallas_ipa2.py:126"),
             "ipa2_bwd": ("pepflowww_torch/csrc/ipa2_bwd.cu",
                          "pepflowww_tpu/models/pallas_ipa2.py:344"),
+            "ipa2_bwd_long": ("pepflowww_torch/csrc/ipa2_bwd.cu",
+                              "pepflowww_tpu/models/pallas_ipa2.py:344"),
             "edge_transition_int8": ("pepflowww_torch/csrc/edge_transition_int8.cu",
                                      "pepflowww_tpu/models/pallas_edge.py:47"),
             "ipa1": ("pepflowww_torch/csrc/ipa1.cu", "pepflowww_tpu/models/pallas_ipa.py:66")}
@@ -1210,6 +1244,11 @@ def main():
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":
             k["variant"] = "readout off (K1), B=32, the training step's"
+        if k["name"] == "ipa2_bwd":
+            k["variant"] = "L <= 64 (tile and pairs kernels), B=32 L=64, the training step's"
+        if k["name"] == "ipa2_bwd_long":
+            k["variant"] = ("L > 64 (query, key and pair kernels), B=32 L=128, the fused-IPA "
+                            "training step at L=128")
         if k["name"] == "ipa1":
             k["path"] = ("none in either package (tests only): launches are the kernels "
                          "phase's checks")

@@ -192,6 +192,10 @@ TABLE = (
     ("K7", "IPA v2 interior forward", "B=64 L=64 (sampler)", ipa2_bound_ms, dict(B=64, L=64)),
     ("K8", "IPA v2 interior backward", "B=32 L=64 (train step)", ipa2_bwd_bound_ms,
      dict(B=32, L=64)),
+    ("K8", "IPA v2 interior backward", "B=32 L=128 (train step, L > 64 path)",
+     ipa2_bwd_bound_ms, dict(B=32, L=128)),
+    ("K8", "IPA v2 interior backward", "B=32 L=256 (train step, L > 64 path)",
+     ipa2_bwd_bound_ms, dict(B=32, L=256)),
     ("K9", "IPA v1 attention core, bf16", "B=64 L=64, model widths (no model path)",
      ipa_v1_bound_ms, dict(B=64, L=64)),
 )

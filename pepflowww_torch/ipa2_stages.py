@@ -13,9 +13,12 @@ of (B, CZ4, L, L)), the backward in the training step's (bias a view of
 prints, from the last call, the mean time a block spends in each stage, for
 the blocks that started with the launch and for those that started later,
 and the launch's span (for the backward, of the tile kernel's blocks). L
-is at most 64 (one key tile; the backward's tile kernel). The stamps cost
-a global store per stage; the span is not the kernel's time
-(``chip_smoke.py`` times it).
+is at most 64 (one key tile; the backward's tile kernel), but for the
+backward above 64, where each block of its query and key kernels sums its
+SM clock cycles in each stage over its tiles: the mean per block of each,
+in cycles and in us at the card's maximum SM clock. The stamps cost a
+global store per stage (and a clock read per stage and tile); the span is
+not the kernel's time (``chip_smoke.py`` times it).
 
 Runs on CUDA only: it measures the device.
 """
@@ -39,6 +42,12 @@ STAGES = ("point fetches", "Q/K/V/bias copies", "pair copies", "frames stored",
 BWD_STAGES = ("loads, frames", "logits+softmax", "optg, goptg", "g_a product", "point term",
               "pair term, gs", "gq", "gk, gv, gbias", "point gradients", "frame backwards",
               "gqp, gkvp written")
+# L > 64: the query and key kernels' stages (csrc/ipa2_bwd.cu NQ_STAGES, NK_STAGES).
+QUERY_STAGES = ("setup", "sweep 1 loads", "sweep 1 logits, p", "sweep 1 g' product, pair term",
+                "sweep 1 D sums, p.vg", "goptg, D", "sweep 2 loads", "sweep 2 logits, a",
+                "sweep 2 g_a", "sweep 2 gs, gq, gbias, gs.kg", "end")
+KEY_STAGES = ("setup", "query tile loads", "logits, a", "g_a product, point term", "pair term",
+              "gs, a.goptg", "gk, gv", "gs.qg", "end")
 
 
 def stamped(source, name, argtypes):
@@ -98,8 +107,8 @@ def main(argv=None):
     ap.add_argument("--length", type=int, default=64)
     args = ap.parse_args(argv)
     B, L = args.batch or (32 if args.backward else 64), args.length
-    if not 1 <= L <= 64:
-        ap.error("--length must be 1..64 (one key tile)")
+    if L < 1 or (L > 64 and not args.backward):
+        ap.error("--length must be 1..64 (one key tile), or above with --backward")
     if not torch.cuda.is_available():
         raise SystemExit("ipa2_stages needs a CUDA device")
     dev = torch.device("cuda")
@@ -114,9 +123,15 @@ def main(argv=None):
         outs = [torch.empty(*shape, device=dev) for shape in (
             (B, L, H * C), (B, L, 2 * H * C), (B, H, 3, L, PQ), (B, H, 3, L, PQ + PV), (B, L, 9),
             (B, L, 3), (B, H, L, L), (B, L, L, CZ4), (B, H))]
-        rows = torch.empty(B, H, L, 12, device=dev)   # the heads' frame-gradient partials
-        ptrs = ([x.data_ptr() for x in ins] + [None] * 3 + [rows.data_ptr()] + [None] * 3
+        n_t = (L + 63) // 64
+        scratch = [(B, H, L, 12) if k == 2 else None for k in range(7)] if L <= 64 else \
+            [(B, H, L, 4), (B, H, L, 40), (B, H, L, 12), (B, H, L, 12), (B, H, n_t), (B, H, n_t),
+             (B, H, n_t * 64, 64)]
+        scratch = [None if sh is None else torch.empty(*sh, device=dev) for sh in scratch]
+        ptrs = ([x.data_ptr() for x in ins] + [None if x is None else x.data_ptr() for x in scratch]
                 + [x.data_ptr() for x in outs])
+        if L > 64:
+            return long_stages(fn, ptrs, strides, B, L, n_t, stream)
     else:
         name, stages = "ipa2", STAGES
         fn = stamped("ipa2", "ipa2_forward_stamps", cuda_ipa._ARGTYPES)
@@ -136,6 +151,27 @@ def main(argv=None):
               + ", ".join(f"{n} {float(v):.2f}" for n, v in zip(stages, d))
               + f"; block {float((s[sel, -1] - s[sel, 0]).mean()) / 1e3:.2f}")
     print(f"{name} B={B} L={L} stamped launch: span {float(s[:, -1].max()) / 1e3:.2f} us")
+
+
+def long_stages(fn, ptrs, strides, B, L, n_t, stream):
+    """The backward's query and key kernels at L > 64: the mean SM clock
+    cycles a block spends in each stage, summed over its tiles."""
+    nq, nk = len(QUERY_STAGES), len(KEY_STAGES)
+    st = torch.zeros(B * H * n_t * (nq + nk), dtype=torch.int64, device="cuda")
+    for _ in range(3):   # the last of three calls
+        native.check(fn(*ptrs, strides, B, L, H, 1e-8, st.data_ptr(), stream), "ipa2_bwd stamps")
+    torch.cuda.synchronize()
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(res.stdout.strip().splitlines()[0])
+    s = st.double().cpu()
+    for label, block, names in (("query", s[:B * H * n_t * nq].reshape(-1, nq), QUERY_STAGES),
+                                ("key", s[B * H * n_t * nq:].reshape(-1, nk), KEY_STAGES)):
+        mean = block.mean(0)
+        print(f"ipa2_bwd B={B} L={L} {label} kernel, mean a block ({block.shape[0]} blocks, "
+              f"{n_t} tiles each), cycles (us at {mhz:.0f} MHz): "
+              + ", ".join(f"{n} {float(v):.0f} ({float(v) / mhz:.2f})" for n, v in zip(names, mean))
+              + f"; block {float(mean.sum()):.0f} ({float(mean.sum()) / mhz:.2f})")
 
 
 if __name__ == "__main__":

@@ -47,14 +47,16 @@ from pepflowww_torch import native
 
 C_K, PQ_K, PV_K, CZ4_K = 128, 8, 12, 16   # the widths the kernels take
 # The backward (csrc/ipa2_bwd.cu) runs two kernels for L <= TILE, with only
-# the heads' (B, H, L, 12) frame-gradient partials as scratch; otherwise four
-# kernels with (B, H, L, L) scratch, TILE_MULTI rows a block.
-TILE, TILE_MULTI = 64, 32
+# the heads' (B, H, L, 12) frame-gradient partials as scratch; otherwise three
+# kernels over TILE-row tiles with O(L) scratch: the query rows' statistics,
+# goptg, both sides' frame-gradient partials, the blocks' gsw partials and
+# each row's running sums between tiles.
+TILE = 64
 _LAYOUT = ctypes.c_longlong * 18          # element strides of qp, kvp (5 each), bias, pz (4 each)
 # ipa2_forward: 14 pointers, strides, B, L, H, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + \
     [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-# ipa2_backward: 14 inputs, 7 scratch (for L <= TILE all null but the fourth), 9 outputs,
+# ipa2_backward: 14 inputs, 7 scratch (for L <= TILE all null but the third), 9 outputs,
 # strides, B, L, H, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.POINTER(ctypes.c_longlong)] + \
     [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
@@ -220,7 +222,7 @@ def _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw):
 
 
 def _pairs_by_rows(pz):
-    """pz as the backward's tile kernel reads it: each pair's CZ4 channels as
+    """pz as the backward's kernels read it: each pair's CZ4 channels as
     contiguous, 16-byte aligned bytes. The training step's down_z output
     already is; any other layout is copied."""
     st = pz.stride()
@@ -259,16 +261,15 @@ def ipa2_bwd(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm, gopai
     """Gradients of the IPA interior for the cotangents of its four outputs:
     (gq, gkv, gqp, gkvp, gr9, gt, gbias, gpz, gsw (B, H)), float32, in the
     inputs' shapes. CPU tensors run :func:`ipa2_bwd_plain`; CUDA tensors run
-    the backward kernels or raise: two for L <= TILE, else four. Two calls
-    on the same inputs give bit-identical results: sums across blocks are
-    per-block partials added in a fixed order, not atomics."""
+    the backward kernels or raise: two for L <= TILE, else three, none with
+    (B, H, L, L) scratch. Two calls on the same inputs give bit-identical
+    results: sums across blocks are per-block partials added in a fixed
+    order, not atomics."""
     if q.device.type == "cpu":
         return ipa2_bwd_plain(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm,
                               gopair, eps)
     L = q.shape[1]
-    if L <= TILE:
-        pz = _pairs_by_rows(pz)
-    H, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw)
+    H, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, _pairs_by_rows(pz), maskb, sw)
     B = q.shape[0]
     f32, dev = torch.float32, q.device
     cots = [x.to(f32).contiguous() for x in (go, goptl, gnorm, gopair)]
@@ -277,11 +278,11 @@ def ipa2_bwd(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm, gopai
         native.check_tensor(x, name, (B, L, w), f32)
     empty = lambda *s: torch.empty(*s, dtype=f32, device=dev)
     if L <= TILE:
-        scratch = [None] * 3 + [empty(B, H, L, 12)] + [None] * 3
+        scratch = [None] * 2 + [empty(B, H, L, 12)] + [None] * 4
     else:
-        n_t = (L + TILE_MULTI - 1) // TILE_MULTI
-        scratch = [empty(B, H, L, L), empty(B, H, L, L), empty(B, H, L, 3 * PV_K),
-                   empty(B, H, L, 12), empty(B, H, L, 12), empty(B, H, n_t), empty(B, H, n_t)]
+        n_t = (L + TILE - 1) // TILE
+        scratch = [empty(B, H, L, 4), empty(B, H, L, 40), empty(B, H, L, 12),
+                   empty(B, H, L, 12), empty(B, H, n_t), empty(B, H, n_t), empty(B, H, n_t * TILE, 64)]
     outs = [empty(B, L, H * C_K), empty(B, L, 2 * H * C_K), empty(B, H, 3, L, PQ_K),
             empty(B, H, 3, L, PQ_K + PV_K), empty(B, L, 9), empty(B, L, 3), empty(B, H, L, L),
             empty(B, L, L, CZ4_K), empty(B, H)]

@@ -232,9 +232,11 @@ def test_ipa2_kernel_matches_plain(dev, L, layout):
         assert excess <= 2e-2, (name, excess)
 
 
-# L <= 64: the tile and pair kernels (a full tile, ragged ones); L = 100:
-# the four-kernel path with a ragged last tile.
-@pytest.mark.parametrize("L,module_layout", [(64, False), (24, True), (37, True), (100, False)])
+# L <= 64: the tile and pair kernels (a full tile, ragged ones); L = 65,
+# 100, 128: the query, key and pair kernels (a last tile of one row, a
+# ragged one, two full ones).
+@pytest.mark.parametrize("L,module_layout", [(64, False), (24, True), (37, True), (65, True),
+                                             (100, False), (128, False)])
 def test_ipa2_backward_kernel_matches_plain(dev, L, module_layout):
     args = ipa_inputs(dev, 2, L, seed=L + 1, module_layout=module_layout)
     rng = np.random.default_rng(L)

@@ -2,8 +2,8 @@
 emulated in plain PyTorch on the CPU, against ``cuda_ipa.ipa2_bwd_plain``
 and the JAX package's ``fused_ipa2_bwd`` (Pallas, interpret mode).
 
-The CUDA kernels cannot run here, so two functions repeat what they do and
-in which order, in the training step's input layouts (the pair bias a view
+The CUDA kernels cannot run here, so a function repeats what they do and in
+which order, in the training step's input layouts (the pair bias a view
 of (B, L, L, H), the pair features (B, L, L, CZ4)):
 
 - :func:`two_kernels` (L <= 64): the tile kernel, a block per (b, h) on the
@@ -17,23 +17,16 @@ of (B, L, L, H), the pair features (B, L, L, CZ4)):
   rows): each head's weights of the rows recomputed (the row's sum of exp
   as four warps' partials added in order), gpz = Σ_h a_h gopair_h and gr9,
   gt from the partials, heads in order 0 .. H-1.
-- :func:`four_kernels` (L > 64): the query kernel per 32 query rows (four
-  sweeps over 32-key tiles: the logits with each row's running max and sum,
-  the weights a = exp(s - m) / l and the point sums, g_a and D, then gs,
-  gbias, gq and gqg summed over key tiles in order), the key kernel per 32
-  key rows (gk, gv, gvg, gkg and the column sums over query tiles in order,
-  from the scratch a and gs), gpz over heads in order, and the rows
-  kernel's sums of the per-head partials (query side, then key side, for
-  each head in order). The kernel's running max and sum are kept by eight
-  lanes a row and combined by a butterfly; here by the row, over each key
-  tile at once: the same values up to fp32 rounding.
 
-A further test checks the index maps the two kernels rely on (wgmma.cuh,
-ipa2_tile.cuh): the gs accumulator packed to bf16 as gq's A operand; K, Q
-and bf16(go), staged as load_tile places them, read as MN-major B; the bf16
-gs and a panels the tile kernel writes from its accumulators, read as
-MN-major A (transpose-A); the fp32 tiles' row permutation (sw64); the pair
-kernel's mma.sync fragments and key map.
+A further test checks the index maps the kernels rely on (wgmma.cuh,
+ipa2_tile.cuh), for L <= 64 and for the three kernels of L > 64
+(tests/test_torch_ipa2_bwd_long.py emulates their schedule): the gs (and a)
+accumulator packed to bf16 as the A operand of gq (gk, gv); K, Q and
+bf16(go), staged as load_tile places them, read as MN-major B; the bf16 gs
+and a panels the tile kernel writes from its accumulators, read as MN-major
+A (transpose-A); the fp32 tiles' row permutation (sw64); the pair kernels'
+mma.sync fragments and key maps (8 rows against 64 keys for L <= 64, 16
+rows against chunks of 32 keys above).
 
 Tolerances, each gradient as ‖got − want‖ ≤ tol·‖want‖ (the card's form,
 ``chip_smoke.compare_grads``), against ``ipa2_bwd_plain`` (the same rounding
@@ -58,8 +51,8 @@ from pepflowww_torch.models import cuda_ipa
 
 torch.set_num_threads(1)
 H, C, PQ, PV, CZ4 = 2, 128, 8, 12, 16
-TQ, TM = cuda_ipa.TILE, cuda_ipa.TILE_MULTI     # rows of a tile: two-kernel path, four-kernel path
-RB = 8                                          # query rows a block of the pair kernel
+TQ = cuda_ipa.TILE                              # rows of a tile
+RB = 8                                          # query rows a block of the pair kernel (L <= 64)
 PANEL = TQ * 128                                # bytes of a 64-row panel of 64 bf16 channels
 NAMES = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
 TOL = {"gq": 5e-3, "gkv": 5e-3}       # the bf16 products; every other gradient 1e-4
@@ -230,77 +223,6 @@ def two_kernels(args, cots):
             gsw)
 
 
-def four_kernels(args, cots):
-    """The four-kernel schedule (L > 64). Returns the nine gradients of
-    ``ipa2_bwd``, float32."""
-    G = _Geo(args, cots)
-    B, L = G.B, G.L
-    tiles = [slice(r, min(L, r + TM)) for r in range(0, L, TM)]
-    A = torch.zeros(B, H, L, L)       # the scratch: logits, then a
-    GS = torch.zeros(B, H, L, L)      # g_a, then gs
-    GOPTG = torch.zeros(B, H, L, 3 * PV)
-    GRQ, GRK = torch.zeros(B, H, L, 12), torch.zeros(B, H, L, 12)
-    gq = torch.zeros(B, H, L, C)
-    gqp = torch.zeros(B, H, 3, L, PQ)
-    gswq, gswk = [], []
-    for i in tiles:                   # the query kernel
-        m = torch.full((B, H, i.stop - i.start, 1), -INF)
-        lsum = torch.zeros_like(m)
-        for j in tiles:               # sweep 1: logits, each row's running max and sum
-            s = G.logits(i, j)
-            A[:, :, i, j] = s
-            mn = torch.maximum(m, s.max(-1, keepdim=True).values)
-            lsum = torch.where(m == -INF, 0.0, lsum * torch.exp(m - mn)) \
-                + torch.exp(s - mn).sum(-1, keepdim=True)
-            m = mn
-        optg = 0.0
-        for j in tiles:               # sweep 2: the weights, the point sums
-            A[:, :, i, j] = torch.exp(A[:, :, i, j] - m) / lsum
-            optg = optg + A[:, :, i, j] @ G.vg[:, :, j]
-        goptg, row_inv = G.goptg(optg, i)
-        GOPTG[:, :, i] = goptg
-        D = 0.0
-        for j in tiles:               # sweep 3: g_a, D
-            GS[:, :, i, j] = (G.go[:, :, i] @ G.v[:, :, j].transpose(-1, -2)
-                              + goptg @ G.vg[:, :, j].transpose(-1, -2) + G.pair_term(i, j))
-            D = D + (A[:, :, i, j] * GS[:, :, i, j]).sum(-1, keepdim=True)
-        acc, rs = 0.0, 0.0
-        for j in tiles:               # sweep 4: gs, gq, gs.kg, the row sums
-            GS[:, :, i, j] = A[:, :, i, j] * (GS[:, :, i, j] - D)
-            gq[:, :, i] += GS[:, :, i, j].bfloat16().float() @ G.k[:, :, j]
-            acc = acc + GS[:, :, i, j] @ G.kg[:, :, j]
-            rs = rs + GS[:, :, i, j].sum(-1, keepdim=True)
-        gqg = -rs * G.qg[:, :, i] + acc
-        gswq.append((gqg * G.qg[:, :, i]).sum((2, 3)))
-        gqp[:, :, :, i], rq = G.frame_bwd(0, gqg, i, G.sw.reshape(1, H, 1, 1, 1))
-        GRQ[:, :, i] = row_inv + rq
-    gk, gv = torch.zeros(B, H, L, C), torch.zeros(B, H, L, C)
-    gkp, gvp = torch.zeros(B, H, 3, L, PQ), torch.zeros(B, H, 3, L, PV)
-    for j in tiles:                   # the key kernel
-        acc, gvg, cs = 0.0, 0.0, 0.0
-        for i in tiles:
-            a_ij, gs_ij = A[:, :, i, j].transpose(-1, -2), GS[:, :, i, j].transpose(-1, -2)
-            gv[:, :, j] += a_ij.bfloat16().float() @ G.go[:, :, i]
-            gk[:, :, j] += gs_ij.bfloat16().float() @ G.q[:, :, i]
-            gvg = gvg + a_ij @ GOPTG[:, :, i]
-            acc = acc + gs_ij @ G.qg[:, :, i]
-            cs = cs + gs_ij.sum(-1, keepdim=True)
-        gkg = -cs * G.kg[:, :, j] + acc
-        gswk.append((gkg * G.kg[:, :, j]).sum((2, 3)))
-        gkp[:, :, :, j], rk = G.frame_bwd(1, gkg, j, G.sw.reshape(1, H, 1, 1, 1))
-        gvp[:, :, :, j], rv = G.frame_bwd(2, gvg, j, 1.0)
-        GRK[:, :, j] = rk + rv
-    gpz, gr = torch.zeros(B, L, L, CZ4), torch.zeros(B, L, 12)
-    for hh in range(H):               # the pair and rows kernels: heads in order
-        gpz += A[:, hh, :, :, None] * G.gopair[:, hh, :, None, :]
-        gr += GRQ[:, hh]
-        gr += GRK[:, hh]
-    gsw = (sum(gswq) + sum(gswk)) / G.sw
-    gkv = torch.cat([gk * G.s1, gv], -1).transpose(1, 2).reshape(B, L, 2 * H * C)
-    return (gq.transpose(1, 2).reshape(B, L, H * C) * G.s1, gkv, gqp, torch.cat([gkp, gvp], -1),
-            gr[..., :9], gr[..., 9:], GS * G.s2, gpz, gsw)
-
-
 def _close(got, want, name):
     for n, a, b in zip(NAMES, got, want):
         tol = TOL.get(n, 1e-4)
@@ -325,12 +247,6 @@ def test_two_kernel_schedule_matches_plain(B, L):
         kern = jax.jit(lambda a, c: P.fused_ipa2_bwd(*a, *c, interpret=True))(
             [tojax(x) for x in args], [tojax(x) for x in cots])
         _close(got, kern, f"L={L} vs JAX")
-
-
-def test_four_kernel_schedule_matches_plain():
-    """L = 100: four 32-row tiles, the last ragged."""
-    args, cots = _inputs(1, 100, seed=100)
-    _close(four_kernels(args, cots), cuda_ipa.ipa2_bwd_plain(*args, *cots), "L=100 vs plain")
 
 
 def _swizzle(addr):
@@ -360,7 +276,13 @@ def test_operand_maps():
     a = (q[g][8kk + q], 0, q[g][8kk + 4 + q], 0) and b = K[16w + 8t + g]
     [8kk + q], [8kk + 4 + q] gets, over kk < 8, d[e] = q_g . k_j for j =
     16w + 8t + 2q + e; the four warps' keys cover 0 .. 63 once, and the
-    reads of a warp fall on 32 distinct banks."""
+    reads of a warp fall on 32 distinct banks. (6) The pair kernel of L >
+    64 (16 rows, keys in chunks of 32): with a = (q[g][8kk + q], q[g + 8]
+    [8kk + q], q[g][8kk + 4 + q], q[g + 8][8kk + 4 + q]) and b = K[8w + g]
+    [8kk + q], [8kk + 4 + q], lane (g, q) of warp w gets d[2r + e] = q_(g +
+    8r) . k_j for j = 8w + 2q + e; the four warps cover the 16 x 32 (row,
+    key) pairs once, and a warp's reads of q and K fall on 32 distinct
+    banks."""
     def acc_pos(w, g, q, idx):   # row, column of accumulator entry idx
         j, r = divmod(idx, 4)
         return 16 * w + g + 8 * (r // 2), 8 * j + 2 * q + r % 2
@@ -435,3 +357,33 @@ def test_operand_maps():
         banks = {((16 * w + g) * LDR // 2 + q) % 32 for g in range(8) for q in range(4)}
         assert len(banks) == 32
     assert sorted(keys) == sorted(list(range(TQ)) * RB)
+
+    # (6) The pair kernel of L > 64: 16 rows (both halves of the M rows), a
+    # warp's eight keys of a 32-key chunk.
+    Q16, K32 = rng.normal(size=(16, C)), rng.normal(size=(32, C))
+    pairs = []
+    for w in range(4):
+        D = np.zeros((16, 8))
+        for kk in range(C // 16):
+            A, Bm = np.zeros((16, 16)), np.zeros((16, 8))
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                A[g, 2 * q:2 * q + 2] = pair(Q16, g, 8 * kk + q)                  # a[0]
+                A[g + 8, 2 * q:2 * q + 2] = pair(Q16, g + 8, 8 * kk + q)          # a[1]
+                A[g, 2 * q + 8:2 * q + 10] = pair(Q16, g, 8 * kk + 4 + q)         # a[2]
+                A[g + 8, 2 * q + 8:2 * q + 10] = pair(Q16, g + 8, 8 * kk + 4 + q)  # a[3]
+                Bm[2 * q:2 * q + 2, g] = pair(K32, 8 * w + g, 8 * kk + q)         # b[0]
+                Bm[2 * q + 8:2 * q + 10, g] = pair(K32, 8 * w + g, 8 * kk + 4 + q)  # b[1]
+            D += A @ Bm
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            for u in range(4):          # d[u]: row g + 8 (u // 2), key 8w + 2q + u % 2
+                r, j = g + 8 * (u // 2), 8 * w + 2 * q + u % 2
+                pairs.append((r, j))
+                want_rj = Q16[r] @ K32[j]
+                assert abs(D[r, 2 * q + u % 2] - want_rj) <= 1e-9 * (1 + abs(want_rj))
+        for rows in ((g for g in range(8)), (g + 8 for g in range(8))):
+            banks = {(r * LDR // 2 + q) % 32 for r in rows for q in range(4)}
+            assert len(banks) == 32
+        assert len({((8 * w + g) * LDR // 2 + q) % 32 for g in range(8) for q in range(4)}) == 32
+    assert sorted(pairs) == [(r, j) for r in range(16) for j in range(32)]
