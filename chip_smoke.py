@@ -13,8 +13,9 @@ Phases, each on its own lines:
    kernels of its backward (K8: the tile and pair kernels of L <= 64, the
    query, key and pair kernels of L > 64), of the three kernels of the
    EdgeTransition backward (K4) and of the distance kernels (K3; K5's main
-   and reduction kernels), none of which may spill; K8's, K3's and K5's
-   launches a call, and K3's and K5's blocks an SM.
+   and reduction kernels) and of the four variants of the v1 attention
+   core's tensor-core kernel (K9), none of which may spill; K8's, K3's and
+   K5's launches a call, and K3's and K5's blocks an SM.
 2. kernels: each kernel's wrapper on the card against its plain PyTorch
    version, at the sampler's flagship shapes (B=64, L=64, c_s 128, c_z 64)
    and at a ragged L, with the max abs error beside the tolerance and the
@@ -33,9 +34,11 @@ Phases, each on its own lines:
    160 and 256 (each timed) and at (B, L) = (3, 37), (1, 1), (2, 100), (3,
    65), with its launches a call (2 at L <= 64, 3 above). The int8
    EdgeTransition (K6) at B=64, L=64 with the readout on and off and at
-   L=40. The v1 IPA attention core (K9), through both of its wrappers, at
-   B=64, L=64 at the model's widths in bf16 and at the JAX tests' widths in
-   fp32 at L=40 and 256.
+   L=40. The v1 IPA attention core (K9), through both of its wrappers: bf16
+   at the model's widths (the tensor-core kernel) at B=64 and L = 64, 24,
+   100, 128, 256 and at B=2, L=1, timed on the device at L = 64, 128, 256;
+   fp32 at the JAX tests' widths (the fp32 kernel) at L=40 and 256; each
+   call one launch of its kernel (the profiler's device kernels).
 3. oracle: the bf16 sampler with the kernels, weights of the trained nb=6
    reference oracle (``tests/golden/sampler_stats_trained6.npz``) loaded
    strict, its 64x24 batch for its 25 steps and 3 seeds pooled; AAR and
@@ -269,6 +272,20 @@ def phase_setup():
                      f"a block")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"ipa2 K7 ({tag}) spills ({spill})")
+    # K9: the tensor-core kernel's four variants (the bias tile copied as rows
+    # or read in place; one key tile or several); no spills.
+    variants = [(re.search(r"ipa1_hopper_kernelILb(\d)ELb(\d)E", entry), use, spill)
+                for entry, use, spill in ptxas_entries(native.BUILD_LOG.get("ipa1", ""))
+                if "ipa1_hopper_kernel" in entry]
+    check(len(variants) == 4 and all(m for m, _, _ in variants),
+          "ipa1: ptxas -v reported no entry for each K9 variant")
+    smem = native.function("ipa1", "ipa1_smem_bytes", [])()
+    for m, use, spill in variants:
+        tag = f"bias {('in place', 'rows')[int(m[1])]}, {('L <= 64', 'L > 64')[int(m[2])]}"
+        say("setup", f"ipa1 K9 ({tag}): {use}; {spill}; {smem} bytes of dynamic shared memory "
+                     f"a block")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"ipa1 K9 ({tag}) spills ({spill})")
     # K8: the tile and pair kernels of L <= 64 and the query, key and pair
     # kernels of L > 64; no spills.
     kinds = {"tile": 0, "pairs": 1, "query": 2, "key": 3, "pair": 4}
@@ -361,6 +378,7 @@ def phase_kernels():
                                         ipa2_bwd_bound_ms, ipa_v1_bound_ms)
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.data.synthetic import make_batch
+    from pepflowww_torch.kernel_times import device_ms
     from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa, cuda_ipa1
 
     dev = torch.device("cuda", 0)
@@ -579,29 +597,51 @@ def phase_kernels():
                 if with_ro:
                     rows["edge_transition_int8"] = row
 
-    # K9: the v1 IPA attention core, both wrappers; no model path uses it.
+    # K9: the v1 IPA attention core through both wrappers; no model path uses
+    # it. bf16 at the model's widths runs the tensor-core kernel (B=64 at L =
+    # 64, 24, 100, 128, 256; B=2 at L=1), fp32 at the JAX tests' widths the
+    # fp32 kernel (B=64 at L = 40, 256). Each call launches its one kernel
+    # once (the profiler's device kernels); times on the device, the calls
+    # queued behind a sleep (kernel_times.device_ms: the wrapper's host work
+    # would set the per-call time at L=64).
     checks = 0
-    for widths, dt, L in (("model", torch.bfloat16, 64), ("test", torch.float32, 40),
-                          ("test", torch.float32, 256)):
-        args = _ipa1_inputs(64, L, widths, dt, dev, seed=1000 + L)
+    k9_us = {}
+    for widths, dt, B, L in (("model", torch.bfloat16, 64, 64), ("model", torch.bfloat16, 64, 24),
+                             ("model", torch.bfloat16, 64, 100), ("model", torch.bfloat16, 64, 128),
+                             ("model", torch.bfloat16, 64, 256), ("model", torch.bfloat16, 2, 1),
+                             ("test", torch.float32, 64, 40), ("test", torch.float32, 64, 256)):
+        args = _ipa1_inputs(B, L, widths, dt, dev, seed=1000 + L)
         tol = IPA_TOL if dt == torch.bfloat16 else IPA1_FP32_TOL
+        kernel = "ipa1_hopper_kernel" if widths == "model" else "ipa1_fwd_kernel"
         want = cuda_ipa1.ipa_attention_plain(*args)
         for fn in (cuda_ipa1.fused_ipa_attention, cuda_ipa1.fused_ipa_attention_bh):
-            tag = f"ipa1 {fn.__name__} B=64 L={L} {widths} widths {str(dt)[6:]}"
+            tag = f"ipa1 {fn.__name__} B={B} L={L} {widths} widths {str(dt)[6:]}"
             got = _launch_once("ipa1", lambda: fn(*args), tag)
             checks += 1
             err = max(compare(f"{tag} [{n}]", a, b, tol)
                       for n, a, b in zip(("o", "o_pt", "o_pair"), got, want))
-        if widths == "model":
-            rows["ipa1"] = _time_row(f"ipa1 B=64 L={L} model widths bf16",
-                                     lambda: cuda_ipa1.fused_ipa_attention(*args),
-                                     lambda: cuda_ipa1.ipa_attention_plain(*args),
-                                     ipa_v1_bound_ms(64, L), err)
-        else:
+            names = [n for n in _device_kernels(lambda: fn(*args)) if "ipa1" in n]
+            checks += 1
+            check(len(names) == 1 and kernel in names[0],
+                  f"{tag}: launched {names}, not one {kernel}")
+        say("kernels", f"ipa1 B={B} L={L} {widths} widths: one {kernel} launch a call")
+        if widths == "model" and B == 64 and L in (64, 128, 256):
+            row = _time_row(f"ipa1 B=64 L={L} model widths bf16",
+                            lambda: cuda_ipa1.fused_ipa_attention(*args),
+                            lambda: cuda_ipa1.ipa_attention_plain(*args),
+                            ipa_v1_bound_ms(64, L), err, timer=device_ms)
+            k9_us[L] = 1e3 * row["ms"]
+            if L == 64:
+                rows["ipa1"] = row
+        elif widths == "test":
             _time_row(f"ipa1 B=64 L={L} test widths fp32",
                       lambda: cuda_ipa1.fused_ipa_attention(*args),
                       lambda: cuda_ipa1.ipa_attention_plain(*args),
-                      ipa_v1_bound_ms(64, L, H=4, C=32, Pq=4, Pv=6, cz4=8, in_bytes=4), err)
+                      ipa_v1_bound_ms(64, L, H=4, C=32, Pq=4, Pv=6, cz4=8, in_bytes=4), err,
+                      timer=device_ms)
+    say("kernels", "ipa1 (K9) device time a call, model widths bf16, B=64: "
+                   + ", ".join(f"L={L} {us:.1f} us ({1e5 * ipa_v1_bound_ms(64, L)[0] / us:.1f}% "
+                               f"of its bound)" for L, us in k9_us.items()))
     rows["ipa1"]["checks"] = checks
     return rows
 
@@ -685,6 +725,21 @@ def _launch_once(name, call, tag):
     return out
 
 
+def _device_kernels(call) -> list:
+    """The names of the device kernels that one call of `call` launches
+    (torch.profiler), in order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(events), "the profiler recorded no device kernels")
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
 def compare_grads(tag, names, got, want, again) -> float:
     """Each gradient within BWD_REL of the plain gradient's norm and
     bit-identical across two calls; returns the largest max abs error."""
@@ -705,10 +760,12 @@ def compare_grads(tag, names, got, want, again) -> float:
     return worst
 
 
-def _time_row(tag, call, plain, bound, err) -> dict:
-    """The kernel's, the plain version's and the bound's times."""
-    k_ms = cuda_ms(call)
-    p_ms = cuda_ms(plain, reps=3, warmup=1)
+def _time_row(tag, call, plain, bound, err, timer=None) -> dict:
+    """The kernel's, the plain version's and the bound's times (`timer`:
+    cuda_ms unless given)."""
+    timer = timer or cuda_ms
+    k_ms = timer(call)
+    p_ms = timer(plain, reps=3, warmup=1)
     bound_ms, by = bound
     say("kernels", f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                    f"{bound_ms:.4f} ms by {by} ({100 * bound_ms / k_ms:.1f}% of bound)")

@@ -61,7 +61,10 @@
 // sampler's layout, training's, and strided loads for any other; each for
 // one key tile (L <= 64) or several. Built with -DIPA2_STAMPS (a
 // diagnostic build, pepflowww_torch/ipa2_stages.py), the kernel records
-// the global timer at its stage boundaries (ipa2_forward_stamps).
+// the global timer at its stage boundaries (ipa2_forward_stamps). The
+// pieces of steps 2-5 and the shared-memory layout up to the frames are in
+// ipa2_tile.cuh (namespace ipa2::fwd), shared with the v1 attention core
+// (ipa1.cu, K9).
 
 #include "ipa2_tile.cuh"
 
@@ -69,32 +72,12 @@ namespace {
 
 using namespace ipa2;
 using namespace hopper;
+using namespace ipa2::fwd;
 
-constexpr int LDB = TQ + 8;              // bf16 row stride of the bias tile
-constexpr int LDA = TQ + 8;              // fp32 row stride of the weights
-constexpr int LDK = 28;                  // fp32 row stride of the key points
-constexpr int LDV = 40;                  // fp32 row stride of the value points: halves at 0, 20
-constexpr int CHUNK = 8;                 // keys of a pair chunk
-constexpr int NCHUNK = TQ / CHUNK;
-constexpr int SLOT = 8 * NTH * 16;       // one chunk: eight 16-byte items a thread
-
-enum PairMode { PZ_J = 0, PZ_D = 1, PZ_ANY = 2 };
-
-constexpr int OFF_Q = 0;                           // bf16 panels [2][64][128 B]
-constexpr int OFF_V = OFF_Q + TILE_BYTES;          // bf16 panels [2][64][128 B]
-constexpr int OFF_K = OFF_V + TILE_BYTES;          // bf16 panels [2][64][128 B]
-constexpr int OFF_BIAS = OFF_K + TILE_BYTES;       // bf16 [64][LDB]
-constexpr int OFF_A = OFF_K;                       // f32 [64][LDA], over K and the bias
-constexpr int OFF_KG = OFF_BIAS + TQ * LDB * 2;    // f32 [64][LDK]
-constexpr int OFF_VG = OFF_KG + TQ * LDK * 4;      // f32 [64][LDV]; at the end the point sums
-constexpr int OFF_KSQ = OFF_VG + TQ * LDV * 4;     // f32 [64]
-constexpr int OFF_MB = OFF_KSQ + TQ * 4;           // f32 [64]
-constexpr int OFF_RT = OFF_MB + TQ * 4;            // f32 [64][12]: R, t of the query rows
+constexpr int OFF_RT = OFF_OWN;                    // f32 [64][12]: R, t of the query rows
 constexpr int OFF_RK = OFF_RT + TQ * 12 * 4;       // f32 [64][12]: R, t of the key rows (L > 64)
 constexpr int OFF_PZ = OFF_RK + TQ * 12 * 4;       // [2 slots][8 items][128 threads][16 B]
 constexpr int SMEM_BYTES = OFF_PZ + 2 * SLOT;
-static_assert(TQ * LDA * 4 <= OFF_KG - OFF_A, "the weights fit over K and the bias tile");
-static_assert(OFF_V % 1024 == 0 && OFF_K % 1024 == 0, "swizzled panels on 1024-byte boundaries");
 static_assert(2 * (SMEM_BYTES + 1024) <= 233472, "two blocks an SM");
 
 #ifdef IPA2_STAMPS
@@ -113,28 +96,6 @@ struct FwdArgs {
   bool qp_vec, kvp_vec;
   float eps, s1, s2;
 };
-
-// One row's running max and sum of exp (m, l) updated with its 16 logits
-// in this thread (accumulator entries 4j + 2 half + 0..1) and the other
-// three of its quad.
-__device__ __forceinline__ void row_update(const float (&s)[32], int half, float& m, float& l) {
-  float tm = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) tm = fmaxf(tm, fmaxf(s[4 * j + 2 * half], s[4 * j + 2 * half + 1]));
-  tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, 1));
-  tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, 2));
-  const float mn = fmaxf(m, tm);
-  float sum = 0.f;
-  if (mn != -INFINITY) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      sum += expf(s[4 * j + 2 * half] - mn) + expf(s[4 * j + 2 * half + 1] - mn);
-  }
-  sum += __shfl_xor_sync(FULL, sum, 1);
-  sum += __shfl_xor_sync(FULL, sum, 2);
-  l = (m == -INFINITY ? 0.f : l * expf(m - mn)) + sum;
-  m = mn;
-}
 
 // MULTI: L > 64 (several key tiles, two passes); a separate instantiation,
 // so that the one-tile path of the sampler's L is compiled for its own
@@ -217,166 +178,23 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
     if (ah == 0) {
       float kg[P3Q];
       to_global<PQ>(rk, rk_rows + ar * 12, kg, sw);
-      float sq = 0.f;
-#pragma unroll
-      for (int x = 0; x < P3Q; ++x) sq = fmaf(kg[x], kg[x], sq);
-      float4* dst = reinterpret_cast<float4*>(kg_s + ar * LDK);
-#pragma unroll
-      for (int u = 0; u < P3Q / 4; ++u)
-        dst[u] = make_float4(kg[4 * u], kg[4 * u + 1], kg[4 * u + 2], kg[4 * u + 3]);
-      ksq_s[ar] = sq;
+      store_key_points(kg_s, ksq_s, ar, kg);
     } else if (values) {
       float vg[P3V];
       to_global<PV>(rk, rk_rows + ar * 12, vg, 1.f);
-      float2* dst = reinterpret_cast<float2*>(vg_s + ar * LDV);
-#pragma unroll
-      for (int u = 0; u < 9; ++u) {
-        dst[u] = make_float2(vg[2 * u], vg[2 * u + 1]);
-        dst[10 + u] = make_float2(vg[18 + 2 * u], vg[19 + 2 * u]);
-      }
+      store_value_points(vg_s, ar, vg);
     }
   };
 
-  // The logits of the loaded key tile in the accumulator layout: entry
-  // 4j + e (e < 2) is row ra, key 8j + 2q + e; 4j + 2 + e row rb.
+  // The logits of the loaded key tile in the accumulator layout.
   auto logits = [&](float (&s)[32], int j0, int nk) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk)
-      mma_ss_n64(s, desc_sw128(q_s + (kk >> 2) * PANEL + (kk & 3) * 32),
-                 desc_sw128(k_s + (kk >> 2) * PANEL + (kk & 3) * 32), kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c0 = 8 * j + 2 * q;
-      float2 ba = make_float2(0.f, 0.f), bb = make_float2(0.f, 0.f);
-      if (BIAS_ROWS) {
-        ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_s + ra * LDB + c0));
-        bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_s + rb * LDB + c0));
-      } else {
-        if (c0 < nk) {
-          ba.x = bf2f(bias_a[(long long)(j0 + c0) * stb[3]]);
-          bb.x = bf2f(bias_b[(long long)(j0 + c0) * stb[3]]);
-        }
-        if (c0 + 1 < nk) {
-          ba.y = bf2f(bias_a[(long long)(j0 + c0 + 1) * stb[3]]);
-          bb.y = bf2f(bias_b[(long long)(j0 + c0 + 1) * stb[3]]);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = c0 + e;
-        if (c < nk) {
-          const float4* kr = reinterpret_cast<const float4*>(kg_s + c * LDK);
-          float pa = 0.f, pb = 0.f, pa2 = 0.f, pb2 = 0.f;   // two chains a row
-#pragma unroll
-          for (int u = 0; u < P3Q / 4; ++u) {
-            const float4 k4 = kr[u];
-            pa = fmaf(qga[4 * u], k4.x, pa);
-            pa2 = fmaf(qga[4 * u + 1], k4.y, pa2);
-            pa = fmaf(qga[4 * u + 2], k4.z, pa);
-            pa2 = fmaf(qga[4 * u + 3], k4.w, pa2);
-            pb = fmaf(qgb[4 * u], k4.x, pb);
-            pb2 = fmaf(qgb[4 * u + 1], k4.y, pb2);
-            pb = fmaf(qgb[4 * u + 2], k4.z, pb);
-            pb2 = fmaf(qgb[4 * u + 3], k4.w, pb2);
-          }
-          pa += pa2;
-          pb += pb2;
-          const float ksq = ksq_s[c], mb = mb_s[c];
-          s[4 * j + e] = s[4 * j + e] * s1 + (e ? ba.y : ba.x) * s2 -
-                         0.5f * (qsqa + ksq - 2.f * pa) + mb;
-          s[4 * j + 2 + e] = s[4 * j + 2 + e] * s1 + (e ? bb.y : bb.x) * s2 -
-                             0.5f * (qsqb + ksq - 2.f * pb) + mb;
-        } else {
-          s[4 * j + e] = -INFINITY;
-          s[4 * j + 2 + e] = -INFINITY;
-        }
-      }
-    }
+    qk_product(s, q_s, k_s);
+    logit_terms<BIAS_ROWS>(s, j0, nk, q, ra, rb, bias_s, bias_a, bias_b, stb[3], kg_s, ksq_s,
+                           mb_s, qga, qgb, qsqa, qsqb, s1, s2);
   };
-
-  // The ring's slots (byte offsets): two of their own, then, once the tile's
-  // products have read them, Q's panels (for L <= 64 only: the query tile
-  // stays for later key tiles otherwise) and V's.
-  auto slot_at = [&](int k, bool single) {
-    return k < 2 ? OFF_PZ + k * SLOT : (k == 2 && single ? OFF_Q : OFF_V);
-  };
-
-  // The pair chunk kc of key tile j0 into the slot at `off`: this thread's
-  // eight 16-byte items (sampler: keys 8kc..8kc+7 of channel plane 8ah + u;
-  // training: channels 8ah..8ah+7 of key 8kc + u). Keys past nk and rows
-  // past nq are zero-filled; a chunk wholly past nk is not copied.
+  // The pair chunk kc of key tile j0 into the slot at `off` (pair ring).
   auto copy_pair = [&](int kc, int off, int j0, int nk) {
-    if (PZ == PZ_ANY || CHUNK * kc >= nk) return;
-    const uint32_t dst = base + off + tid * 16;
-    const int jc = j0 + CHUNK * kc;
-    const bf16* zrow = opaque(pz_row);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      bool valid = ar < nq;
-      const bf16* src;
-      if (PZ == PZ_J) {
-        src = zrow + jc + (long long)(8 * ah + u) * stz[3];
-      } else {
-        valid = valid && CHUNK * kc + u < nk;
-        src = zrow + (long long)(jc + u) * stz[2] + 8 * ah;
-      }
-      cp_async16(dst + u * NTH * 16, valid ? src : a.pz, valid);
-    }
-  };
-
-  // Row ar's weights of chunk kc against the value points (columns 18ah ..
-  // 18ah + 17) and the pair channels 8ah .. 8ah + 7.
-  auto consume = [&](int kc, int off, int j0, int nk, float (&pacc)[18], float (&zacc)[8]) {
-    const uint4* zs = reinterpret_cast<const uint4*>(smem + off) + tid;
-    const float4 a0 = *reinterpret_cast<const float4*>(a_s + ar * LDA + CHUNK * kc);
-    const float4 a1 = *reinterpret_cast<const float4*>(a_s + ar * LDA + CHUNK * kc + 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const float* vr = vg_s + (CHUNK * kc + u) * LDV + 20 * ah;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float4 v = reinterpret_cast<const float4*>(vr)[x];
-        pacc[4 * x] = fmaf(av[u], v.x, pacc[4 * x]);
-        pacc[4 * x + 1] = fmaf(av[u], v.y, pacc[4 * x + 1]);
-        pacc[4 * x + 2] = fmaf(av[u], v.z, pacc[4 * x + 2]);
-        pacc[4 * x + 3] = fmaf(av[u], v.w, pacc[4 * x + 3]);
-      }
-      const float2 v = reinterpret_cast<const float2*>(vr)[8];
-      pacc[16] = fmaf(av[u], v.x, pacc[16]);
-      pacc[17] = fmaf(av[u], v.y, pacc[17]);
-    }
-    if (PZ == PZ_J) {
-#pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        float z[8];
-        unpack8(zs[d * NTH], z);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) zacc[d] = fmaf(av[u], z[u], zacc[d]);
-      }
-    } else if (PZ == PZ_D) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        float z[8];
-        unpack8(zs[u * NTH], z);
-#pragma unroll
-        for (int d = 0; d < 8; ++d) zacc[d] = fmaf(av[u], z[d], zacc[d]);
-      }
-    } else if (ar < nq) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int j = CHUNK * kc + u;
-        if (j < nk) {
-          const bf16* zr = pz_row + (long long)(j0 + j) * stz[2] + (long long)(8 * ah) * stz[3];
-#pragma unroll
-          for (int d = 0; d < 8; ++d) zacc[d] = fmaf(av[u], bf2f(zr[d * stz[3]]), zacc[d]);
-        }
-      }
-    }
+    fwd::copy_pair<PZ>(base, kc, off, j0, nk, nq, tid, ar, ah, pz_row, stz, a.pz);
   };
 
   // The points' and frames' loads go first, so that they do not queue
@@ -400,9 +218,9 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
   } else {
     copy_keys(0, nk0, true);
     mark(2);
-    copy_pair(0, slot_at(0, true), 0, nk0);
+    copy_pair(0, slot_at(0, true, OFF_PZ), 0, nk0);
     cp_async_commit();
-    copy_pair(1, slot_at(1, true), 0, nk0);
+    copy_pair(1, slot_at(1, true, OFF_PZ), 0, nk0);
     cp_async_commit();
   }
   mark(3);
@@ -437,40 +255,8 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
   key_store(rk0, rk_rows, one_tile);
   mark(5);
 
-  // o: lanes q, q ^ 1 trade a pair so that each stores four contiguous
-  // channels of one row (even q row ra, odd q row rb).
-  auto store_o = [&](const float (&o0)[32], const float (&o1)[32]) {
-    const bool odd = q & 1;
-    const int i = i0 + (odd ? rb : ra);
-    float* orow = a.o + ((long long)b * L + (i < L ? i : 0)) * HC + h * C + 2 * (q & 2);
-    auto put = [&](const float (&o)[32], float* dst) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float y0 = __shfl_xor_sync(FULL, odd ? o[4 * j] : o[4 * j + 2], 1);
-        const float y1 = __shfl_xor_sync(FULL, odd ? o[4 * j + 1] : o[4 * j + 3], 1);
-        const float4 v = odd ? make_float4(y0, y1, o[4 * j + 2], o[4 * j + 3])
-                             : make_float4(o[4 * j], o[4 * j + 1], y0, y1);
-        if (i < L) *reinterpret_cast<float4*>(dst + 8 * j) = v;
-      }
-    };
-    put(o0, orow);
-    put(o1, orow + 64);
-  };
-  // The partial o of rows ra, rb back from the output (rows past the edge
-  // read row i0), in the accumulator layout.
-  auto load_o = [&](float (&o0)[32], float (&o1)[32]) {
-    const float* pa = a.o + ((long long)b * L + i0 + (ra < nq ? ra : 0)) * HC + h * C + 2 * q;
-    const float* pb = a.o + ((long long)b * L + i0 + (rb < nq ? rb : 0)) * HC + h * C + 2 * q;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 x0 = *reinterpret_cast<const float2*>(pa + 8 * j);
-      const float2 x1 = *reinterpret_cast<const float2*>(pb + 8 * j);
-      const float2 y0 = *reinterpret_cast<const float2*>(pa + 64 + 8 * j);
-      const float2 y1 = *reinterpret_cast<const float2*>(pb + 64 + 8 * j);
-      o0[4 * j] = x0.x, o0[4 * j + 1] = x0.y, o0[4 * j + 2] = x1.x, o0[4 * j + 3] = x1.y;
-      o1[4 * j] = y0.x, o1[4 * j + 1] = y0.y, o1[4 * j + 2] = y1.x, o1[4 * j + 3] = y1.y;
-    }
-  };
+  // Row i of this head's o in o_feats' layout is at o_rows + i * HC.
+  float* const o_rows = a.o + (long long)b * L * HC + h * C;
 
   // One key tile of pass 2 (the only pass for L <= 64): its copies are in
   // flight and its points stored. The logits, the weights (with `single`
@@ -486,88 +272,29 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
     query_points_again();
     float s[32];
     logits(s, j0, nk);
-    if (single) {
-      ma = mb = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ma = fmaxf(ma, fmaxf(s[4 * j], s[4 * j + 1]));
-        mb = fmaxf(mb, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, 1));
-      ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, 2));
-      mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, 1));
-      mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, 2));
-      la = lb = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[4 * j + e] = ma == -INFINITY ? 0.f : expf(s[4 * j + e] - ma);
-          s[4 * j + 2 + e] = mb == -INFINITY ? 0.f : expf(s[4 * j + 2 + e] - mb);
-          la += s[4 * j + e];
-          lb += s[4 * j + 2 + e];
-        }
-      }
-      la += __shfl_xor_sync(FULL, la, 1);
-      la += __shfl_xor_sync(FULL, la, 2);
-      lb += __shfl_xor_sync(FULL, lb, 1);
-      lb += __shfl_xor_sync(FULL, lb, 2);
-      const float inva = la > 0.f ? 1.f / la : 0.f, invb = lb > 0.f ? 1.f / lb : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[4 * j + e] *= inva;
-          s[4 * j + 2 + e] *= invb;
-        }
-      }
-    } else {
-      const float inva = la > 0.f ? 1.f / la : 0.f, invb = lb > 0.f ? 1.f / lb : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[4 * j + e] = ma == -INFINITY ? 0.f : expf(s[4 * j + e] - ma) * inva;
-          s[4 * j + 2 + e] = mb == -INFINITY ? 0.f : expf(s[4 * j + 2 + e] - mb) * invb;
-        }
-      }
-    }
+    if (single)
+      softmax_tile(s, ma, la, mb, lb);
+    else
+      softmax_from(s, ma, la, mb, lb);
     mark(7);
 
-    // o += bf16(a).V, A from registers, V MN-major; after the first key
-    // tile o is taken back from the output, where the tile before left it
-    // (so that no accumulator stays live across tiles).
+    // o += bf16(a).V; after the first key tile o is taken back from the
+    // output, where the tile before left it (so that no accumulator stays
+    // live across tiles).
     float o0[32], o1[32];
-    if (t > 0) load_o(o0, o1);
+    if (t > 0) load_o(o0, o1, o_rows, HC, i0, nq, q, ra, rb);
     uint32_t ha[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) ha[k] = pack_bf16(s[2 * k], s[2 * k + 1]);
-    wgmma_fence();
-#pragma unroll
-    for (int st = 0; st < TQ / 16; ++st)
-      mma_rs_n64<1>(o0, &ha[4 * st], desc_sw128(v_s + st * 2048), st > 0 || t > 0);
-#pragma unroll
-    for (int st = 0; st < TQ / 16; ++st)
-      mma_rs_n64<1>(o1, &ha[4 * st], desc_sw128(v_s + PANEL + st * 2048), st > 0 || t > 0);
-    wgmma_commit();
+    av_issue(o0, o1, ha, s, v_s, t > 0);
     __syncthreads();   // all logits taken: K, the bias tile and, for L <= 64, Q are free
     const int nslot = single ? 4 : 3;
-    if (single) copy_pair(2, slot_at(2, true), j0, nk);
+    if (single) copy_pair(2, slot_at(2, true, OFF_PZ), j0, nk);
     if (single) cp_async_commit();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * q;
-      *reinterpret_cast<float2*>(a_s + ra * LDA + c) = make_float2(s[4 * j], s[4 * j + 1]);
-      *reinterpret_cast<float2*>(a_s + rb * LDA + c) = make_float2(s[4 * j + 2], s[4 * j + 3]);
-    }
-    wgmma_wait_all();
-    fence_regs(o0);
-    fence_regs(o1);
-    fence_regs(ha);
+    store_weights(a_s, s, q, ra, rb);
+    av_wait(o0, o1, ha);
     __syncthreads();   // the weights and the value points are complete; V has been read
-    copy_pair(nslot - 1, slot_at(nslot - 1, single), j0, nk);
+    copy_pair(nslot - 1, slot_at(nslot - 1, single, OFF_PZ), j0, nk);
     cp_async_commit();
-    store_o(o0, o1);   // its stores overlap the aggregations
+    store_o(o0, o1, o_rows, HC, i0, L, q, ra, rb);   // its stores overlap the aggregations
     mark(8);
 
     if (t == 0) {
@@ -576,14 +303,8 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
 #pragma unroll
       for (int d = 0; d < 8; ++d) zacc[d] = 0.f;
     }
-    for (int kc = 0; kc < NCHUNK; ++kc) {
-      // Chunk kc has landed; the nslot - 1 chunks after it may still fly.
-      if (single) cp_async_wait_group<3>(); else cp_async_wait_group<2>();
-      const int off = slot_at(kc % nslot, single);
-      if (CHUNK * kc < nk) consume(kc, off, j0, nk, pacc, zacc);
-      if (kc + nslot < NCHUNK) copy_pair(kc + nslot, off, j0, nk);
-      cp_async_commit();
-    }
+    pair_sums<PZ>(base, smem, OFF_PZ, single, j0, nk, nq, tid, ar, ah, a_s, vg_s, pz_row, stz,
+                  a.pz, pacc, zacc);
     mark(9);
     __syncthreads();   // before the next tile's copies, or the point sums, overwrite the tiles
   };
@@ -662,9 +383,9 @@ __global__ void __launch_bounds__(NTH) ipa2_fwd_kernel(const FwdArgs a) {
       key_fetch(rk, j0, nk, true);
       fetch_frames(f, a.r9, a.t, a.maskb, (long long)b * L + j0, nk, tid);
       copy_keys(j0, nk, true);
-      copy_pair(0, slot_at(0, false), j0, nk);
+      copy_pair(0, slot_at(0, false, OFF_PZ), j0, nk);
       cp_async_commit();
-      copy_pair(1, slot_at(1, false), j0, nk);
+      copy_pair(1, slot_at(1, false, OFF_PZ), j0, nk);
       cp_async_commit();
       store_frames(f, rk_s, mb_s, tid);
       __syncthreads();

@@ -18,10 +18,11 @@ channels):
 and returns o (B, H, L, C), o_pt (B, H, L, 3·Pv) and o_pair (B, H, L, CZ4),
 all float32. :func:`fused_ipa_attention` and :func:`fused_ipa_attention_bh`
 are the JAX package's two grid variants of one function; on the card both
-run the one kernel (csrc/ipa1.cu), which takes the model's widths (C 128,
+make one launch of csrc/ipa1.cu, which takes the model's widths (C 128,
 Pq 8, Pv 12, CZ4 16) and the JAX tests' (C 32, Pq 4, Pv 6, CZ4 8), q, k,
 v, bias and pair_z in one dtype (float32 or bfloat16), and raises on
-anything else. :class:`IPAAttentionFn` runs it under autograd; its backward
+anything else: bf16 at the model's widths runs its tensor-core kernel
+(K7's attention core on ``wgmma``), everything else its fp32 kernel. :class:`IPAAttentionFn` runs it under autograd; its backward
 recomputes through :func:`ipa_attention_plain`, as the JAX ``_bwd``
 differentiates the reference, so on the card the backward is plain PyTorch
 ops (there is no TPU backward kernel to port). No model path calls these,

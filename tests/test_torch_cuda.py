@@ -322,9 +322,16 @@ def ipa1_inputs(dev, B, L, widths, dtype, seed=0):
 
 @pytest.mark.parametrize("widths,dtype,L", [("model", torch.bfloat16, 64),
                                             ("test", torch.float32, 40),
-                                            ("test", torch.float32, 256)])
+                                            ("test", torch.float32, 256),
+                                            ("model", torch.bfloat16, 1),
+                                            ("model", torch.bfloat16, 24),
+                                            ("model", torch.bfloat16, 100),
+                                            ("model", torch.bfloat16, 256)])
 def test_ipa1_kernel_matches_plain(dev, widths, dtype, L):
-    """K9 through both wrappers (the JAX package's two grid variants)."""
+    """K9 through both wrappers (the JAX package's two grid variants): bf16
+    at the model's widths runs the tensor-core kernel (one key tile at L =
+    1, 24, 64; a logits-only first pass at L = 100, 256; the bias read in
+    place where L % 8 != 0), fp32 at the JAX tests' widths the fp32 one."""
     args = ipa1_inputs(dev, 2, L, widths, dtype, seed=L)
     atol, rtol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-3, 1e-4)
     want = cuda_ipa1.ipa_attention_plain(*args)
