@@ -86,6 +86,33 @@ Phases, each on its own lines:
    PDBs, and peptides/s per bucket. Then the port bench's measurement
    (``pepflowww_torch.bench``) at L64_B64 with one timed run, and the keys
    of its line.
+7. train data: a PepMerge-style training directory of 66 complexes (33 in
+   each of the buckets 64 and 128, peptides of 3-25 residues, three pocket
+   residues of one 128-bucket complex without side chains) and a
+   validation directory of 40 (20 in each of the buckets 48 and 160),
+   preprocessed into ``chiprun_out/train_cache`` with an exclusion file
+   naming one training id of each bucket (they must be missing: 32 a
+   bucket stay). The train CLI (``pepflowww_torch.train.main``) in-process
+   on the card with the production profile, B=32, 12 iterations,
+   validation every 6 (two ragged batches of 20) and a log line every 2,
+   with ``--profile_dir`` (a trace with device kernels); then ``--resume``
+   for 2 more iterations from iteration 13; then the same for the
+   fused-IPA profile. Each run: finite losses, ``val it 6`` and ``val it
+   12``, checkpoints 6 and 12, ``commit.txt``, and launches equal to the
+   steps times a step's (K1 5, K4 5, K3 1, K5 1; K7 6 and K8 6 fused) plus
+   the validation forwards times a forward's (K1 5, K3 1; K7 6 fused). The
+   kernel step's gradients against the plain step on the loader's real
+   128-bucket batch (padding rows, partial atom masks) in both profiles.
+   Printed, not gated: ms/step, samples/s and peak memory per bucket, and
+   the padding comparison in one call: the loader's bucketed batches
+   against the same items in unbucketed batches padded to their longest
+   item rounded up to 8 (the reference's rule), with the padding waste
+   (padded / real - 1), 10 training steps each in turns.
+8. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
+   samples (6 complexes x 32 PDBs) against its structures, with ``--tools
+   ss`` (the Ramachandran fallback) and ``--tools auto``: 192 rows with a
+   finite ``ss_recovery``, every absent tool recorded as unavailable, the
+   wall time, and no kernel launched.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition forward with the readout (K2) and the distance forward
@@ -152,6 +179,12 @@ DATA_TOL = {"node": 1e-6, "edge": 3e-3, "rot": 2e-2, "trans": 1.5e-2, "angles": 
 # (peptide, pocket) lengths of the data phase's complexes: padded to 32, 48,
 # 64, 96, 128 and 160; the L=160 one loses three side chains.
 DATA_SIZES = ((3, 25), (25, 18), (12, 48), (10, 80), (14, 106), (20, 135))
+# The train data phase's directories: (bucket, complexes) with peptides of
+# 3-25 residues; one complex of each training bucket is excluded, leaving 32
+# in each (one batch of the config's B=32); the validation split's batches
+# are ragged (20 of 32).
+TRAIN_SPEC = ((64, 33), (128, 33))
+VAL_SPEC = ((48, 20), (160, 20))
 SUMMARY_KEYS = {"num_complexes", "avg_best_rmsd", "avg_median_rmsd", "avg_mean_ca_rmsd",
                 "avg_mean_aar", "avg_mean_tm_score", "avg_best_tm", "success_rate_2A",
                 "success_rate_5A"}
@@ -912,12 +945,13 @@ class plain_versions:
 
 
 def phase_train(card: str, cfg, phase: str, want: dict, complex_=(12, 48, 64), descent=True,
-                timed_steps=20):
+                timed_steps=20, batch=None):
     """The training step of `cfg` at B=32 on synthetic complexes of
-    `complex_` = (peptide, pocket, padded length): launches per step, a
-    finite gradient for every parameter, the gradients against the same
-    step through the plain versions, with `descent` 30 Adam steps that must
-    lower the loss, and ms/step over `timed_steps` steps."""
+    `complex_` = (peptide, pocket, padded length), or on the device batch
+    `batch` where given: launches per step, a finite gradient for every
+    parameter, the gradients against the same step through the plain
+    versions, with `descent` 30 Adam steps that must lower the loss, and
+    ms/step over `timed_steps` steps."""
     import numpy as np
     import torch
 
@@ -933,8 +967,9 @@ def phase_train(card: str, cfg, phase: str, want: dict, complex_=(12, 48, 64), d
     tc = raw["train"]
     B, weights = int(tc["batch_size"]), dict(tc["loss_weights"])
     model = production_model(dev, cfg).train()
-    L = complex_[2]
-    batch, _ = main_path_batch(dev, B, seed=7, complex_=complex_)
+    if batch is None:
+        batch, _ = main_path_batch(dev, B, seed=7, complex_=complex_)
+    B, L = batch["aa"].shape
     noise = draw_noise(B, L, torch.Generator(device=dev).manual_seed(8), dev)
 
     def grads_of_one_backward():
@@ -1190,6 +1225,273 @@ def phase_data(card: str, prod):
     say("data", f"bench (L64_B64 only, one timed run): {json.dumps(line)}")
 
 
+def _bucket_sizes(seed: int, spec) -> list:
+    """(peptide, pocket) lengths: for each (bucket, n) of `spec`, n complexes
+    of 3-25-residue peptides whose total length lies above the bucket below
+    and at most `bucket`."""
+    import numpy as np
+
+    from pepflowww_torch.data.collate import DEFAULT_BUCKETS
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    for bucket, n in spec:
+        below = max([b for b in DEFAULT_BUCKETS if b < bucket], default=0)
+        for _ in range(n):
+            total, pep = int(rng.integers(below + 1, bucket + 1)), int(rng.integers(3, 26))
+            sizes.append((pep, total - pep))
+    return sizes
+
+
+def _train_cli(tag: str, config: str, argv: list, want: dict) -> tuple:
+    """`pepflowww_torch.train.main` in-process on the card; checks its
+    launches against `want` and its losses; returns (run directory, log
+    text, validation records)."""
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native, train
+
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train.main(["--config", config, *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    log = open(os.path.join(run, "log.txt")).read()
+    recs = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    train_recs = [r for r in recs if r["tag"] == "train"]
+    vals = [r for r in recs if r["tag"] == "val"]
+    check(bool(train_recs) and all(np.isfinite(r[k]) for r in recs for k in r
+                                   if k.endswith("loss")),
+          f"{tag}: a non-finite loss in {run}/metrics.jsonl")
+    say(tag, f"{run}: {len(vals)} validations, {wall:.1f} s; launches {launches}, expected "
+             f"{want}")
+    check(launches == want, f"{tag}: launched {launches}, expected {want}")
+    check(os.path.isfile(os.path.join(run, "commit.txt")), f"{tag}: no commit.txt in {run}")
+    say(tag, "losses " + ", ".join(f"it {r['step']} {r['loss']:.4f}" for r in train_recs)
+             + "; " + ", ".join(f"val it {r['step']} {r['loss']:.4f}" for r in vals))
+    return run, log, vals
+
+
+def phase_train_data(card: str, prod, ipa, ipa_yaml: str):
+    """The training data path on the card (phase 7)."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import constants as C
+    from pepflowww_torch import native
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate
+    from pepflowww_torch.data.dataset import DataLoader, PepDataset
+    from pepflowww_torch.data.synthetic import write_structure_dir
+    from pepflowww_torch.profile_sampler import production_model
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    phase = "train data"
+    dev = torch.device("cuda", 0)
+    structs, val_structs, cache, logs = (os.path.join(OUT_DIR, d) for d in (
+        "train_structs", "val_structs", "train_cache", "train_logs"))
+    for d in (structs, val_structs, cache, logs):
+        shutil.rmtree(d, ignore_errors=True)
+    ids = write_structure_dir(structs, sizes=_bucket_sizes(21, TRAIN_SPEC), seed=21)
+    val_ids = write_structure_dir(val_structs, sizes=_bucket_sizes(22, VAL_SPEC), seed=22)
+    n64 = TRAIN_SPEC[0][1]
+    excluded, stripped = [ids[0], ids[n64]], ids[n64 + 1]
+    names = os.path.join(OUT_DIR, "train_exclude.txt")
+    with open(names, "w") as f:
+        f.write("\n".join(excluded) + "\n")
+    cut = _strip_side_chains(os.path.join(structs, stripped, "pocket.pdb"))
+    check(len(cut) == 3, f"{phase}: found {cut} pocket residues with side chains to cut")
+    t0 = time.perf_counter()
+    ds = PepDataset(structs, cache, name="smoke_train", exclude_names_file=names)
+    val = PepDataset(val_structs, cache, name="smoke_val")
+    say(phase, f"preprocessed {len(ids)} training and {len(val_ids)} validation complexes "
+               f"({time.perf_counter() - t0:.1f} s, spawned pool) into {cache}")
+    check(ds.ids == [i for i in ids if i not in excluded] and val.ids == val_ids,
+          f"{phase}: the cache holds {len(ds)} training ids; the excluded {excluded} must be "
+          f"missing and every other id present")
+    say(phase, f"excluded {excluded}: missing from the cache, {len(ds)} training complexes")
+
+    B = int(prod_train_cfg()["batch_size"])
+    loader = DataLoader(ds, batch_size=B, shuffle=True, seed=int(prod_train_cfg()["seed"]))
+    plan = loader._batch_plan()
+    val_plan = DataLoader(val, batch_size=B, shuffle=False, drop_last=False)._batch_plan()
+    check(sorted(b for b, _ in plan) == [64, 128] and all(len(i) == B for _, i in plan),
+          f"{phase}: training plan {[(b, len(i)) for b, i in plan]}, expected one batch of "
+          f"{B} in each of the buckets 64 and 128")
+    check([(b, len(i)) for b, i in val_plan] == [(48, 20), (160, 20)],
+          f"{phase}: validation plan {[(b, len(i)) for b, i in val_plan]}")
+    say(phase, f"training plan an epoch {[(b, len(i)) for b, i in plan]}; validation plan "
+               f"{[(b, len(i)) for b, i in val_plan]} (ragged, drop_last off)")
+    # The loader's own host time (record reads, decompression, padding):
+    # the prefetch thread spends it beside each step.
+    t0 = time.perf_counter()
+    n_read = sum(1 for _ in DataLoader(ds, batch_size=B, shuffle=True, seed=1))
+    say(phase, f"loader on the host: {n_read} batches of B={B} in "
+               f"{1e3 * (time.perf_counter() - t0) / n_read:.3f} ms a batch (record reads, "
+               f"decompression, padding), on the prefetch thread beside the step")
+
+    zero = dict.fromkeys(native.SOURCES, 0)
+    per_step = {"edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+                "distance_embed_bwd": 1}
+    per_fwd = {"edge_transition": 5, "distance_embed": 1}
+
+    def want_of(step, fwd, steps, validations):
+        """Launches of `steps` training steps and of `validations` passes
+        over the validation plan."""
+        return {k: steps * step.get(k, 0) + validations * len(val_plan) * fwd.get(k, 0)
+                for k in zero}
+
+    common = ["--structure_dir", structs, "--dataset_dir", cache, "--dataset_name", "smoke_train",
+              "--val_dataset_name", "smoke_val", "--val_structure_dir", val_structs,
+              "--exclude_names", names, "--val_freq", "6", "--log_freq", "2", "--logdir", logs,
+              "--device", "cuda"]
+    profiles = (("production", os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), per_step,
+                 per_fwd),
+                ("fused IPA", ipa_yaml, {**per_step, "ipa2": 6, "ipa2_bwd": 6},
+                 {**per_fwd, "ipa2": 6}))
+    for name, config, step, fwd in profiles:
+        tag = f"{phase} {name}"
+        trace = os.path.join(OUT_DIR, "train_trace") if name == "production" else None
+        run, log, vals = _train_cli(
+            tag, config, common + ["--max_iters", "12", "--tag", name.replace(" ", "_")]
+            + (["--profile_dir", trace] if trace else []), want_of(step, fwd, 12, 2))
+        check("val it 6 |" in log and "val it 12 |" in log and len(vals) == 2,
+              f"{tag}: no 'val it 6' and 'val it 12' lines")
+        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        check(ckpts == ["12.pt", "6.pt"], f"{tag}: checkpoints {ckpts}, expected 6 and 12")
+        if trace:
+            events = json.load(open(os.path.join(trace, "trace.json")))["traceEvents"]
+            kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            check(kernels > 0, f"{tag}: the --profile_dir trace holds no CUDA kernel")
+            say(tag, f"--profile_dir: {trace}/trace.json, {len(events)} events, {kernels} "
+                     f"device kernels (iterations 11-12)")
+        _, log2, vals2 = _train_cli(
+            f"{tag} resume", config, common + ["--max_iters", "14", "--tag", "resume", "--resume",
+                                               os.path.join(run, "checkpoints")],
+            want_of(step, fwd, 2, 0))
+        check("at iteration 13" in log2 and "it 14 | loss" in log2 and not vals2,
+              f"{tag} resume: did not continue at 13 to 14")
+        say(tag, f"resumed from {run}/checkpoints/12.pt at iteration 13; checkpoints 6 and 12, "
+                 f"commit.txt present")
+
+    # One real 128-bucket batch, its padding rows and partial atom masks:
+    # the kernel step's gradients against the plain step, in both profiles.
+    items = {b: [ds[j] for j in i] for b, i in plan}
+    big = pad_and_collate(items[128], pad_to=128)
+    gen = big["generate_mask"]
+    partial = int((big["mask_heavyatom"].sum(-1) < C.HEAVYATOM_MASK_GEN[big["aa"]].sum(-1))[
+        big["res_mask"]].sum())
+    pad_rows = int((~big["res_mask"]).sum())
+    check(stripped in big["id"] and partial >= 3 and pad_rows > 0,
+          f"{phase}: the 128 batch lacks {stripped}, its partial rows ({partial}) or padding "
+          f"({pad_rows})")
+    say(phase, f"real batch B={B} L=128: {pad_rows} padding rows of {big['res_mask'].size}, "
+               f"{partial} residues with a partial atom mask, {int(gen.sum())} generated")
+    real = device_batch(big, dev)
+    phase_train(card, prod, f"{phase} grads", {**zero, **per_step}, descent=False,
+                timed_steps=5, batch=real)
+    phase_train(card, ipa, f"{phase} grads ipa", {**zero, **per_step, "ipa2": 6, "ipa2_bwd": 6},
+                descent=False, timed_steps=5, batch=real)
+
+    # Padding: the loader's bucketed batches, and the reference's unbucketed
+    # batches of the same items padded to their longest item rounded up to
+    # 8; steps in turns. The lengths are drawn evenly over each bucket's
+    # span, so this prices bucketing on made-up traffic, not on PepMerge's.
+    eight = lambda its: 8 * math.ceil(max(len(it["aa"]) for it in its) / 8)
+    mixed = DataLoader(ds, batch_size=B, shuffle=True, seed=int(prod_train_cfg()["seed"]),
+                       bucket_by_length=False)._batch_plan()
+    rules = {"bucket": [pad_and_collate(items[b], pad_to=b) for b in sorted(items)],
+             "unbucketed, longest to 8": [pad_and_collate(its, pad_to=eight(its)) for its in
+                                          ([ds[j] for j in i] for _, i in mixed)]}
+    rules = {k: [device_batch(b, dev) for b in v] for k, v in rules.items()}
+    for prof_name, cfg, names_ in (("production", prod, list(rules)),
+                                   ("fused IPA", ipa, ["bucket"])):
+        model = production_model(dev, cfg).train()
+        tc = prod_train_cfg()
+        optimizer = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+        weights = dict(tc["loss_weights"])
+        g = torch.Generator(device=dev).manual_seed(3)
+        peak = {}
+        for rule in names_:
+            for b in rules[rule]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                train_step(model, optimizer, b, weights, g)    # warm-up, and the peak memory
+                torch.cuda.synchronize()
+                peak[(rule, b["aa"].shape[1])] = torch.cuda.max_memory_allocated() / 2 ** 20
+        times = {(rule, i): [] for rule in names_ for i in range(len(rules[rule]))}
+        for _ in range(10):
+            for rule in names_:
+                for i, b in enumerate(rules[rule]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = train_step(model, optimizer, b, weights, g)
+                    torch.cuda.synchronize()
+                    times[(rule, i)].append(time.perf_counter() - t0)
+        check(np.isfinite(float(m["loss"])), f"{phase}: non-finite loss in the timed steps")
+        for rule in names_:
+            bs = rules[rule]
+            padded = sum(b["aa"].numel() for b in bs)
+            real_res = sum(int(b["res_mask"].sum()) for b in bs)
+            total = sum(sum(times[(rule, i)]) for i in range(len(bs)))
+            per_b = ", ".join(
+                f"L={b['aa'].shape[1]} {1e3 * np.mean(times[(rule, i)]):.3f} ms/step "
+                f"{B / np.mean(times[(rule, i)]):.3f} samples/s peak "
+                f"{peak[(rule, b['aa'].shape[1])]:.0f} MiB" for i, b in enumerate(bs))
+            say(phase, f"padding [{prof_name}] {rule}: waste {padded / real_res - 1:.4f}, "
+                       f"{1e3 * total / (10 * len(bs)):.3f} ms/step, "
+                       f"{10 * len(bs) * B / total:.3f} samples/s over {10 * len(bs)} steps in "
+                       f"turns on {card}; {per_b}")
+        del model, optimizer
+
+
+def prod_train_cfg() -> dict:
+    """The ``train`` section of configs/learn_angle_tpu.yaml (with defaults)."""
+    from pepflowww_torch.config import load_train_config
+
+    return load_train_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))[1]["train"]
+
+
+def phase_eval(card: str):
+    """The evaluation CLI over the data phase's samples (phase 8)."""
+    import csv
+
+    import numpy as np
+
+    from pepflowww_torch import evalrun, native
+
+    samples, structs = os.path.join(OUT_DIR, "samples"), os.path.join(OUT_DIR, "structs")
+    for tools in ("ss", "auto"):
+        out = os.path.join(OUT_DIR, f"eval_{tools}")
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = evalrun.main(["--samples_dir", samples, "--structure_dir", structs,
+                                "--tools", tools, "--out", out])
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in native.LAUNCHES.items() if v}
+        check(not launched, f"eval: evalrun launched {launched}")
+        with open(os.path.join(out, "eval_outputs.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 192 and all(np.isfinite(float(r["ss_recovery"])) for r in rows),
+              f"eval --tools {tools}: {len(rows)} rows, or a non-finite ss_recovery")
+        on_disk = json.load(open(os.path.join(out, "eval_summary.json")))
+        absent = {k for k, v in on_disk["tools"].items() if v != "ok"}
+        want = set() if tools == "ss" else {"tm", "tmscore", "foldx", "rosetta", "scwrl4"}
+        check(on_disk == json.loads(json.dumps(summary)) and on_disk["tools"].get("ss") == "ok"
+              and absent == want and all(on_disk["tools"][t].startswith("unavailable")
+                                         for t in absent),
+              f"eval --tools {tools}: tools {on_disk['tools']}")
+        say("eval", f"--tools {tools}: {len(rows)} rows, finite ss_recovery (mean "
+                    f"{np.mean([float(r['ss_recovery']) for r in rows]):.4f}); tools "
+                    f"{ {k: v.split(':')[0] for k, v in on_disk['tools'].items()} }; "
+                    f"{wall:.2f} s wall on the host of {card}; no kernel launched")
+
+
 def write_config(name: str, **ipa) -> str:
     """configs/learn_angle_tpu.yaml with the `ipa` keys set under
     model.encoder.ipa, written to chiprun_out/<name>.yaml
@@ -1262,6 +1564,8 @@ def main():
                            f"step, {k8_per_call} kernels each")
     phase_train_int8(int8)
     phase_data(card, prod)
+    phase_train_data(card, prod, ipa, ipa_yaml)
+    phase_eval(card)
     launches = {"edge_transition": sampled["edge_transition"],
                 "edge_transition_k1": trained["edge_transition"],
                 "distance_embed": sampled["distance_embed"],

@@ -1,5 +1,5 @@
-"""Batch assembly: padding to a length bucket (counterpart of the JAX
-package's ``data/collate.py``; the parts the sampler uses).
+"""Batch assembly: padding to a length bucket, and the residue selection
+helpers (counterpart of the JAX package's ``data/collate.py``).
 
 Pad values: aa -> PAD_RESIDUE_INDEX (21), everything else -> 0; ``res_mask``
 marks real residues. Batches stay numpy until :func:`device_batch` moves
@@ -39,8 +39,9 @@ def _pad_first(x: np.ndarray, n: int, value=0) -> np.ndarray:
 
 def pad_and_collate(items: Sequence[dict], pad_to: Optional[int] = None,
                     buckets: Sequence[int] = DEFAULT_BUCKETS) -> dict:
-    """Stack per-complex dicts into a padded numpy batch; ``pad_to=None``
-    pads to the bucket above the longest item."""
+    """Stack per-complex dicts into a padded numpy batch. ``pad_to=None``
+    pads to the bucket above the longest item (past the last bucket, to a
+    multiple of 8)."""
     max_len = max(item["aa"].shape[0] for item in items)
     if pad_to is None:
         pad_to = bucket_length(max_len, buckets)
@@ -76,3 +77,18 @@ def device_batch(batch: dict, device) -> dict:
             v = v.astype(np.float32)
         out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return out
+
+
+def mask_select(v, mask: np.ndarray):
+    """The residues of `v` (an array or list of residue length) where `mask`
+    holds; anything else unchanged."""
+    n = len(mask)
+    if isinstance(v, np.ndarray) and v.shape[:1] == (n,):
+        return v[mask]
+    if isinstance(v, list) and len(v) == n:
+        return [x for x, m in zip(v, mask) if m]
+    return v
+
+
+def mask_select_data(data: dict, mask: np.ndarray) -> dict:
+    return {k: mask_select(v, mask) for k, v in data.items()}

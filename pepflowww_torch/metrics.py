@@ -2,9 +2,10 @@
 ``metrics.py``).
 
 The metrics the reference computes online at inference (CA deviation,
-rotation Frobenius distance, amino-acid recovery) and the geometry metrics
+rotation Frobenius distance, amino-acid recovery), the geometry metrics
 its evaluation harness takes from external tools (RMSD with and without
-superposition, TM-score) that the sample CLI writes.
+superposition, TM-score, binding-site overlap, sequence difference), and
+the aggregation of the sample CLI's ``outputs.csv``.
 
 Host work: numpy arrays batched over (B, L, ...), masked; the Kabsch
 alignment is :func:`pepflowww_torch.ops.frames.kabsch_align` on CPU
@@ -14,6 +15,7 @@ tensors. :func:`evaluate_sample` moves a sampler output to the host once.
 from __future__ import annotations
 
 import collections
+import csv
 import statistics
 
 import numpy as np
@@ -56,6 +58,11 @@ def amino_acid_recovery(seq_a: np.ndarray, seq_b: np.ndarray, mask: np.ndarray) 
     return _masked_mean((seq_a == seq_b).astype(np.float32), mask, axis=-1)
 
 
+def seq_diff_ratio(seq_a, seq_b, mask) -> np.ndarray:
+    """Fraction of differing residues: 1 - AAR. (B,)."""
+    return 1.0 - amino_acid_recovery(seq_a, seq_b, mask)
+
+
 def tm_score(pos_model: np.ndarray, pos_native: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """TM-score after Kabsch superposition, residue i against residue i:
     d0(L) = 1.24 (L - 15)^(1/3) - 1.8, at least 0.5. (B,)."""
@@ -65,6 +72,23 @@ def tm_score(pos_model: np.ndarray, pos_native: np.ndarray, mask: np.ndarray) ->
     di2 = np.square(aligned - pos_native).sum(axis=-1)
     score = 1.0 / (1.0 + di2 / np.square(d0)[..., None])
     return _masked_mean(score, mask, axis=-1)
+
+
+def binding_site_ratio(pep_pos: np.ndarray, pep_mask: np.ndarray, rec_pos: np.ndarray,
+                       rec_mask: np.ndarray, native_pep_pos: np.ndarray,
+                       cutoff: float = 10.0) -> np.ndarray:
+    """Share of the native binding site (receptor residues within `cutoff`
+    Å of the native peptide) that the generated peptide also lies within
+    `cutoff` Å of. Positions are CA, (B, L, 3); (B,)."""
+
+    def site(pp, pm):
+        d2 = np.square(rec_pos[:, :, None, :] - pp[:, None, :, :]).sum(-1)
+        d2 = np.where(pm[:, None, :], d2, np.inf)
+        return (d2 <= cutoff ** 2).any(axis=-1) & rec_mask.astype(bool)
+
+    pm = pep_mask.astype(bool)
+    gen_site, nat_site = site(pep_pos, pm), site(native_pep_pos, pm)
+    return (gen_site & nat_site).sum(axis=-1) / np.maximum(nat_site.sum(axis=-1), 1)
 
 
 def evaluate_sample(sample_out: dict, batch: dict) -> dict:
@@ -131,3 +155,9 @@ def summarize_outputs(rows: list) -> dict:
             overall[f"success_rate_{cut}A"] = sum(
                 v.get("best_rmsd", float("inf")) < cut for v in per_complex.values()) / n
     return {"per_complex": per_complex, "overall": overall}
+
+
+def summarize_outputs_csv(path: str) -> dict:
+    """:func:`summarize_outputs` over an ``outputs.csv``."""
+    with open(path, newline="") as f:
+        return summarize_outputs(list(csv.DictReader(f)))

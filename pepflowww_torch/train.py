@@ -1,22 +1,41 @@
-"""Training CLI on one device: synthetic batches, the flow-matching
-objective, clipped Adam with a plateau scheduler driven by a validation
-split, and checkpoints in the reference layout.
+"""Training CLI on one device: batches of a PepMerge-style dataset or
+synthetic ones, the flow-matching objective, clipped Adam with a plateau
+scheduler, and checkpoints in the reference layout.
 
     python -m pepflowww_torch.train --config configs/learn_angle_tpu.yaml \
-        --synthetic [--max_iters N] [--val_freq N] [--batch_size N] \
-        [--log_freq N] [--logdir ./logs] [--tag T] [--resume CKPT] [--debug] \
-        [--device cpu]
+        --structure_dir Data/PepMerge_new --dataset_dir Data/cache \
+        [--dataset_name pep_pocket_train] [--val_dataset_name pep_pocket_val] \
+        [--val_structure_dir DIR] [--exclude_names names.txt] \
+        [--max_iters N] [--val_freq N] [--batch_size N] [--log_freq N] \
+        [--logdir ./logs] [--tag T] [--resume CKPT] [--debug] [--use_wandb] \
+        [--profile_dir DIR] [--device cpu]
+    python -m pepflowww_torch.train --config ... --synthetic [...]
 
-Runs on CUDA unless ``--device`` names another device. Batches are
-synthetic complexes (``--synthetic``: a 48-residue pocket and a 12-residue
-peptide padded to 64), and a synthetic validation split of two batches
-drives the plateau scheduler every ``val_freq`` iterations. A checkpoint
-``<run>/checkpoints/<it>.pt`` is written every ``val_freq`` iterations and
-on SIGTERM (then the run exits); ``--resume`` takes a checkpoint file or a
-checkpoint directory (its latest) and continues after its iteration.
-``--debug`` logs to the console only: no log file, no metrics file (the run
-directory then holds only checkpoints). Reading a dataset and the
-multi-device flags come with later slices.
+Runs on CUDA unless ``--device`` names another device.
+
+Data. A structure directory (``<id>/{peptide.pdb,pocket.pdb}``) is
+preprocessed once into ``--dataset_dir`` as ``<dataset_name>`` (the cache
+reads in both packages), without the ids of ``--exclude_names``, and read
+in length-bucketed, shuffled batches (``DataLoader(shuffle=True,
+seed=train.seed)``, collated on a background thread). ``--val_dataset_name``
+adds a validation split from ``--val_structure_dir`` (default: the
+training directory), read in order with its ragged last batch of each
+bucket. ``--synthetic`` trains on synthetic complexes (a 48-residue pocket
+and a 12-residue peptide padded to 64) with a synthetic validation split of
+two batches.
+
+Schedule. With a validation split the plateau scheduler steps on its mean
+loss every ``val_freq`` iterations; without one, on the training loss every
+``log_freq`` iterations. A checkpoint ``<run>/checkpoints/<it>.pt`` is
+written every ``val_freq`` iterations and on SIGTERM (then the run exits);
+``--resume`` takes a checkpoint file or a checkpoint directory (its latest)
+and continues after its iteration. The run directory holds a copy of the
+config, ``commit.txt``, ``log.txt`` and ``metrics.jsonl`` (mirrored to
+wandb with ``--use_wandb`` where the package is installed); ``--debug``
+logs to the console only (the run directory then holds only checkpoints).
+``--profile_dir`` writes a ``torch.profiler`` trace (CPU and CUDA
+activity) of iterations first+10 to first+15 to ``DIR/trace.json``. The
+multi-device flags come with a later slice.
 """
 
 from __future__ import annotations
@@ -30,8 +49,10 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-def main(argv=None):
+
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="configs/learn_angle.yaml")
     ap.add_argument("--logdir", default="./logs")
@@ -39,18 +60,37 @@ def main(argv=None):
     ap.add_argument("--resume", default=None, help="checkpoint file or checkpoint directory")
     ap.add_argument("--debug", action="store_true")
     ap.add_argument("--synthetic", action="store_true", help="train on synthetic complexes")
+    ap.add_argument("--structure_dir", default=None)
+    ap.add_argument("--dataset_dir", default=None)
+    ap.add_argument("--dataset_name", default="pep_pocket_train")
+    ap.add_argument("--val_dataset_name", default=None,
+                    help="validate every val_freq iterations and step the plateau scheduler "
+                         "on the validation loss")
+    ap.add_argument("--val_structure_dir", default=None,
+                    help="structure directory of the validation split (default: "
+                         "--structure_dir)")
+    ap.add_argument("--exclude_names", default=None,
+                    help="file of ids (one a line) left out of the training cache")
     ap.add_argument("--max_iters", type=int, default=None)
     ap.add_argument("--val_freq", type=int, default=None)
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--log_freq", type=int, default=100)
+    ap.add_argument("--use_wandb", action="store_true")
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler trace of iterations first+10 to first+15 here")
     ap.add_argument("--device", default=None, help="default: cuda")
+    return ap
+
+
+def main(argv=None):
+    """Runs the CLI; returns the run directory."""
+    ap = _parser()
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("only --synthetic batches are supported so far")
+    if not args.synthetic and not (args.structure_dir and args.dataset_dir):
+        ap.error("give --structure_dir and --dataset_dir, or --synthetic")
 
     from pepflowww_torch.config import load_train_config
     from pepflowww_torch.data.collate import device_batch
-    from pepflowww_torch.data.synthetic import make_batch
     from pepflowww_torch.device import resolve_device
     from pepflowww_torch.models.flow import FlowModel, init_weights
     from pepflowww_torch.training import checkpoints
@@ -74,22 +114,45 @@ def main(argv=None):
     if args.debug:
         logger, metrics = misc.get_logger("train"), misc.BlackHole()
     else:
-        logger, metrics = misc.get_logger("train", run_dir), misc.MetricsWriter(run_dir)
+        logger = misc.get_logger("train", run_dir)
+        metrics = misc.MetricsWriter(run_dir, use_wandb=args.use_wandb,
+                                     wandb_kwargs={"project": "pepflowww_torch",
+                                                   "config": dict(cfg)})
         shutil.copyfile(args.config, os.path.join(run_dir, os.path.basename(args.config)))
+        with open(os.path.join(run_dir, "commit.txt"), "w") as f:
+            f.write(misc.git_version_stamp(ROOT) + "\n")
 
-    rng = np.random.default_rng(seed)
+    if args.synthetic:
+        from pepflowww_torch.data.synthetic import make_batch
 
-    def synthetic(r):
-        return device_batch(make_batch(r, batch_size=batch_size, pep_len=12, rec_len=48,
-                                       pad_to=64), dev)
+        rng = np.random.default_rng(seed)
 
-    val_rng = np.random.default_rng(seed + 7919)
-    val_batches = [synthetic(val_rng) for _ in range(2)]
+        def synthetic(r):
+            return make_batch(r, batch_size=batch_size, pep_len=12, rec_len=48, pad_to=64)
+
+        val_rng = np.random.default_rng(seed + 7919)
+        val_loader = [synthetic(val_rng) for _ in range(2)]
+        train_iter = (synthetic(rng) for _ in iter(int, 1))
+        n_train = -1
+    else:
+        from pepflowww_torch.data.dataset import DataLoader, PepDataset
+
+        dataset = PepDataset(args.structure_dir, args.dataset_dir, name=args.dataset_name,
+                             exclude_names_file=args.exclude_names)
+        n_train = len(dataset)
+        train_iter = DataLoader(dataset, batch_size=batch_size, shuffle=True,
+                                seed=seed).prefetch()
+        val_loader = None
+        if args.val_dataset_name:
+            val_dataset = PepDataset(args.val_structure_dir or args.structure_dir,
+                                     args.dataset_dir, name=args.val_dataset_name)
+            val_loader = DataLoader(val_dataset, batch_size=batch_size, shuffle=False,
+                                    drop_last=False)
 
     model = FlowModel(model_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(dev).train()
-    logger.info("Device: %s | run dir: %s", dev, run_dir)
+    logger.info("Device: %s | train size: %d | run dir: %s", dev, n_train, run_dir)
     logger.info("Number of parameters: %d", misc.count_parameters(model))
 
     optimizer = Optimizer(model.parameters(), train_cfg["optimizer"], train_cfg["max_grad_norm"],
@@ -104,19 +167,28 @@ def main(argv=None):
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     def validate(it):
+        """Mean weighted loss over the validation split, in eval mode."""
         acc = misc.ScalarMetricAccumulator()
         vgen = torch.Generator(device=dev).manual_seed(0)
+        model.eval()
         with torch.no_grad():
-            for vb in val_batches:
-                total, losses = loss_and_total(model, vb, loss_weights, vgen)
+            for vb in val_loader:
+                total, losses = loss_and_total(model, device_batch(vb, dev), loss_weights, vgen)
                 bsz = int(vb["aa"].shape[0])
                 acc.add("loss", float(total), bsz)
                 for name, v in losses.items():
                     acc.add(name, float(v), bsz)
+        model.train()
         summary = acc.summary()
         metrics.log(it, summary, tag="val")
         logger.info("val it %d | %s", it, " ".join(f"{k}={v:.4f}" for k, v in summary.items()))
         return summary["loss"]
+
+    def step_scheduler(metric):
+        new_lr = sched.step(metric, optimizer.lr)
+        if new_lr != optimizer.lr:
+            optimizer.lr = new_lr
+            logger.info("lr -> %.3g", new_lr)
 
     stop = {"flag": False}
 
@@ -124,13 +196,24 @@ def main(argv=None):
         stop["flag"] = True
         logger.info("signal %d received; checkpointing and exiting", signum)
 
+    prof = None
     previous = signal.signal(signal.SIGTERM, _request_stop)
     try:
-        batch = synthetic(rng)
+        batch = device_batch(next(train_iter), dev)
         t0, seen = time.time(), 0
         for it in range(it_first, max_iters + 1):
+            if args.profile_dir and it == it_first + 10:
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                prof = profile(activities=activities)
+                prof.start()
+            if prof is not None and it == it_first + 15:
+                prof = _stop_profile(prof, args.profile_dir, logger)
             m = train_step(model, optimizer, batch, loss_weights, generator)
-            seen += batch_size
+            seen += int(batch["aa"].shape[0])
             if it % args.log_freq == 0:
                 m = {k: float(v) for k, v in m.items()}
                 m["samples_per_sec"] = seen / (time.time() - t0)
@@ -138,24 +221,35 @@ def main(argv=None):
                 logger.info("it %d | loss %.4f | %s", it, m["loss"],
                             " ".join(f"{k}={v:.4f}" for k, v in m.items() if k.endswith("_loss")))
                 metrics.log(it, m, tag="train")
+                if val_loader is None:
+                    step_scheduler(m["loss"])
                 t0, seen = time.time(), 0
-            if it % val_freq == 0:
-                model.eval()
-                new_lr = sched.step(validate(it), optimizer.lr)
-                model.train()
-                if new_lr != optimizer.lr:
-                    optimizer.lr = new_lr
-                    logger.info("lr -> %.3g", new_lr)
+            if val_loader is not None and it % val_freq == 0:
+                step_scheduler(validate(it))
             if it % val_freq == 0 or stop["flag"]:
                 path = checkpoints.save_checkpoint(ckpt_dir, it, model, optimizer, sched, cfg)
                 logger.info("checkpoint -> %s", path)
             if stop["flag"]:
                 logger.info("exiting at iteration %d after preemption checkpoint", it)
                 break
-            batch = synthetic(rng)
+            batch = device_batch(next(train_iter), dev)
     finally:
         signal.signal(signal.SIGTERM, previous)
+        train_iter.close()
+        if prof is not None:
+            _stop_profile(prof, args.profile_dir, logger)
+        metrics.close()
     return run_dir
+
+
+def _stop_profile(prof, out_dir: str, logger) -> None:
+    """Stop `prof` and write its trace to ``out_dir/trace.json``."""
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+    return None
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Logging, run directories, seeding and metric accumulation for the
-command-line tools (counterpart of the parts of the JAX package's
+"""Logging, run directories, seeding, metric sinks and the commit stamp
+for the command-line tools (counterpart of the parts of the JAX package's
 ``utils/misc.py`` that the train CLI uses)."""
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ import json
 import logging
 import os
 import random
+import subprocess
 import time
 from typing import Optional
 
@@ -73,16 +74,30 @@ def count_parameters(model: torch.nn.Module) -> int:
 
 
 class MetricsWriter:
-    """Scalars as JSON lines in ``<log_dir>/metrics.jsonl``."""
+    """Scalars as JSON lines in ``<log_dir>/metrics.jsonl`` and, with
+    `use_wandb` and the ``wandb`` package installed, mirrored to wandb as
+    ``<tag>/<name>``; without the package, JSON lines only."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, use_wandb: bool = False,
+                 wandb_kwargs: Optional[dict] = None):
         self._f = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(**(wandb_kwargs or {}))
+                self._wandb = wandb
+            except ImportError:
+                self._wandb = None
 
     def log(self, step: int, scalars: dict, tag: str = "train") -> None:
         rec = {"step": step, "tag": tag, "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log({f"{tag}/{k}": v for k, v in scalars.items()}, step=step)
 
     def close(self) -> None:
         self._f.close()
@@ -104,3 +119,13 @@ class ScalarMetricAccumulator:
 
     def summary(self) -> dict:
         return {k: self.get_average(k) for k in self._sums}
+
+
+def git_version_stamp(repo_dir: str = ".") -> str:
+    """The commit checked out at `repo_dir` (``git rev-parse HEAD``), or
+    "unknown" outside a git checkout."""
+    try:
+        return subprocess.check_output(["git", "rev-parse", "HEAD"], cwd=repo_dir,
+                                       stderr=subprocess.DEVNULL).decode().strip()
+    except (OSError, subprocess.CalledProcessError):
+        return "unknown"
