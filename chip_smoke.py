@@ -113,6 +113,28 @@ Phases, each on its own lines:
    ss`` (the Ramachandran fallback) and ``--tools auto``: 192 rows with a
    finite ``ss_recovery``, every absent tool recorded as unavailable, the
    wall time, and no kernel launched.
+9. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
+   as a process with the production YAML (its address read from its
+   output): ``/healthz`` names cuda and the card, a request without a
+   native peptide (12 residues, 2 samples, 100 steps) returns 2 PDBs with
+   12 residues in chain A, a garbage pocket returns 400 with an error.
+   Then in-process, the production profile with seeded weights: the warm
+   ladder of bucket 64 (sizes 1 … 64, each group K2 500 times and K3 once,
+   nothing else), size 1 again warm; the port's load test
+   (``serve_loadtest``, 8 clients x 4 requests x 8 samples, 100 steps,
+   bucket 64) with 0 errors and launches equal to 500 K2 and 1 K3 a group
+   run, every response's PDBs checked as the server sends them; 8 requests
+   at bucket 32 and 8 at 128 sent together (every row once, each response
+   its own complex); one request of 100 samples (one group padded to 128,
+   two 64-row chunks: K2 1000, K3 2, 100 PDBs). Then a burst of 4 clients
+   x 2 requests x 8 samples in the int8 profile (K6 500 and K3 1 a group)
+   and the fused-IPA profile (K7 600, K2 500, K3 1). Last, the kernels at
+   the server's shapes against their plain versions: K2 and K3 at B = 1,
+   2, 4 and 16 in the buckets 32, 64 and 128 (on those buckets'
+   complexes), K6 and K7 at B = 8, 16 and 32 in bucket 64. Printed:
+   seconds a ladder size, peptides/s and latencies beside the main phase's
+   figure, the merged group sizes, K2's and K3's device time a call at
+   B = 1, 2, 4 in bucket 64.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition forward with the readout (K2) and the distance forward
@@ -122,7 +144,8 @@ kernels on the production training step's, K7 on the fused-IPA sampler's,
 K8 on the fused-IPA training step's (``ipa2_bwd`` at L=64, its own entry
 ``ipa2_bwd_long`` at L=128, same counter) and K6 on the int8 sampler's. K9 has
 no model path in either package: its launches are the kernels phase's
-checks.
+checks. K2, K3, K6 and K7 also give ``serve_launches``: their launches in
+the serve phase's in-process runs (the CLI's process counts its own).
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -136,6 +159,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -760,17 +784,23 @@ def _launch_once(name, call, tag):
 
 def _device_kernels(call) -> list:
     """The names of the device kernels that one call of `call` launches
-    (torch.profiler), in order."""
+    (torch.profiler), in order. A profile with no device activity at all is
+    taken again, up to three in all: CUPTI has returned an empty trace for
+    a call whose kernel ran (the wrapper's launch counted, its output
+    checked just before) on an H100 machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+    for _ in range(3):
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(events), "the profiler recorded no device kernels")
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+        say("kernels", "the profiler recorded no device kernels; profiling the call again")
+    fail("the profiler recorded no device kernels in three profiles of one call")
 
 
 def compare_grads(tag, names, got, want, again) -> float:
@@ -1492,6 +1522,387 @@ def phase_eval(card: str):
                     f"{wall:.2f} s wall on the host of {card}; no kernel launched")
 
 
+# The serve phase's complexes, (peptide, pocket): the load test's (bucket 64)
+# and the two-bucket burst's (buckets 32 and 128).
+SERVE_COMPLEX = (12, 48)
+SERVE_BUCKETS = {32: (8, 20), 128: (12, 110)}
+
+
+def _pdb_residues(pdb: str) -> tuple:
+    """(residues, peptide residues in chain A) of a PDB's ATOM records; a
+    malformed record (no finite coordinates) fails the run."""
+    atoms = [ln for ln in pdb.splitlines() if ln.startswith("ATOM")]
+    xyz = [[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in atoms]
+    check(bool(atoms) and all(map(math.isfinite, sum(xyz, []))), "serve: malformed ATOM records")
+    return (len({(ln[21], ln[22:27]) for ln in atoms}),
+            len({ln[22:27] for ln in atoms if ln[21] == "A"}))
+
+
+def _serve_post(port: int, obj: dict, timeout: float = 300.0) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/sample",
+                                 data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _serve_cli(card: str, yaml_path: str, pocket_pdb: str):
+    """Serve 1: ``python -m pepflowww_torch.serve`` as a process on the card."""
+    import queue
+    import threading
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "pepflowww_torch.serve", "--synthetic_weights", "--port", "0",
+           "--config", yaml_path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    seen = []
+    try:
+        port = None
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.0, 180.0 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                fail("serve: the CLI did not report its address within 180 s")
+            seen.append(line)
+            m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        start_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        name = card.split(",")[0].strip()
+        check(health["status"] == "ok" and health["device"].startswith("cuda")
+              and name in health["device"], f"serve: /healthz said {health}")
+        t1 = time.perf_counter()
+        code, out = _serve_post(port, {"pocket_pdb": pocket_pdb, "peptide_len": 12,
+                                       "num_samples": 2, "num_steps": 100})
+        first_s = time.perf_counter() - t1
+        check(code == 200 and len(out["pdbs"]) == 2, f"serve: CLI request gave {code}")
+        check(all(_pdb_residues(p)[1] == 12 for p in out["pdbs"]),
+              "serve: the CLI's PDBs lack 12 residues in chain A")
+        code, err = _serve_post(port, {"pocket_pdb": "garbage"})
+        check(code == 400 and "error" in err, f"serve: garbage gave {code} {err}")
+        say("serve", f"CLI: listening after {start_s:.2f} s, /healthz {health}; peptide_len 12 "
+                     f"x 2 samples, 100 steps: 200 in {first_s:.2f} s (first request of the "
+                     f"process), 2 PDBs with 12 residues in chain A; garbage: {code} {err}")
+    except BaseException:
+        proc.kill()
+        proc.wait(30)
+        while not lines.empty():
+            seen.append(lines.get())
+        print("".join(seen), file=sys.stderr, flush=True)
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+
+
+class _counted_sampler:
+    """Within the block, every group the server runs is recorded in
+    `groups` as (bucket, rows, padded rows, seconds), every group sampler
+    it builds records each call's rows and the launches made during it in
+    `calls` (exact when groups run one at a time), and every response's
+    PDBs are checked as the server sends them: a malformed one becomes a
+    400, which the load test counts."""
+
+    def __enter__(self):
+        from pepflowww_torch import native, serve
+
+        self.serve, self.calls, self.groups = serve, [], []
+        self.saved = (serve._make_group_sampler, serve._sample, serve._run_group)
+        real_make, real_sample, real_group = self.saved
+
+        def make(steps):
+            fn = real_make(steps)
+
+            def run(model, batch, generator):
+                before = dict(native.LAUNCHES)
+                out = fn(model, batch, generator)
+                self.calls.append((int(batch["aa"].shape[0]), {
+                    k: v - before[k] for k, v in native.LAUNCHES.items() if v != before[k]}))
+                return out
+            return run
+
+        def sample(state, req):
+            out = real_sample(state, req)
+            for pdb in out["pdbs"]:
+                _pdb_residues(pdb)
+            return out
+
+        def group(state, key, rows, contexts):
+            t0 = time.perf_counter()
+            out = real_group(state, key, rows, contexts)
+            self.groups.append((key[0], len(rows), serve._group_pad_size(len(rows)),
+                                time.perf_counter() - t0))
+            return out
+
+        serve._make_group_sampler, serve._sample, serve._run_group = make, sample, group
+        return self
+
+    def __exit__(self, *exc):
+        (self.serve._make_group_sampler, self.serve._sample,
+         self.serve._run_group) = self.saved
+
+
+def _serve_launch_check(tag: str, groups: list, per_chunk: dict, totals: dict) -> list:
+    """The launches since the last reset against `groups` (the
+    (bucket, rows, padded rows, seconds) of the groups run since):
+    `per_chunk` for each 64-row chunk, nothing else. Adds them to `totals`;
+    returns the groups' real row counts."""
+    from pepflowww_torch import native
+
+    chunks = sum(-(-padded // 64) for _, _, padded, _ in groups)
+    want = {**dict.fromkeys(native.SOURCES, 0), **{k: v * chunks for k, v in per_chunk.items()}}
+    got = dict(native.LAUNCHES)
+    check(got == want, f"{tag}: launched {got}, expected {want} for {len(groups)} groups "
+                       f"({chunks} chunks of <= 64 rows)")
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    return [n for _, n, _, _ in groups]
+
+
+@contextlib.contextmanager
+def _serving(state):
+    """An HTTP server of `state` on a free local port, in a thread; yields
+    the port."""
+    import threading
+
+    from pepflowww_torch import serve
+
+    srv = serve._Server(("127.0.0.1", 0), state)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+
+
+def _serve_burst(tag: str, state, clients: int, requests: int, samples: int) -> dict:
+    """The port's load test against an in-process server of `state`."""
+    from pepflowww_torch import serve_loadtest
+
+    with _serving(state) as port:
+        res = serve_loadtest.main(["--port", str(port), "--clients", str(clients), "--requests",
+                                   str(requests), "--num_samples", str(samples), "--num_steps",
+                                   "100", "--pep_len", str(SERVE_COMPLEX[0]), "--rec_len",
+                                   str(SERVE_COMPLEX[1]), "--timeout", "300"])
+    check(res["requests"] == clients * requests and res["errors"] == 0
+          and res["peptides"] == clients * requests * samples,
+          f"{tag}: load test {res}")
+    return res
+
+
+def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: dict) -> dict:
+    """The server on the card (phase 9); returns the serve phase's launches
+    by kernel (in-process runs: ladder, load tests, two buckets, over-cap).
+    `k_ms`: the kernels phase's ms a call by kernel, printed beside the
+    serve shapes' device times."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native, serve
+    from pepflowww_torch.data.collate import mask_select_data, replicate_item
+    from pepflowww_torch.data.pdb import save_pdb
+    from pepflowww_torch.data.synthetic import make_complex
+    from pepflowww_torch.profile_sampler import production_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    zero = dict.fromkeys(native.SOURCES, 0)
+    prod_chunk = {"edge_transition": 500, "distance_embed": 1}
+    totals: dict = {}
+
+    def pdbs(pep, rec, seed):
+        item = make_complex(np.random.default_rng(seed), pep_len=pep, rec_len=rec)
+        return (save_pdb(mask_select_data(item, item["generate_mask"])),
+                save_pdb(mask_select_data(item, ~item["generate_mask"])))
+
+    _serve_cli(card, yamls["production"], pdbs(*SERVE_COMPLEX, seed=0)[1])
+
+    # 2. The warm ladder in-process, then size 1 again.
+    with _counted_sampler() as counted:
+        native.reset_launch_counts()
+        state = serve.start(serve._parser().parse_args(["--warmup", "64", "--config",
+                                                        yamls["production"]]),
+                            model=production_model(dev, prod))
+        sizes = [n for n, _ in counted.calls]
+        check(sizes == serve.warmup_sizes() == [1, 2, 4, 8, 16, 32, 64],
+              f"serve: ladder ran {sizes}")
+        for n, got in counted.calls:
+            check({**zero, **got} == {**zero, **prod_chunk},
+                  f"serve ladder n={n}: launched {got}, expected {prod_chunk}")
+        _serve_launch_check("serve ladder", counted.groups, prod_chunk, totals)
+        cold = {n: sec for _, n, _, sec in counted.groups}
+        native.reset_launch_counts()
+        item = make_complex(np.random.default_rng(1), pep_len=8, rec_len=40)
+        serve._run_group(state, (64, 100), replicate_item(item, 1), [None])
+        _serve_launch_check("serve warm n=1", counted.groups[-1:], prod_chunk, totals)
+        warm = counted.groups[-1][3]
+    say("serve", "ladder (production, bucket 64, 100 steps), seconds a size, first use: "
+                 + ", ".join(f"n={n} {sec:.3f}" for n, sec in cold.items())
+                 + f"; n=1 again, warm: {warm:.3f}; each group K2 500, K3 1, nothing else; "
+                 + card)
+
+    # 3. The load test against the in-process server.
+    with _counted_sampler() as counted:
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = _serve_burst("serve load", state, 8, 4, 8)
+        wall = time.perf_counter() - t0
+        merged = _serve_launch_check("serve load", counted.groups, prod_chunk, totals)
+    say("serve", f"load test (production, 8 clients x 4 requests x 8 samples, 100 steps, "
+                 f"peptide {SERVE_COMPLEX[0]} + pocket {SERVE_COMPLEX[1]}, bucket 64): "
+                 f"{json.dumps(res)}; {wall:.2f} s with its first request; groups (rows, the "
+                 f"first request's first) {merged}; main phase's production B=64 L=64 "
+                 f"{main_pps:.3f} peptides/s in this call; {card}")
+
+    # 4. Two buckets at once.
+    burst = {b: pdbs(*SERVE_BUCKETS[b], seed=20 + b) for b in SERVE_BUCKETS}
+    reqs = [(b, {"pocket_pdb": burst[b][1], "peptide_pdb": burst[b][0], "num_samples": 2,
+                 "num_steps": 100}) for _ in range(8) for b in SERVE_BUCKETS]
+    with _serving(state) as port:
+        with _counted_sampler() as counted:
+            native.reset_launch_counts()
+            with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+                outs = list(ex.map(lambda r: _serve_post(port, r[1]), reqs))
+            _serve_launch_check("serve two buckets", counted.groups, prod_chunk, totals)
+        groups = [g[:3] for g in counted.groups]
+        for (b, _), (code, out) in zip(reqs, outs):
+            check(code == 200 and len(out["pdbs"]) == 2, f"serve two buckets: {code}")
+            check(all(_pdb_residues(p)[0] == sum(SERVE_BUCKETS[b]) for p in out["pdbs"]),
+                  f"serve two buckets: a bucket-{b} response holds another complex")
+        for b in SERVE_BUCKETS:
+            check(sum(n for g, n, _ in groups if g == b) == 16,
+                  f"serve two buckets: bucket {b} ran {groups}")
+        say("serve", f"two buckets, 8 requests x 2 samples each at 32 and 128 sent together: "
+                     f"every row once; groups (bucket, rows, padded) {groups}")
+
+        # 5. One request over the cap.
+        with _counted_sampler() as counted:
+            native.reset_launch_counts()
+            t0 = time.perf_counter()
+            code, out = _serve_post(port, {
+                "pocket_pdb": pdbs(*SERVE_COMPLEX, seed=0)[1], "peptide_len": SERVE_COMPLEX[0],
+                "num_samples": 100, "num_steps": 100})
+            sec = time.perf_counter() - t0
+        check(code == 200 and len(out["pdbs"]) == 100
+              and all(_pdb_residues(p)[1] == SERVE_COMPLEX[0] for p in out["pdbs"]),
+              f"serve over cap: {code}, or PDBs without {SERVE_COMPLEX[0]} residues in chain A")
+        check([g[:3] for g in counted.groups] == [(64, 100, 128)],
+              f"serve over cap: {counted.groups}")
+        _serve_launch_check("serve over cap", counted.groups, prod_chunk, totals)
+        check(native.LAUNCHES["edge_transition"] == 1000 and native.LAUNCHES["distance_embed"] == 2,
+              "serve over cap: not two 64-row chunks")
+        say("serve", f"num_samples 100: one group of 100 rows padded to 128, two 64-row chunks "
+                     f"(K2 1000, K3 2), 100 PDBs in {sec:.2f} s")
+
+    # 6. The int8 and fused-IPA profiles.
+    for name, cfg, per_chunk in (
+            ("int8", int8, {"edge_transition_int8": 500, "distance_embed": 1}),
+            ("fused IPA", ipa, {"ipa2": 600, **prod_chunk})):
+        with _counted_sampler() as counted:
+            other = serve.start(serve._parser().parse_args(["--config", yamls[name]]),
+                                model=production_model(dev, cfg))
+            check(other.profile == name, f"serve: {yamls[name]} started {other.profile}")
+            native.reset_launch_counts()
+            res = _serve_burst(f"serve {name}", other, 4, 2, 8)
+            merged = _serve_launch_check(f"serve {name}", counted.groups, per_chunk, totals)
+        say("serve", f"{name} profile: 4 clients x 2 requests x 8 samples, bucket 64: "
+                     f"{res['peptides_per_sec']} peptides/s, p50 {res['latency_s']['p50']} s; "
+                     f"groups {merged}; each chunk {per_chunk}, nothing else")
+
+    _serve_kernels(card, dev, k_ms)
+    say("serve", f"the serve phase took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# (peptide, pocket) of the complexes whose pair features the serve phase's
+# kernel checks feed K3, by bucket.
+SERVE_KERNEL_COMPLEXES = {32: SERVE_BUCKETS[32], 64: SERVE_COMPLEX, 128: SERVE_BUCKETS[128]}
+
+
+def _serve_kernels(card: str, dev, k_ms: dict):
+    """K2 and K3 against their plain versions at the batches the server pads
+    to (B = 1, 2, 4, 16) in the buckets 32, 64 and 128, K6 and K7 at the
+    int8 and fused-IPA bursts' (B = 8, 16, 32) in bucket 64; K2's and K3's
+    device time a call at B = 1, 2, 4 in bucket 64 (calls queued behind a
+    sleep kernel) beside the kernels phase's B=64 time. None of these
+    launches is a serve launch."""
+    import numpy as np
+    import torch
+
+    from pepflowww_torch.data.collate import device_batch
+    from pepflowww_torch.data.synthetic import make_batch
+    from pepflowww_torch.kernel_times import device_ms
+    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
+
+    times, errs = [], dict.fromkeys(("K2", "K3", "K6", "K7"), 0.0)
+    for L, (pep, rec) in SERVE_KERNEL_COMPLEXES.items():
+        for B in (1, 2, 4, 16):
+            edge, nb, mask, p, ro = _edge_inputs(B, L, dev, seed=3000 + 10 * B + L)
+            ops = cuda_edge.kernel_operands(p, ro)
+            tag = f"serve edge_transition+readout B={B} L={L}"
+            k2 = lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, readout=ro, ops=ops)
+            for n, a, b in zip(("out", "b", "pz"), _launch_once("edge_transition", k2, tag),
+                               cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16,
+                                                               ro)):
+                errs["K2"] = max(errs["K2"], compare(f"{tag} [{n}]", a, b, EDGE_TOL))
+            bt = device_batch(make_batch(np.random.default_rng(3100 + B + L), batch_size=B,
+                                         pep_len=pep, rec_len=rec, pad_to=L), dev)
+            args = (bt["pos_heavyatom"] * 0.1, bt["mask_heavyatom"].float(), bt["aa"],
+                    bt["mask_heavyatom"][:, :, 1].float() * (~bt["generate_mask"]).float())
+            dp = _dist_inputs(B, L, dev, seed=3200 + B + L)[1]
+            dops = cuda_dist.kernel_operands(dp)
+            tag = f"serve distance_embed B={B} L={L} ({pep} + {rec} residues)"
+            k3 = lambda: cuda_dist.fused_distance_embed(*args, dp, ops=dops)
+            errs["K3"] = max(errs["K3"], compare(
+                tag, _launch_once("distance_embed", k3, tag),
+                cuda_dist.distance_embed_plain(*args, dp, torch.bfloat16), DIST_TOL))
+            if L == 64 and B <= 4:
+                times.append(f"B={B} K2 {1e3 * device_ms(k2):.1f} us, "
+                             f"K3 {1e3 * device_ms(k3):.1f} us")
+    for B in (8, 16, 32):
+        edge, nb, mask, p, ro = _edge_inputs(B, 64, dev, seed=3300 + B)
+        ops = cuda_edge.kernel_operands(p, ro, quant_int8=True)
+        tag = f"serve edge_transition_int8+readout B={B} L=64"
+        got = _launch_once("edge_transition_int8", lambda: cuda_edge.fused_edge_transition_int8(
+            edge, nb, mask, p, readout=ro, ops=ops), tag)
+        want = cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro)
+        for n, a, b in zip(("out", "b", "pz"), got, want):
+            errs["K6"] = max(errs["K6"], compare(f"{tag} [{n}]", a, b, EDGE_TOL))
+        args = _ipa_inputs(B, 64, dev, seed=3400 + B, layout="sampler")
+        tag = f"serve ipa2 B={B} L=64 (sampler layout)"
+        got = _launch_once("ipa2", lambda: cuda_ipa.fused_ipa2(*args), tag)
+        for n, a, b in zip(("o", "optl", "norm", "opair"), got, cuda_ipa.ipa2_plain(*args)):
+            errs["K7"] = max(errs["K7"], compare(f"{tag} [{n}]", a, b, IPA_TOL))
+    say("serve", "K2 and K3 agree with their plain versions at B = 1, 2, 4, 16 and L = 32, 64, "
+                 "128, K6 and K7 at B = 8, 16, 32 and L = 64; max abs error "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                 + "; device time a call at L=64: "
+                 + "; ".join(times) + f" (B=64, the kernels phase, CUDA events: K2 "
+                 f"{1e3 * k_ms['edge_transition']:.1f} us, K3 {1e3 * k_ms['distance_embed']:.1f} "
+                 f"us); {card}")
+
+
 def write_config(name: str, **ipa) -> str:
     """configs/learn_angle_tpu.yaml with the `ipa` keys set under
     model.encoder.ipa, written to chiprun_out/<name>.yaml
@@ -1566,6 +1977,9 @@ def main():
     phase_data(card, prod)
     phase_train_data(card, prod, ipa, ipa_yaml)
     phase_eval(card)
+    served = phase_serve(card, prod, int8, ipa, {
+        "production": os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "int8": int8_yaml,
+        "fused IPA": ipa_yaml}, pps, {k: r["ms"] for k, r in rows.items()})
     launches = {"edge_transition": sampled["edge_transition"],
                 "edge_transition_k1": trained["edge_transition"],
                 "distance_embed": sampled["distance_embed"],
@@ -1601,6 +2015,8 @@ def main():
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None} for name, r in rows.items()]
     for k in kernels:
+        if k["name"] in ("edge_transition", "distance_embed", "edge_transition_int8", "ipa2"):
+            k["serve_launches"] = served.get(k["name"], 0)
         if k["name"] == "edge_transition":
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":

@@ -119,7 +119,7 @@ def _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops=None):
     ins = [pos, amask, aa32, sm] + [ops[k] for k in ("table", "k1", "b1", "k2", "b2")] + [out]
     rc = fn(*[t.data_ptr() for t in ins], B, L, torch.cuda.current_stream(pos.device).cuda_stream)
     native.check(rc, "distance_embed")
-    native.LAUNCHES["distance_embed"] += 1
+    native.count_launch("distance_embed")
     return out
 
 
@@ -206,7 +206,7 @@ def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bf
     rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "distance_embed_bwd")
-    native.LAUNCHES["distance_embed_bwd"] += 1
+    native.count_launch("distance_embed_bwd")
     return grads
 
 

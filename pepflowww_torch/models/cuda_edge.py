@@ -309,7 +309,7 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     rc = fn(*ptrs(ins), *ro_ptrs, out.data_ptr(), *out_ptrs, B, L, n_b, n_pz, eps,
             torch.cuda.current_stream(edge.device).cuda_stream)
     native.check(rc, name)
-    native.LAUNCHES[name] += 1
+    native.count_launch(name)
     if readout is None:
         return out
     return out, b_out, pz_out
@@ -418,7 +418,7 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid, n1, n2, n3,
             int(d_edge_dtype == f32), eps, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "edge_transition_bwd")
-    native.LAUNCHES["edge_transition_bwd"] += 1
+    native.count_launch("edge_transition_bwd")
     return d_edge, d_node, grads
 
 

@@ -252,7 +252,7 @@ def _forward(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, eps=1e-8):
     rc = fn(*[x.data_ptr() for x in ins + outs], strides, B, L, H, eps,
             torch.cuda.current_stream(q.device).cuda_stream)
     native.check(rc, "ipa2")
-    native.LAUNCHES["ipa2"] += 1
+    native.count_launch("ipa2")
     return tuple(outs)
 
 
@@ -290,7 +290,7 @@ def ipa2_bwd(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm, gopai
     ptrs = [None if x is None else x.data_ptr() for x in ins + cots + scratch + outs]
     rc = fn(*ptrs, strides, B, L, H, eps, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "ipa2_bwd")
-    native.LAUNCHES["ipa2_bwd"] += 1
+    native.count_launch("ipa2_bwd")
     return tuple(outs)
 
 

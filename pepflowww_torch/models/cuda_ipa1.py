@@ -116,7 +116,7 @@ def _forward(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, inf=1e5):
             int(dt == torch.bfloat16), *_scales(C),
             torch.cuda.current_stream(q.device).cuda_stream)
     native.check(rc, "ipa1")
-    native.LAUNCHES["ipa1"] += 1
+    native.count_launch("ipa1")
     return tuple(outs)
 
 

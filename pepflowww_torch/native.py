@@ -8,8 +8,10 @@ always rebuilt, and is loaded with ``ctypes``. Nothing here runs at import
 time: the first kernel call builds (or :func:`build_all` builds every
 source at once, one ``nvcc`` each, in parallel).
 
-``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
-it launches its kernel and nowhere else.
+``LAUNCHES`` counts kernel launches per wrapper; a wrapper calls
+:func:`count_launch` where it launches its kernel and nowhere else. Builds,
+loads and counts are safe from several threads at once (the server runs
+two groups at a time): one lock makes each library build and load once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -34,11 +37,21 @@ LAUNCHES = {name: 0 for name in SOURCES}
 BUILD_LOG: dict = {}
 _FUNCS: dict = {}
 _SM_COUNT: dict = {}
+# Reentrant: function() holds it around build_all(), which takes it too.
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name` (a read-modify-write, so under a lock)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -62,26 +75,27 @@ def _lib_path(name: str) -> str:
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one nvcc per source, all at once.
     Returns {name: seconds}; raises with the compiler's output on failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
-    seconds = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        os.replace(tmp, out)
-    return seconds
+    with _BUILD_LOCK:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        t0 = time.perf_counter()
+        for name in names:
+            out = _lib_path(name)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp, out)
+        seconds = {}
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            BUILD_LOG[name] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            os.replace(tmp, out)
+        return seconds
 
 
 def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
@@ -90,12 +104,15 @@ def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
     key = (lib, name)
     fn = _FUNCS.get(key)
     if fn is None:
-        path = _lib_path(lib)
-        if not os.path.exists(path):
-            build_all((lib,))
-        fn = getattr(ctypes.CDLL(path), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _FUNCS[key] = fn
+        with _BUILD_LOCK:
+            fn = _FUNCS.get(key)
+            if fn is None:
+                path = _lib_path(lib)
+                if not os.path.exists(path):
+                    build_all((lib,))
+                fn = getattr(ctypes.CDLL(path), name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                _FUNCS[key] = fn
     return fn
 
 

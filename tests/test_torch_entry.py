@@ -46,6 +46,18 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_serve_cli_without_cuda_raises_and_binds_no_port(monkeypatch):
+    from pepflowww_torch import serve
+
+    _no_cuda(monkeypatch)
+    bound = []
+    monkeypatch.setattr(serve, "_Server", lambda *a, **k: bound.append(a))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--synthetic_weights", "--port", "0",
+                    "--config", os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")])
+    assert bound == []
+
+
 def test_sample_cli_on_cpu_writes_pdbs(tmp_path, capsys):
     """The production profile (configs/learn_angle_tpu.yaml: 6 blocks, bf16,
     kernels on) on the CPU, where the kernels take their plain versions."""
