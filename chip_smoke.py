@@ -108,12 +108,34 @@ Phases, each on its own lines:
    against the same items in unbucketed batches padded to their longest
    item rounded up to 8 (the reference's rule), with the padding waste
    (padded / real - 1), 10 training steps each in turns.
-8. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
+8. dp: data parallelism (``pepflowww_torch/parallel``) at full width, the
+   production profile. The train CLI in-process with ``--dp``, a world of
+   one over NCCL, synthetic B=32, L=64, 6 iterations, validation and a
+   checkpoint at 6, then the same without ``--dp``: launches equal 6 steps
+   (K1 5, K4 5, K3 1, K5 1) plus 2 validation forwards (K1 5, K3 1) in
+   each, the losses of the two runs within DP_RTOL of each other at every
+   iteration (the largest gap printed), one run directory with its
+   checkpoint; the fused-IPA profile with ``--dp`` for 3 iterations (K7 6
+   and K8 6 a step besides). ms/step of iterations 2-6 of the two
+   production runs, from their samples/s (printed). Then two
+   ranks spawned on the one card over gloo, B=16 each, in both training
+   profiles: each rank's launches exact, the reduced gradients
+   bit-identical on both ranks, the loss and grad_norm within DP_RTOL of
+   one process's step at B=32 with the same weights and global noise and
+   each gradient within STEP_REL/STEP_ABS of its; and ``dp_euler_sample``
+   of two complexes x 3 samples (padded to 4 rows) with K2 and K3
+   launches exact on each rank. The sample CLI with ``--dp`` (a world of
+   one): 3 rows a complex in ``outputs.csv``, K2 and K3 exact. The server
+   as a process with ``--dp``: /healthz names the world size and the card,
+   4 clients x 2 requests x 8 samples all answered, K2 500 and K3 1 a
+   group on rank 0 (its log), and a SIGTERM that ends it with code 0.
+   Outputs: chiprun_out/{dp_logs,dp_samples}.
+9. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
    samples (6 complexes x 32 PDBs) against its structures, with ``--tools
    ss`` (the Ramachandran fallback) and ``--tools auto``: 192 rows with a
    finite ``ss_recovery``, every absent tool recorded as unavailable, the
    wall time, and no kernel launched.
-9. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
+10. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
    as a process with the production YAML (its address read from its
    output): ``/healthz`` names cuda and the card, a request without a
    native peptide (12 residues, 2 samples, 100 steps) returns 2 PDBs with
@@ -121,7 +143,7 @@ Phases, each on its own lines:
    Then in-process, the production profile with seeded weights: the warm
    ladder of bucket 64 (sizes 1 … 64, each group K2 500 times and K3 once,
    nothing else), size 1 again warm; the port's load test
-   (``serve_loadtest``, 8 clients x 4 requests x 8 samples, 100 steps,
+   (``serve_loadtest``, 8 clients x 2 requests x 8 samples, 100 steps,
    bucket 64) with 0 errors and launches equal to 500 K2 and 1 K3 a group
    run, every response's PDBs checked as the server sends them; 8 requests
    at bucket 32 and 8 at 128 sent together (every row once, each response
@@ -145,7 +167,11 @@ K8 on the fused-IPA training step's (``ipa2_bwd`` at L=64, its own entry
 ``ipa2_bwd_long`` at L=128, same counter) and K6 on the int8 sampler's. K9 has
 no model path in either package: its launches are the kernels phase's
 checks. K2, K3, K6 and K7 also give ``serve_launches``: their launches in
-the serve phase's in-process runs (the CLI's process counts its own).
+the serve phase's in-process runs (the CLI's process counts its own). The
+kernels of the dp phase give ``dp_launches`` and ``dp_run``, their
+launches in its run named there (K2 and K3 the sample CLI's, K1, K4 and
+K5 the production train CLI's, K7 and K8 the fused-IPA train CLI's), and
+K2 and K3 ``dp_serve_launches``, rank 0's in the ``--dp`` server.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -158,10 +184,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import glob
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1487,8 +1515,317 @@ def prod_train_cfg() -> dict:
     return load_train_config(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"))[1]["train"]
 
 
+# The dp phase: the losses of a world of one over NCCL against the same run
+# without --dp, iteration by iteration, and the loss and grad_norm of two
+# gloo ranks of B=16 on one card against one process of B=32 with the same
+# global noise, within this relative gap (tests/test_multihost.py's rtol for
+# the JAX package's 2-process run); the two ranks' gradients per parameter
+# within STEP_REL / STEP_ABS of the single process's.
+DP_RTOL = 5e-3
+# (samples, steps) of the dp phase's sampler runs: an odd count, padded to 4
+# rows over two ranks.
+DP_SAMPLES, DP_STEPS = 3, 50
+
+
+def _dp_rank(yamls: list) -> dict:
+    """One of two ranks on card 0 over gloo (phase "dp", step 2): for each
+    profile in `yamls`, one ``train_step`` of its 16 rows of the B=32
+    batch with the global noise: this rank's launches, metrics, the digest
+    of its reduced (clipped) gradients and, on rank 0, the gradients; then
+    ``dp_euler_sample`` of two synthetic complexes x DP_SAMPLES rows, with
+    this rank's launches and, on rank 0, the gathered rows."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
+    from pepflowww_torch.data.synthetic import make_complex
+    from pepflowww_torch.models.flow import build_model, draw_noise
+    from pepflowww_torch.parallel import dist, dp
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.sampling import dp_euler_sample
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    dev = dist.init("cuda:0", backend="gloo")
+    rank, world = dist.rank(), dist.world_size()
+    tc = prod_train_cfg()
+    out = {"rank": rank, "train": []}
+    for path in yamls:
+        model = production_model(dev, load_config(path)).train()
+        opt = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+        batch, _ = main_path_batch(dev, 32, seed=7)
+        noise = draw_noise(32, 64, torch.Generator(device=dev).manual_seed(8), dev)
+        rows = dp.rank_rows(batch, rank, world)
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        m = train_step(model, opt, rows, dict(tc["loss_weights"]), noise=noise)
+        torch.cuda.synchronize()
+        launches = dict(native.LAUNCHES)
+        m = {k: float(v) for k, v in m.items()}
+        grads = {n: p.grad.float().cpu().numpy() for n, p in model.named_parameters()}
+        digest = hashlib.sha256(b"".join(g.tobytes() for g in grads.values())).hexdigest()
+        out["train"].append({"rows": int(rows["aa"].shape[0]), "launches": launches,
+                             "metrics": m, "digest": digest,
+                             "grads": grads if rank == 0 else None})
+        del model, opt
+    cfg = load_config(yamls[0])
+    model = build_model(cfg, dev, seed=0)
+    gen = dp.rank_generator(0, rank, dev)
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    sampled = []
+    for i in range(2):
+        item = make_complex(rng, pep_len=12, rec_len=48, complex_id=f"synth{i}")
+        batch = device_batch(pad_and_collate(replicate_item(item, DP_SAMPLES)), dev)
+        o = dp_euler_sample(model, batch, gen, num_steps=DP_STEPS)
+        if o is not None:
+            sampled.append((int(o["trans"].shape[0]),
+                            all(bool(torch.isfinite(o[k]).all())
+                                for k in ("rotmats", "trans", "angles"))))
+    torch.cuda.synchronize()
+    out["sample_launches"] = dict(native.LAUNCHES)
+    out["sampled"] = sampled
+    return out
+
+
+def _dp_serve_cli(card: str) -> dict:
+    """``python -m pepflowww_torch.serve --dp`` as a process on the card (a
+    world of one): /healthz, a burst of 4 clients x 2 requests x 8 samples,
+    rank 0's launches a group from its log, and a SIGTERM that ends it."""
+    import queue
+    import threading
+    import urllib.request
+
+    from pepflowww_torch import serve_loadtest
+
+    cmd = [sys.executable, "-m", "pepflowww_torch.serve", "--synthetic_weights", "--port", "0",
+           "--dp"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    seen = []
+
+    def drain():
+        while not lines.empty():
+            seen.append(lines.get())
+
+    try:
+        port = None
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.0, 180.0 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                fail("dp serve: the CLI did not report its address within 180 s")
+            seen.append(line)
+            m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        start_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        name = card.split(",")[0].strip()
+        check(health.get("world_size") == 1 and health["device"].startswith("cuda")
+              and name in health["device"], f"dp serve: /healthz said {health}")
+        res = serve_loadtest.main(["--port", str(port), "--clients", "4", "--requests", "2",
+                                   "--num_samples", "8", "--num_steps", "100", "--pep_len",
+                                   str(SERVE_COMPLEX[0]), "--rec_len", str(SERVE_COMPLEX[1]),
+                                   "--timeout", "300"])
+        check(res["requests"] == 8 and res["errors"] == 0 and res["peptides"] == 64,
+              f"dp serve: load test {res}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(60)
+        time.sleep(0.5)
+        drain()
+        check(code == 0, f"dp serve: the CLI exited with {code} after SIGTERM")
+        groups = [(int(m.group(1)), int(m.group(2)), json.loads(m.group(3))) for m in (
+            re.search(r"group bucket=64 n=(\d+)/(\d+) steps=100 .* ranks=1 "
+                      r"rank0_launches=(\{.*\})", ln) for ln in seen) if m]
+        # The load test's 64 rows and its throwaway first request's 8.
+        check(sum(n for n, _, _ in groups) == 72, f"dp serve: groups {groups}")
+        for n, padded, launched in groups:
+            check(launched == {"edge_transition": 500, "distance_embed": 1},
+                  f"dp serve: a group of {n}/{padded} rows launched {launched}")
+        say("dp", f"serve CLI --dp: listening after {start_s:.2f} s, /healthz {health}; load "
+                  f"test {json.dumps(res)}; groups (rows/padded) "
+                  f"{[f'{n}/{p}' for n, p, _ in groups]}, each K2 500 and K3 1 on rank 0; "
+                  f"SIGTERM: exit 0 on {card}")
+        return {"edge_transition": 500 * len(groups), "distance_embed": len(groups)}
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        drain()
+        print("".join(seen), file=sys.stderr, flush=True)
+        raise
+
+
+def phase_dp(card: str, prod, ipa, ipa_yaml: str) -> dict:
+    """Data parallelism on the card (phase 8); returns the phase's launches
+    by kernel entry of the kernels' line, and the runs they come from."""
+    import csv
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native, sample
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.parallel import dist
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.optim import zero_nans
+    from pepflowww_torch.training.train_step import loss_and_total
+
+    t_phase = time.perf_counter()
+    prod_yaml = os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")
+    zero = dict.fromkeys(native.SOURCES, 0)
+    step = {"edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+            "distance_embed_bwd": 1}
+    fwd = {"edge_transition": 5, "distance_embed": 1}
+
+    def want_of(steps, vals, fused):
+        s = {**step, "ipa2": 6, "ipa2_bwd": 6} if fused else step
+        f = {**fwd, "ipa2": 6} if fused else fwd
+        return {**zero, **{k: steps * s.get(k, 0) + vals * f.get(k, 0) for k in s}}
+
+    # 1. The train CLI with --dp in a world of one over NCCL, then without.
+    root = os.path.join(OUT_DIR, "dp_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--synthetic", "--batch_size", "32", "--log_freq", "1"]
+    runs, launched = {}, {}
+    for tag, extra in (("dp", ["--dp"]), ("single", [])):
+        runs[tag], log, _ = _train_cli(f"dp train {tag}", prod_yaml, common + [
+            "--max_iters", "6", "--val_freq", "6", "--logdir", os.path.join(root, tag), *extra],
+            want_of(6, 2, False))
+        launched[tag] = dict(native.LAUNCHES)
+        check(f"world size: 1 | backend: {'nccl' if tag == 'dp' else None} |" in log,
+              f"dp train {tag}: no world size and backend line")
+    losses, sps = {}, {}
+    for tag, run in runs.items():
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = sps[tag] = [r for r in map(json.loads, f) if r["tag"] == "train"]
+        losses[tag] = {r["step"]: r["loss"] for r in recs}
+    check(set(losses["dp"]) == set(losses["single"]) == set(range(1, 7)), f"dp: {losses}")
+    gap = max(abs(losses["dp"][i] / losses["single"][i] - 1) for i in range(1, 7))
+    say("dp", f"train CLI --dp (world of one, NCCL) against the same run without --dp, B=32 "
+              f"L=64, 6 iterations: losses {[round(losses['dp'][i], 4) for i in range(1, 7)]} "
+              f"vs {[round(losses['single'][i], 4) for i in range(1, 7)]}, largest relative "
+              f"gap {gap:.3e} (limit {DP_RTOL}) on {card}")
+    check(gap <= DP_RTOL, "dp: the --dp losses left the single-process run's")
+    # ms/step of iterations 2-6 (the first warms the allocator), from the samples/s
+    # each logs: host data, the step and the log's one wait for the card.
+    ms = {tag: [1e3 * 32 / r["samples_per_sec"] for r in recs[1:]]
+          for tag, recs in sps.items()}
+    say("dp", "train CLI ms/step at iterations 2-6, B=32 L=64, production profile: "
+              + "; ".join(f"{tag} {', '.join(f'{t:.3f}' for t in ts)} (median "
+                          f"{float(np.median(ts)):.3f})" for tag, ts in ms.items())
+              + f" on {card}")
+    dirs = os.listdir(os.path.join(root, "dp"))
+    check(len(dirs) == 1 and os.path.isfile(os.path.join(root, "dp", dirs[0], "checkpoints",
+                                                         "6.pt")),
+          f"dp: run directories {dirs}, or no checkpoint 6.pt")
+    _, _, _ = _train_cli("dp train ipa", ipa_yaml, common + [
+        "--max_iters", "3", "--val_freq", "3", "--logdir", os.path.join(root, "ipa"), "--dp"],
+        want_of(3, 2, True))
+    launched["ipa"] = dict(native.LAUNCHES)
+    for ckpts in glob.glob(os.path.join(root, "*", "*", "checkpoints")):
+        shutil.rmtree(ckpts)   # 82 MB each: keep the output directory small
+
+    # 2. Two ranks sharing the card over gloo, B=16 each, against one process of B=32.
+    t0 = time.perf_counter()
+    ranks = dist.launch(_dp_rank, 2, ([prod_yaml, ipa_yaml],))
+    say("dp", f"two gloo ranks on the one card (two processes sharing one GPU, not a scaling "
+              f"figure): {time.perf_counter() - t0:.1f} s with their start on {card}")
+    dev = torch.device("cuda", 0)
+    tc = prod_train_cfg()
+    for i, (label, cfg, fused) in enumerate((("production", prod, False),
+                                             ("fused IPA", ipa, True))):
+        got = [r["train"][i] for r in ranks]
+        want_step = {**zero, **({**step, "ipa2": 6, "ipa2_bwd": 6} if fused else step)}
+        for r, g in enumerate(got):
+            check(g["rows"] == 16 and g["launches"] == want_step,
+                  f"dp {label} rank {r}: {g['rows']} rows, launched {g['launches']}, expected "
+                  f"{want_step}")
+        check(got[0]["digest"] == got[1]["digest"],
+              f"dp {label}: the two ranks' reduced gradients differ")
+        model = production_model(dev, cfg).train()
+        batch, _ = main_path_batch(dev, 32, seed=7)
+        noise = draw_noise(32, 64, torch.Generator(device=dev).manual_seed(8), dev)
+        total, _ = loss_and_total(model, batch, dict(tc["loss_weights"]), noise=noise)
+        total.backward()
+        total = float(total.detach())
+        zero_nans(model.parameters())
+        want_g = {n: p.grad.float() for n, p in model.named_parameters()}
+        G = float(torch.stack([g.norm() for g in want_g.values()]).norm())
+        m = got[0]["metrics"]
+        loss_gap, norm_gap = abs(m["loss"] / total - 1), abs(m["grad_norm"] / G - 1)
+        clip = min(1.0, float(tc["max_grad_norm"]) / (m["grad_norm"] + 1e-6))
+        worst, worst_name = 0.0, ""
+        for n, g in want_g.items():
+            dg = float((torch.from_numpy(got[0]["grads"][n]).to(dev) / clip - g).norm())
+            excess = dg / (STEP_REL * float(g.norm()) + STEP_ABS * G)
+            if excess > worst:
+                worst, worst_name = excess, n
+        say("dp", f"{label} step, two gloo ranks x B=16 against one process x B=32 (the same "
+                  f"weights and global noise): loss {m['loss']:.6f} vs {total:.6f} (gap "
+                  f"{loss_gap:.3e}), grad_norm {m['grad_norm']:.6f} vs {G:.6f} (gap "
+                  f"{norm_gap:.3e}), limit {DP_RTOL}; every parameter's gradient within "
+                  f"{STEP_REL} ||g|| + {STEP_ABS} x global, closest {worst_name} at {worst:.3f} "
+                  f"of it; reduced gradients bit-identical on both ranks "
+                  f"({got[0]['digest'][:12]}); launches a rank {got[0]['launches']} on {card}")
+        check(loss_gap <= DP_RTOL and norm_gap <= DP_RTOL and worst <= 1.0,
+              f"dp {label}: the two ranks' step left the single process's")
+        del model
+    want_s = {**zero, "edge_transition": 2 * 5 * DP_STEPS, "distance_embed": 2}
+    for r, res in enumerate(ranks):
+        check(res["sample_launches"] == want_s,
+              f"dp sampler rank {r}: launched {res['sample_launches']}, expected {want_s}")
+    check(ranks[0]["sampled"] == [(DP_SAMPLES, True)] * 2 and ranks[1]["sampled"] == [],
+          f"dp sampler: rank 0 gathered {ranks[0]['sampled']}")
+    say("dp", f"dp_euler_sample, two gloo ranks, 2 complexes x {DP_SAMPLES} samples (padded to "
+              f"4 rows), {DP_STEPS} steps: {DP_SAMPLES} finite rows a complex on rank 0; "
+              f"launches a rank {want_s} on {card}")
+
+    # 3. The sample CLI with --dp in a world of one.
+    out_dir = os.path.join(OUT_DIR, "dp_samples")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    sample.main(["--config", prod_yaml, "--synthetic", "--dp", "--num_samples", str(DP_SAMPLES),
+                 "--num_steps", str(DP_STEPS), "--max_complexes", "2", "--out", out_dir])
+    torch.cuda.synchronize()
+    launched["sample"] = dict(native.LAUNCHES)
+    check(launched["sample"] == want_s,
+          f"dp sample CLI: launched {launched['sample']}, expected {want_s}")
+    with open(os.path.join(out_dir, "outputs.csv")) as f:
+        rows = list(csv.DictReader(f))
+    per = {c: sum(r["id"] == c for r in rows) for c in ("synth0", "synth1")}
+    check(per == {"synth0": DP_SAMPLES, "synth1": DP_SAMPLES} and len(rows) == 2 * DP_SAMPLES
+          and all(np.isfinite(float(r["ca_rmsd"])) for r in rows),
+          f"dp sample CLI: outputs.csv rows {per}")
+    say("dp", f"sample CLI --dp (world of one): {per} rows in outputs.csv, finite; launches "
+              f"{launched['sample']}; {time.perf_counter() - t0:.1f} s on {card}")
+
+    # 4. The server with --dp as a process.
+    served = _dp_serve_cli(card)
+    say("dp", f"phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"edge_transition": (launched["sample"]["edge_transition"], "sample CLI --dp"),
+            "distance_embed": (launched["sample"]["distance_embed"], "sample CLI --dp"),
+            "edge_transition_k1": (launched["dp"]["edge_transition"], "train CLI --dp"),
+            "edge_transition_bwd": (launched["dp"]["edge_transition_bwd"], "train CLI --dp"),
+            "distance_embed_bwd": (launched["dp"]["distance_embed_bwd"], "train CLI --dp"),
+            "ipa2": (launched["ipa"]["ipa2"], "fused-IPA train CLI --dp"),
+            "ipa2_bwd": (launched["ipa"]["ipa2_bwd"], "fused-IPA train CLI --dp"),
+            "serve": served}
+
+
 def phase_eval(card: str):
-    """The evaluation CLI over the data phase's samples (phase 8)."""
+    """The evaluation CLI over the data phase's samples (phase 9)."""
     import csv
 
     import numpy as np
@@ -1710,7 +2047,7 @@ def _serve_burst(tag: str, state, clients: int, requests: int, samples: int) -> 
 
 
 def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: dict) -> dict:
-    """The server on the card (phase 9); returns the serve phase's launches
+    """The server on the card (phase 10); returns the serve phase's launches
     by kernel (in-process runs: ladder, load tests, two buckets, over-cap).
     `k_ms`: the kernels phase's ms a call by kernel, printed beside the
     serve shapes' device times."""
@@ -1766,10 +2103,11 @@ def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: 
     with _counted_sampler() as counted:
         native.reset_launch_counts()
         t0 = time.perf_counter()
-        res = _serve_burst("serve load", state, 8, 4, 8)
+        # 2 requests a client (the JAX tool's 4 halved) keep the script in its time.
+        res = _serve_burst("serve load", state, 8, 2, 8)
         wall = time.perf_counter() - t0
         merged = _serve_launch_check("serve load", counted.groups, prod_chunk, totals)
-    say("serve", f"load test (production, 8 clients x 4 requests x 8 samples, 100 steps, "
+    say("serve", f"load test (production, 8 clients x 2 requests x 8 samples, 100 steps, "
                  f"peptide {SERVE_COMPLEX[0]} + pocket {SERVE_COMPLEX[1]}, bucket 64): "
                  f"{json.dumps(res)}; {wall:.2f} s with its first request; groups (rows, the "
                  f"first request's first) {merged}; main phase's production B=64 L=64 "
@@ -1976,6 +2314,7 @@ def main():
     phase_train_int8(int8)
     phase_data(card, prod)
     phase_train_data(card, prod, ipa, ipa_yaml)
+    dp = phase_dp(card, prod, ipa, ipa_yaml)
     phase_eval(card)
     served = phase_serve(card, prod, int8, ipa, {
         "production": os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "int8": int8_yaml,
@@ -2017,6 +2356,10 @@ def main():
     for k in kernels:
         if k["name"] in ("edge_transition", "distance_embed", "edge_transition_int8", "ipa2"):
             k["serve_launches"] = served.get(k["name"], 0)
+        if k["name"] in dp:
+            k["dp_launches"], k["dp_run"] = dp[k["name"]]
+        if k["name"] in dp["serve"]:
+            k["dp_serve_launches"] = dp["serve"][k["name"]]
         if k["name"] == "edge_transition":
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":

@@ -7,6 +7,7 @@ sample, the per-sample metrics (``outputs.csv``) and their aggregate
         [--dataset_name pep_pocket_test] --out results/ --num_samples 64 \
         [--num_steps 100] [--ckpt logs/<run>/checkpoints] [--device cpu]
     python -m pepflowww_torch.sample --synthetic --out results/ [--ckpt model1.pt]
+    python -m pepflowww_torch.sample --dp ...   (or under torchrun)
 
 Complexes come from a PepMerge-style directory (``<id>/{peptide.pdb,
 pocket.pdb}``), preprocessed once into ``--dataset_dir`` (the cache reads in
@@ -20,6 +21,13 @@ For each complex: ``num_samples`` copies padded to its length bucket, one
 Euler sampler run, the metrics on the host, and ``<out>/<id>/sample_<i>.pdb``.
 ``outputs.csv`` has the columns id, sample, ca_rmsd, ca_rmsd_aligned, aar,
 tm_score.
+
+``--dp`` samples each complex's rows over the ranks of
+``parallel/dist.py`` (one a visible GPU, or torchrun's), each rank its
+contiguous block with its own generator (``sampling.dp_euler_sample``); a
+``num_samples`` the world size does not divide is padded with copies of
+the last row, which are dropped. Rank 0 gathers the outputs and alone
+scores them and writes the PDBs, ``outputs.csv`` and ``summary.json``.
 """
 
 from __future__ import annotations
@@ -55,30 +63,56 @@ def _parser():
     ap.add_argument("--dataset_name", default="pep_pocket_test")
     ap.add_argument("--max_complexes", type=int, default=None, help="default: all")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--dp", action="store_true",
+                    help="shard each complex's samples over the ranks (one a visible GPU)")
     return ap
 
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns {"rows", "summary", "runs"}, ``runs`` one
     {id, L, seconds, peptides_per_s, post_seconds} per complex: the
-    sampler's time, and the host's for the metrics and the PDBs."""
+    sampler's time, and the host's for the metrics and the PDBs (None on
+    a rank other than 0)."""
+    import sys
+
+    from pepflowww_torch.device import resolve_device
+    from pepflowww_torch.parallel import dist
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
     args = ap.parse_args(argv)
     if not args.synthetic and not (args.structure_dir and args.dataset_dir):
         ap.error("give --structure_dir and --dataset_dir, or --synthetic")
+    dev = resolve_device(args.device)
+    if not args.dp:
+        return _sample(args, dev)
+    world = dist.spawn_world(args.device)
+    if world > 1:
+        return dist.launch(main, world, (argv,))[0]
+    dev = dist.init(args.device)
+    try:
+        out = _sample(args, dev)
+        dist.barrier()
+    finally:
+        dist.destroy()
+    return out
+
+
+def _sample(args, dev: torch.device):
+    """The run of :func:`main` on this rank's device `dev`."""
 
     from pepflowww_torch import metrics as M
     from pepflowww_torch.config import load_config
     from pepflowww_torch.convert import read_torch_checkpoint
     from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
-    from pepflowww_torch.device import resolve_device
     from pepflowww_torch.inference import write_sample_pdbs
     from pepflowww_torch.models.flow import build_model
-    from pepflowww_torch.sampling import euler_sample
+    from pepflowww_torch.parallel import dist, dp
+    from pepflowww_torch.sampling import dp_euler_sample, euler_sample
     from pepflowww_torch.training.checkpoints import latest_checkpoint
 
-    dev = resolve_device(args.device)
     cfg = load_config(args.config)
+    primary = dist.is_primary()
 
     if args.synthetic:
         from pepflowww_torch.data.synthetic import make_complex
@@ -92,7 +126,8 @@ def main(argv=None) -> dict:
         ds = PepDataset(args.structure_dir, args.dataset_dir, name=args.dataset_name)
         n = len(ds) if args.max_complexes is None else min(len(ds), args.max_complexes)
         items = [ds[i] for i in range(n)]
-        print(f"dataset {args.dataset_name}: {len(ds)} complexes, sampling {n}")
+        if primary:
+            print(f"dataset {args.dataset_name}: {len(ds)} complexes, sampling {n}")
 
     sd = None
     if args.ckpt:
@@ -101,21 +136,25 @@ def main(argv=None) -> dict:
             raise FileNotFoundError(f"no checkpoint in {args.ckpt}")
         sd = read_torch_checkpoint(path)
     model = build_model(cfg, dev, state_dict=sd, seed=args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen = dp.rank_generator(args.seed, dist.rank(), dev)
+    sampler = dp_euler_sample if args.dp else euler_sample
 
-    os.makedirs(args.out, exist_ok=True)
+    if primary:
+        os.makedirs(args.out, exist_ok=True)
     rows, runs = [], []
     for item in items:
         batch_np = pad_and_collate(replicate_item(item, args.num_samples))
         batch = device_batch(batch_np, dev)
         L = int(batch["aa"].shape[1])
         t0 = time.perf_counter()
-        out = euler_sample(model, batch, gen, num_steps=args.num_steps,
-                           sample_bb=bool(args.sample_bb), sample_ang=bool(args.sample_ang),
-                           sample_seq=bool(args.sample_seq))
+        out = sampler(model, batch, gen, num_steps=args.num_steps,
+                      sample_bb=bool(args.sample_bb), sample_ang=bool(args.sample_ang),
+                      sample_seq=bool(args.sample_seq))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         sec = time.perf_counter() - t0
+        if not primary:
+            continue
         t0 = time.perf_counter()
         m = M.evaluate_sample(out, batch_np)
         for s in range(args.num_samples):
@@ -129,6 +168,8 @@ def main(argv=None) -> dict:
               f"aar={m['aar'].mean():.3f}, {sec:.2f} s ({args.num_samples / sec:.2f} "
               f"peptides/s on {dev}); metrics and PDBs {post:.2f} s")
 
+    if not primary:
+        return None
     csv_path = os.path.join(args.out, "outputs.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=list(CSV_COLUMNS))

@@ -20,10 +20,13 @@ kernel's epilogue).
 
 The JAX package's ``make_sampler`` closes over these arguments to microbatch
 a large batch with ``lax.map``; the port samples the whole batch in one
-pass, so callers call :func:`euler_sample` directly.
+pass, so callers call :func:`euler_sample` directly. :func:`dp_euler_sample`
+is the data-parallel sampler over the ranks of ``parallel/dist.py``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -132,3 +135,20 @@ def euler_sample(model: FlowModel, batch: dict, generator: torch.Generator,
     if return_traj:
         out["traj"] = {name: torch.stack([s[name] for s in traj]) for name in traj[0]}
     return out
+
+
+def dp_euler_sample(model: FlowModel, batch: dict, generator: torch.Generator,
+                    **kwargs) -> Optional[dict]:
+    """Data-parallel :func:`euler_sample` (counterpart of the JAX package's
+    ``make_best_dp_sampler`` with its manual sampler): `batch` is the whole
+    device batch on every rank; padded to a multiple of the world size
+    with copies of its last row, rank r samples its contiguous block with
+    its own `generator` (``dp.rank_generator(seed, r, device)``; a world of
+    one draws what a single process draws). Returns the outputs of every
+    row, gathered on the host of rank 0 in row order with the padding
+    dropped; None on the other ranks."""
+    from pepflowww_torch.parallel import dist, dp
+
+    n, world = int(batch["aa"].shape[0]), dist.world_size()
+    mine = dp.rank_rows(dp.pad_rows(batch, world), dist.rank(), world)
+    return dp.gather_rows(euler_sample(model, mine, generator, **kwargs), n)

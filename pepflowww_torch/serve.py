@@ -6,6 +6,7 @@ can see, and serves full-atom peptide codesign over HTTP.
 
 Endpoints:
     GET  /healthz             -> {"status": "ok", "device": "<torch device> <card>"}
+                                 (and "world_size": N under --dp)
     POST /sample              -> generated peptides for one pocket
         request JSON:
             pocket_pdb:   str   PDB text of the receptor pocket
@@ -26,6 +27,7 @@ Usage:
     python -m pepflowww_torch.serve --ckpt logs/<run>/checkpoints --port 8300
     python -m pepflowww_torch.serve --synthetic_weights --port 8300 --warmup 64
     python -m pepflowww_torch.serve --synthetic_weights --port 0 --device cpu
+    python -m pepflowww_torch.serve --dp ...   (or under torchrun)
 
 Runs on CUDA unless ``--device`` names another device, and raises without
 CUDA. Concurrent requests whose complexes fall in the same (length bucket,
@@ -33,6 +35,15 @@ num_steps) group are merged by :class:`BatchScheduler` into one sampler
 call of at most 64 rows (a larger request runs as 64-row chunks), padded to
 a power of two by replicating the last row. ``--warmup`` drives that path at
 every padded size from 1 to 64 rows, so no request meets a cold shape.
+
+``--dp`` serves over the ranks of ``parallel/dist.py`` (one a visible GPU,
+or torchrun's): rank 0 holds the HTTP server and the scheduler, whose merge
+cap becomes 64 x the world size and whose padded sizes are the world size
+times a power of two. One dispatching thread (:class:`Dispatcher`) hands
+each group to every rank in one order (collectives from two threads on one
+group are not ordered); each rank samples its contiguous block of the rows
+in 64-row chunks with its own generator, and rank 0 gathers the outputs
+and post-processes them on the host while the next group is dispatched.
 """
 
 from __future__ import annotations
@@ -40,8 +51,10 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import datetime
 import json
 import os
+import signal
 import tempfile
 import threading
 import time
@@ -52,12 +65,15 @@ import torch
 
 #: Rows of one sampler call: a larger group runs as sequential chunks.
 MICROBATCH = 64
+#: Under --dp the other ranks wait for rank 0's next group as long as the server runs.
+DP_TIMEOUT = datetime.timedelta(days=365)
 
 
 class ServeState:
     """What a server holds: the model on its device, the profile's name,
-    the scheduler (made by the first request) and the group counter that
-    seeds each group's generator."""
+    the scheduler (made by the first request), the group counter that
+    seeds each group's generator and, under ``--dp``, the world size and
+    the :class:`Dispatcher`."""
 
     def __init__(self, model, device: torch.device, profile: str):
         self.model, self.device, self.profile = model, device, profile
@@ -67,6 +83,8 @@ class ServeState:
         self.lock = threading.Lock()
         self.scheduler = None
         self.key_counter = 0
+        self.world = 1
+        self.dispatcher = None
 
 
 class _Server(ThreadingHTTPServer):
@@ -240,41 +258,107 @@ def _pad_rule(n_real: int, n_dev: int) -> int:
     return per_dev * n_dev
 
 
-def _group_pad_size(n_real: int) -> int:
-    return _pad_rule(n_real, 1)
+def _group_pad_size(n_real: int, n_dev: int = 1) -> int:
+    return _pad_rule(n_real, n_dev)
 
 
-def warmup_sizes(cap: int = MICROBATCH) -> list:
-    """Every padded group size the scheduler can produce: the image of
-    `_pad_rule` over real group sizes from 1 to the merge cap. The JAX
-    server starts its ladder at 8 rows, which leaves requests of fewer
-    samples cold; this one starts at 1."""
-    return sorted({_group_pad_size(n) for n in range(1, cap + 1)})
+def warmup_sizes(n_dev: int = 1, cap_per_dev: int = MICROBATCH) -> list:
+    """Every padded group size the scheduler can produce over `n_dev`
+    ranks: the image of `_pad_rule` over real group sizes from 1 to the
+    merge cap, ``cap_per_dev * n_dev``. The JAX server starts its ladder at
+    8 rows, which leaves requests of fewer samples cold; this one starts
+    at 1."""
+    return sorted({_group_pad_size(n, n_dev) for n in range(1, cap_per_dev * n_dev + 1)})
+
+
+def _sample_rows(model, device: torch.device, group: tuple):
+    """One rank's part of a group (bucket, steps, padded rows, seed): its
+    contiguous block of the rows through the group sampler, with its own
+    generator (without a process group, every row with the seed's).
+    Returns (every rank's outputs on rank 0's host, in row order, or None
+    on the other ranks; this rank's kernel launches during its sampling)."""
+    from pepflowww_torch import native
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate
+    from pepflowww_torch.parallel import dist, dp
+
+    bucket, steps, rows, seed = group
+    rank, world = dist.rank(), dist.world_size()
+    batch = device_batch(pad_and_collate(dp.rank_rows(rows, rank, world), pad_to=bucket), device)
+    before = dict(native.LAUNCHES)
+    out = _make_group_sampler(steps)(model, batch, dp.rank_generator(seed, rank, device))
+    # .cpu() waits for the card, so the server's split of a group's time is
+    # honest; the rebuild then runs on the host, beside the next group's
+    # device work.
+    out = {k: v.cpu() for k, v in out.items()}
+    launched = {k: v - before[k] for k, v in native.LAUNCHES.items() if v != before[k]}
+    return dp.gather_rows(out), launched
+
+
+class Dispatcher:
+    """Rank 0's side of ``--dp`` serving: one thread sends every group to
+    the other ranks (:func:`_rank_loop`) by a broadcast, samples rank 0's
+    rows and gathers the outputs, so that groups reach the ranks in one
+    order whatever thread submits them. While it runs, kernel launches on
+    rank 0 are this group's alone."""
+
+    def __init__(self, model, device: torch.device):
+        self.model, self.device = model, device
+        self._thread = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def run(self, group: tuple):
+        """:func:`_sample_rows`'s result for `group`, on rank 0."""
+        return self._thread.submit(self._run, group).result()
+
+    def _run(self, group):
+        from pepflowww_torch.parallel import dist
+
+        dist.broadcast_object(group)
+        return _sample_rows(self.model, self.device, group)
+
+    def close(self) -> None:
+        """Release the other ranks (their loops end) and the thread."""
+        from pepflowww_torch.parallel import dist
+
+        self._thread.submit(dist.broadcast_object, None).result()
+        self._thread.shutdown()
+
+
+def _rank_loop(model, device: torch.device) -> None:
+    """A rank other than 0 under ``--dp``: sample its rows of every group
+    rank 0 sends, until rank 0 sends None. It ignores SIGTERM and SIGINT
+    (torchrun and ``dist.launch`` send them to every rank): rank 0 stops
+    on them and then releases it."""
+    from pepflowww_torch.parallel import dist
+
+    for s in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(s, signal.SIG_IGN)
+    while (group := dist.broadcast_object(None)) is not None:
+        _sample_rows(model, device, group)
 
 
 def _run_group(state: ServeState, group_key, rows, contexts) -> list:
     """Execute one merged device batch; returns one result dict per row."""
     from pepflowww_torch import metrics as M
-    from pepflowww_torch.data.collate import device_batch, pad_and_collate
+    from pepflowww_torch.data.collate import pad_and_collate
     from pepflowww_torch.data.pdb import save_pdb
     from pepflowww_torch.inference import _chain_letters, reconstruct_full_atom_outputs
 
     bucket, steps = group_key
     n_real = len(rows)
-    n_padded = _group_pad_size(n_real)
+    n_padded = _group_pad_size(n_real, state.world)
     rows = rows + [rows[-1]] * (n_padded - n_real)
     batch_np = pad_and_collate(rows, pad_to=bucket)
-    batch = device_batch(batch_np, state.device)
-    fn = _make_group_sampler(steps)
     with state.lock:
         state.key_counter += 1
-        generator = torch.Generator(device=state.device).manual_seed(state.key_counter)
+        seed = state.key_counter
 
     t0 = time.perf_counter()
-    out = fn(state.model, batch, generator)
-    # .cpu() waits for the card, so the split below is honest; the rebuild
-    # then runs on the host, beside the next group's device work.
-    out = {k: v.cpu() for k, v in out.items()}
+    group = (bucket, steps, rows, seed)
+    if state.dispatcher is not None:
+        out, launched = state.dispatcher.run(group)
+        ranks = f" ranks={state.world} rank0_launches={json.dumps(launched)}"
+    else:
+        out, ranks = _sample_rows(state.model, state.device, group)[0], ""
     t1 = time.perf_counter()
     m = M.evaluate_sample(out, batch_np)
     t2 = time.perf_counter()
@@ -304,7 +388,7 @@ def _run_group(state: ServeState, group_key, rows, contexts) -> list:
     t4 = time.perf_counter()
     print(f"[serve] group bucket={bucket} n={n_real}/{n_padded} steps={steps} "
           f"sample={t1 - t0:.2f}s metrics={t2 - t1:.2f}s rebuild={t3 - t2:.2f}s "
-          f"pdb={t4 - t3:.2f}s", flush=True)
+          f"pdb={t4 - t3:.2f}s{ranks}", flush=True)
     return results
 
 
@@ -322,7 +406,7 @@ def _sample(state: ServeState, req: dict) -> dict:
         if state.scheduler is None:
             state.scheduler = BatchScheduler(
                 lambda key, rows, contexts: _run_group(state, key, rows, contexts),
-                max_batch=MICROBATCH)
+                max_batch=MICROBATCH * state.world)
     per_row = state.scheduler.submit((bucket, steps), replicate_item(item, n), req)
     return {
         "pdbs": [r["pdb"] for r in per_row],
@@ -345,7 +429,11 @@ class Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         if self.path == "/healthz":
-            self._json(200, {"status": "ok", "device": self.server.state.device_name})
+            state = self.server.state
+            health = {"status": "ok", "device": state.device_name}
+            if state.dispatcher is not None:
+                health["world_size"] = state.world
+            self._json(200, health)
         else:
             self._json(404, {"error": "unknown path"})
 
@@ -379,6 +467,9 @@ def _parser():
                     help="comma-separated length buckets (e.g. '64,96') to drive at every "
                          "group size from 1 to 64 rows, 100 steps, before serving")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--dp", action="store_true",
+                    help="serve data-parallel over the ranks (one a visible GPU): merged "
+                         "groups split over them, the merge cap 64 x the world size")
     return ap
 
 
@@ -391,32 +482,44 @@ def _profile(cfg) -> str:
     return "production" if ipa.use_pallas else "plain"
 
 
-def start(args, model=None) -> ServeState:
-    """The server's state from parsed flags: the device, the model of
-    ``--config`` (or `model`, already on that device) and, with
-    ``--warmup``, every ladder size of each bucket driven once through
-    :func:`_run_group`, its seconds printed."""
+def _load_model(args, dev: torch.device):
+    """The model of ``--config`` on `dev`, weights from ``--ckpt`` or ``--seed``."""
     from pepflowww_torch.config import load_config
+    from pepflowww_torch.convert import read_torch_checkpoint
+    from pepflowww_torch.models.flow import build_model
+    from pepflowww_torch.training.checkpoints import latest_checkpoint
+
+    sd = None
+    if args.ckpt:
+        path = latest_checkpoint(args.ckpt) if os.path.isdir(args.ckpt) else args.ckpt
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {args.ckpt}")
+        sd = read_torch_checkpoint(path)
+    elif not args.synthetic_weights:
+        print("[serve] WARNING: no checkpoint given; serving random weights", flush=True)
+    return build_model(load_config(args.config), dev, state_dict=sd, seed=args.seed)
+
+
+def start(args, model=None, device=None, dispatcher=None) -> ServeState:
+    """The server's state from parsed flags: the device (`device`, else
+    ``--device``), the model of ``--config`` (or `model`, already on that
+    device), under ``--dp`` the `dispatcher` to the ranks of the
+    initialized process group and, with ``--warmup``, every ladder size of
+    each bucket driven once through :func:`_run_group`, its seconds
+    printed."""
     from pepflowww_torch.device import resolve_device
+    from pepflowww_torch.parallel import dist
 
-    dev = resolve_device(args.device)
-    cfg = load_config(args.config) if model is None else model.cfg
+    dev = device if device is not None else resolve_device(args.device)
     if model is None:
-        from pepflowww_torch.convert import read_torch_checkpoint
-        from pepflowww_torch.models.flow import build_model
-        from pepflowww_torch.training.checkpoints import latest_checkpoint
-
-        sd = None
-        if args.ckpt:
-            path = latest_checkpoint(args.ckpt) if os.path.isdir(args.ckpt) else args.ckpt
-            if path is None:
-                raise FileNotFoundError(f"no checkpoint in {args.ckpt}")
-            sd = read_torch_checkpoint(path)
-        elif not args.synthetic_weights:
-            print("[serve] WARNING: no checkpoint given; serving random weights", flush=True)
-        model = build_model(cfg, dev, state_dict=sd, seed=args.seed)
-    state = ServeState(model, dev, _profile(cfg))
-    print(f"[serve] {state.profile} profile on {state.device_name}", flush=True)
+        model = _load_model(args, dev)
+    state = ServeState(model, dev, _profile(model.cfg))
+    if dispatcher is not None:
+        state.world, state.dispatcher = dist.world_size(), dispatcher
+        print(f"[serve] {state.profile} profile on {state.device_name}, data-parallel over "
+              f"{state.world} ranks", flush=True)
+    else:
+        print(f"[serve] {state.profile} profile on {state.device_name}", flush=True)
 
     if args.warmup:
         from pepflowww_torch.data.collate import replicate_item
@@ -425,7 +528,7 @@ def start(args, model=None) -> ServeState:
         rng = np.random.default_rng(0)
         for bucket in (int(b) for b in args.warmup.split(",")):
             item = make_complex(rng, pep_len=8, rec_len=max(bucket - 24, 8))
-            for n in warmup_sizes():
+            for n in warmup_sizes(state.world):
                 t0 = time.perf_counter()
                 _run_group(state, (bucket, 100), replicate_item(item, n), [None])
                 print(f"[serve] warmed bucket {bucket} n={n} (100 steps, "
@@ -434,8 +537,47 @@ def start(args, model=None) -> ServeState:
 
 
 def main(argv=None):
+    import sys
+
+    from pepflowww_torch.device import resolve_device
+    from pepflowww_torch.parallel import dist
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    state = start(args)
+    if not args.dp:
+        _serve(args, start(args))
+        return
+    resolve_device(args.device)
+    world = dist.spawn_world(args.device)
+    if world > 1:
+        dist.launch(main, world, (argv,))
+        return
+    dev = dist.init(args.device, timeout=DP_TIMEOUT)
+    try:
+        model = _load_model(args, dev)
+        if not dist.is_primary():
+            _rank_loop(model, dev)
+            return
+        dispatcher = Dispatcher(model, dev)
+        # SIGTERM ends serve_forever through the finally below, which
+        # releases the other ranks.
+        signal.signal(signal.SIGTERM, _raise_interrupt)
+        try:
+            _serve(args, start(args, model, dev, dispatcher))
+        except KeyboardInterrupt:
+            print("[serve] stopping", flush=True)
+        finally:
+            dispatcher.close()
+    finally:
+        dist.destroy()
+
+
+def _raise_interrupt(signum, frame):
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)   # a second SIGTERM ends the process
+    raise KeyboardInterrupt
+
+
+def _serve(args, state: ServeState) -> None:
     server = _Server((args.host, args.port), state)
     host, port = server.server_address[:2]
     print(f"[serve] listening on http://{host}:{port}", flush=True)

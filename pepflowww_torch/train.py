@@ -10,6 +10,10 @@ scheduler, and checkpoints in the reference layout.
         [--logdir ./logs] [--tag T] [--resume CKPT] [--debug] [--use_wandb] \
         [--profile_dir DIR] [--device cpu]
     python -m pepflowww_torch.train --config ... --synthetic [...]
+    python -m pepflowww_torch.train --dp [--dp_manual] ...
+    torchrun --nproc_per_node N -m pepflowww_torch.train --dp ...
+    python -m pepflowww_torch.train --multihost --coordinator_address HOST:PORT \
+        --num_processes N --process_id I ...
 
 Runs on CUDA unless ``--device`` names another device.
 
@@ -34,8 +38,22 @@ config, ``commit.txt``, ``log.txt`` and ``metrics.jsonl`` (mirrored to
 wandb with ``--use_wandb`` where the package is installed); ``--debug``
 logs to the console only (the run directory then holds only checkpoints).
 ``--profile_dir`` writes a ``torch.profiler`` trace (CPU and CUDA
-activity) of iterations first+10 to first+15 to ``DIR/trace.json``. The
-multi-device flags come with a later slice.
+activity) of iterations first+10 to first+15 to ``DIR/trace.json``.
+
+Data parallelism. ``--dp`` trains one replica a rank (``parallel/dist.py``:
+torchrun's environment, ``--multihost`` with its rendezvous flags, or else
+one rank a visible GPU, spawned here; NCCL between GPUs, gloo between CPU
+processes). ``--batch_size`` is per rank; each rank takes its contiguous
+block of every global batch (the loader's ``num_shards``/``shard_index``;
+synthetic batches are drawn for the global batch and split). The step
+(``train_step``) draws the global batch's corruption from one seed on
+every rank, averages the gradients, and reports global losses, so a run
+of N ranks follows the single-process run at N times the batch.
+``--dp_manual`` is the JAX package's manual step: each rank draws its own
+corruption (``dp.rank_seed``) and rescues its own non-finite step. Every
+rank validates on the whole split; rank 0 alone writes the run directory
+(its path broadcast), the metrics, the checkpoints and the trace. SIGTERM
+on any rank checkpoints and stops every rank at the next iteration.
 """
 
 from __future__ import annotations
@@ -79,26 +97,64 @@ def _parser():
     ap.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler trace of iterations first+10 to first+15 here")
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel: one replica a rank, gradients averaged over ranks")
+    ap.add_argument("--dp_manual", action="store_true",
+                    help="with --dp: each rank draws its own corruption noise and rescues its "
+                         "own non-finite step (the JAX package's manual DP step)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join ranks of other processes or hosts (implies --dp): torchrun's "
+                         "environment, or the three flags below")
+    ap.add_argument("--coordinator_address", default=None, help="HOST:PORT of rank 0")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
     return ap
 
 
 def main(argv=None):
     """Runs the CLI; returns the run directory."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
     args = ap.parse_args(argv)
     if not args.synthetic and not (args.structure_dir and args.dataset_dir):
         ap.error("give --structure_dir and --dataset_dir, or --synthetic")
+    if args.dp_manual and args.multihost:
+        raise SystemExit("--dp_manual is single-process; drop it or drop --multihost")
+    args.dp = args.dp or args.dp_manual or args.multihost
+    from pepflowww_torch.device import resolve_device
+    from pepflowww_torch.parallel import dist
 
+    dev = resolve_device(args.device)
+    if not args.dp:
+        return _train(args, dev)
+    world = dist.spawn_world(args.device, args.multihost)
+    if world > 1:
+        return dist.launch(main, world, (argv,))[0]
+    dev = dist.init(args.device, multihost=args.multihost,
+                    coordinator_address=args.coordinator_address,
+                    num_processes=args.num_processes, process_id=args.process_id)
+    try:
+        run_dir = _train(args, dev)
+        dist.barrier()
+    finally:
+        dist.destroy()
+    return run_dir
+
+
+def _train(args, dev: torch.device) -> str:
+    """The run of :func:`main` on this rank's device `dev`."""
     from pepflowww_torch.config import load_train_config
     from pepflowww_torch.data.collate import device_batch
-    from pepflowww_torch.device import resolve_device
     from pepflowww_torch.models.flow import FlowModel, init_weights
+    from pepflowww_torch.parallel import dist, dp
     from pepflowww_torch.training import checkpoints
     from pepflowww_torch.training.optim import Optimizer, PlateauScheduler
     from pepflowww_torch.training.train_step import loss_and_total, train_step
     from pepflowww_torch.utils import misc
 
-    dev = resolve_device(args.device)
+    rank, world, primary = dist.rank(), dist.world_size(), dist.is_primary()
     model_cfg, cfg, cfg_name = load_train_config(args.config)
     train_cfg = cfg["train"]
     seed = int(train_cfg["seed"])
@@ -109,9 +165,13 @@ def main(argv=None):
     batch_size = int(args.batch_size or train_cfg["batch_size"])
     max_iters = args.max_iters or int(train_cfg["max_iters"])
 
-    run_dir = misc.get_new_log_dir(args.logdir, prefix=cfg_name, tag=args.tag)
+    # One run directory, made by rank 0, however many ranks train.
+    run_dir = dist.broadcast_object(
+        misc.get_new_log_dir(args.logdir, prefix=cfg_name, tag=args.tag) if primary else None)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    if args.debug:
+    if not primary:
+        logger, metrics = misc.BlackHole(), misc.BlackHole()
+    elif args.debug:
         logger, metrics = misc.get_logger("train"), misc.BlackHole()
     else:
         logger = misc.get_logger("train", run_dir)
@@ -128,11 +188,12 @@ def main(argv=None):
         rng = np.random.default_rng(seed)
 
         def synthetic(r):
-            return make_batch(r, batch_size=batch_size, pep_len=12, rec_len=48, pad_to=64)
+            return make_batch(r, batch_size=batch_size * world, pep_len=12, rec_len=48,
+                              pad_to=64)
 
         val_rng = np.random.default_rng(seed + 7919)
         val_loader = [synthetic(val_rng) for _ in range(2)]
-        train_iter = (synthetic(rng) for _ in iter(int, 1))
+        train_iter = (dp.rank_rows(synthetic(rng), rank, world) for _ in iter(int, 1))
         n_train = -1
     else:
         from pepflowww_torch.data.dataset import DataLoader, PepDataset
@@ -140,8 +201,8 @@ def main(argv=None):
         dataset = PepDataset(args.structure_dir, args.dataset_dir, name=args.dataset_name,
                              exclude_names_file=args.exclude_names)
         n_train = len(dataset)
-        train_iter = DataLoader(dataset, batch_size=batch_size, shuffle=True,
-                                seed=seed).prefetch()
+        train_iter = DataLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
+                                num_shards=world, shard_index=rank).prefetch()
         val_loader = None
         if args.val_dataset_name:
             val_dataset = PepDataset(args.val_structure_dir or args.structure_dir,
@@ -152,7 +213,8 @@ def main(argv=None):
     model = FlowModel(model_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(dev).train()
-    logger.info("Device: %s | train size: %d | run dir: %s", dev, n_train, run_dir)
+    logger.info("Device: %s | world size: %d | backend: %s | train size: %d | run dir: %s",
+                dev, world, dist.backend(), n_train, run_dir)
     logger.info("Number of parameters: %d", misc.count_parameters(model))
 
     optimizer = Optimizer(model.parameters(), train_cfg["optimizer"], train_cfg["max_grad_norm"],
@@ -164,7 +226,9 @@ def main(argv=None):
         it_first = checkpoints.restore_checkpoint(args.resume, model, optimizer, sched) + 1
         logger.info("Resumed from %s at iteration %d", args.resume, it_first)
     loss_weights = dict(train_cfg["loss_weights"])
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    # The global step draws the global batch's noise from one seed on every
+    # rank; the manual step draws each rank's own.
+    generator = dp.rank_generator(seed, rank if args.dp_manual else 0, dev)
 
     def validate(it):
         """Mean weighted loss over the validation split, in eval mode."""
@@ -202,7 +266,7 @@ def main(argv=None):
         batch = device_batch(next(train_iter), dev)
         t0, seen = time.time(), 0
         for it in range(it_first, max_iters + 1):
-            if args.profile_dir and it == it_first + 10:
+            if args.profile_dir and primary and it == it_first + 10:
                 from torch.profiler import ProfilerActivity, profile
 
                 activities = [ProfilerActivity.CPU]
@@ -212,8 +276,9 @@ def main(argv=None):
                 prof.start()
             if prof is not None and it == it_first + 15:
                 prof = _stop_profile(prof, args.profile_dir, logger)
-            m = train_step(model, optimizer, batch, loss_weights, generator)
-            seen += int(batch["aa"].shape[0])
+            m = train_step(model, optimizer, batch, loss_weights, generator,
+                           manual=args.dp_manual)
+            seen += int(batch["aa"].shape[0]) * world
             if it % args.log_freq == 0:
                 m = {k: float(v) for k, v in m.items()}
                 m["samples_per_sec"] = seen / (time.time() - t0)
@@ -225,8 +290,11 @@ def main(argv=None):
                     step_scheduler(m["loss"])
                 t0, seen = time.time(), 0
             if val_loader is not None and it % val_freq == 0:
-                step_scheduler(validate(it))
-            if it % val_freq == 0 or stop["flag"]:
+                # Rank 0's value, so that every rank's learning rate moves alike.
+                step_scheduler(dist.broadcast_object(validate(it)))
+            if args.dp:
+                stop["flag"] = dist.any_flag(stop["flag"])
+            if (it % val_freq == 0 or stop["flag"]) and primary:
                 path = checkpoints.save_checkpoint(ckpt_dir, it, model, optimizer, sched, cfg)
                 logger.info("checkpoint -> %s", path)
             if stop["flag"]:

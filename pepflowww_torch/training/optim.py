@@ -57,6 +57,7 @@ class Optimizer:
         self.accum_grad = int(accum_grad)
         self.mini_step = 0
         self.acc = None
+        self._flat, self._views = None, []
 
     @property
     def lr(self) -> float:
@@ -67,8 +68,28 @@ class Optimizer:
         for group in self.opt.param_groups:
             group["lr"] = value
 
-    def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
+    def flat_grads(self, extra: int = 0) -> torch.Tensor:
+        """Zero the gradients as one buffer: every parameter's ``.grad`` a
+        view of it, in parameter order, and `extra` slots after them. A
+        backward then accumulates into the buffer in place, so one
+        collective reduces every gradient with no copy in or out (the
+        buffer is kept, and the views set again where anything else replaced
+        a gradient)."""
+        n = sum(p.numel() for p in self.params)
+        if self._flat is None or self._flat.numel() != n + extra:
+            p0 = self.params[0]
+            self._flat = torch.zeros(n + extra, dtype=p0.dtype, device=p0.device)
+            offsets = [0]
+            for p in self.params:
+                offsets.append(offsets[-1] + p.numel())
+            self._views = [self._flat[o:o + p.numel()].view_as(p)
+                           for o, p in zip(offsets, self.params)]
+        else:
+            self._flat.zero_()
+        for p, v in zip(self.params, self._views):
+            if p.grad is not v:
+                p.grad = v
+        return self._flat
 
     def step(self) -> bool:
         for p in self.params:

@@ -58,6 +58,31 @@ def test_serve_cli_without_cuda_raises_and_binds_no_port(monkeypatch):
     assert bound == []
 
 
+def test_dp_flags_and_dp_without_cuda_raise(monkeypatch, tmp_path):
+    """The multi-device flags of the three CLIs, under the JAX CLIs' names;
+    with ``--dp`` and without CUDA each raises before it starts a rank,
+    spawns one or binds a port."""
+    from pepflowww_torch import sample, serve, train
+    from pepflowww_torch.parallel import dist
+
+    assert {"--dp", "--dp_manual", "--multihost", "--coordinator_address", "--num_processes",
+            "--process_id"} <= set(train._parser()._option_string_actions)
+    assert "--dp" in sample._parser()._option_string_actions
+    assert "--dp" in serve._parser()._option_string_actions
+    _no_cuda(monkeypatch)
+    started = []
+    monkeypatch.setattr(dist, "init", lambda *a, **k: started.append(("init", a)))
+    monkeypatch.setattr(dist, "launch", lambda *a, **k: started.append(("launch", a)))
+    monkeypatch.setattr(serve, "_Server", lambda *a, **k: started.append(("bind", a)))
+    for argv, main in ((["--synthetic", "--dp", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--multihost", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--dp", "--out", str(tmp_path)], sample_main),
+                       (["--synthetic_weights", "--dp", "--port", "0"], serve.main)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert started == [] and not any(tmp_path.iterdir())
+
+
 def test_sample_cli_on_cpu_writes_pdbs(tmp_path, capsys):
     """The production profile (configs/learn_angle_tpu.yaml: 6 blocks, bf16,
     kernels on) on the CPU, where the kernels take their plain versions."""

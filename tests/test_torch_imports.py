@@ -26,3 +26,30 @@ def test_port_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_dp_modules_load_no_jax():
+    """The data-parallel modules, at run time in a fresh interpreter: a
+    one-rank gloo group started and ended, a batch split and a rank seed
+    drawn, and no JAX module and no JAX-package module in sys.modules."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "from pepflowww_torch import sample, sampling, serve, train\n"
+        "from pepflowww_torch.parallel import dist, dp\n"
+        "from pepflowww_torch.training import train_step\n"
+        "from pepflowww_torch.utils import misc\n"
+        "assert dist.init('cpu') == torch.device('cpu') and dist.world_size() == 1\n"
+        "assert dist.broadcast_object('x') == 'x' and not dist.any_flag(False)\n"
+        "assert dp.rank_rows(torch.arange(6), 1, 3).tolist() == [2, 3]\n"
+        "assert dp.rank_seed(5, 0) == 5 != dp.rank_seed(5, 1)\n"
+        "dist.destroy()\n"
+        f"print(sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
