@@ -130,12 +130,33 @@ Phases, each on its own lines:
    4 clients x 2 requests x 8 samples all answered, K2 500 and K3 1 a
    group on rank 0 (its log), and a SIGTERM that ends it with code 0.
    Outputs: chiprun_out/{dp_logs,dp_samples}.
-9. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
+9. fsdp_tp: FSDP and pair-row TP (``parallel/fsdp.py``, ``parallel/tp.py``)
+   at full width. The train CLI in-process with ``--fsdp``, a world of one
+   over NCCL: launches exact as the dp phase's (6 steps and 2 validation
+   forwards; the fused-IPA profile 3 and 2), the losses within FSDP_RTOL of
+   the dp phase's unsharded runs at every iteration; with ``--tp 1`` the
+   JAX rule's warning, no kernel launched, and the losses within FSDP_RTOL
+   of a ``use_pallas: false`` run's. Then two ranks spawned on the one card
+   over gloo (gloo must take CUDA tensors in the all-gather and the
+   reduce-scatter; a refusal fails the phase with its message): ``--fsdp``
+   at B=16 each against one process at B=32 (loss and grad_norm within
+   DP_RTOL, every gradient within STEP_REL/STEP_ABS; a rank's block and moments, 12 bytes an element of
+   its block, and its ``memory_allocated`` at most 0.55 of one
+   process's; no storage behind the whole parameters); ``--tp 2`` at B=32
+   L=128, the plain profile, against one process (the same limits; every
+   EdgeTransition and IPA fed (32, 64, 128, 64); peak memory a rank beside
+   one process's, printed); the TP sampler of the fp32 plain profile
+   against one process's at the same seed (trans and rotations within
+   5e-5, tokens equal). The server as a process with ``--tp 1``: its
+   warning, /healthz with the grid, one request of 8 samples × 20 steps
+   answered with no kernel launched, SIGTERM exit 0. Outputs:
+   chiprun_out/fsdp_tp_logs.
+10. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
    samples (6 complexes x 32 PDBs) against its structures, with ``--tools
    ss`` (the Ramachandran fallback) and ``--tools auto``: 192 rows with a
    finite ``ss_recovery``, every absent tool recorded as unavailable, the
    wall time, and no kernel launched.
-10. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
+11. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
    as a process with the production YAML (its address read from its
    output): ``/healthz`` names cuda and the card, a request without a
    native peptide (12 residues, 2 samples, 100 steps) returns 2 PDBs with
@@ -171,7 +192,12 @@ the serve phase's in-process runs (the CLI's process counts its own). The
 kernels of the dp phase give ``dp_launches`` and ``dp_run``, their
 launches in its run named there (K2 and K3 the sample CLI's, K1, K4 and
 K5 the production train CLI's, K7 and K8 the fused-IPA train CLI's), and
-K2 and K3 ``dp_serve_launches``, rank 0's in the ``--dp`` server.
+K2 and K3 ``dp_serve_launches``, rank 0's in the ``--dp`` server. Every
+kernel gives ``fsdp_launches``, its launches in the fsdp_tp phase's
+``--fsdp`` train CLI runs (K1, K3, K4 and K5 the production one's, K7 and
+K8 the fused-IPA one's; the others none: the step has no readout), and
+``tp_launches``, its launches in every ``--tp`` run of that phase (none:
+the model is built without its kernels).
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -1729,10 +1755,12 @@ def phase_dp(card: str, prod, ipa, ipa_yaml: str) -> dict:
     check(len(dirs) == 1 and os.path.isfile(os.path.join(root, "dp", dirs[0], "checkpoints",
                                                          "6.pt")),
           f"dp: run directories {dirs}, or no checkpoint 6.pt")
-    _, _, _ = _train_cli("dp train ipa", ipa_yaml, common + [
+    runs["ipa"], _, _ = _train_cli("dp train ipa", ipa_yaml, common + [
         "--max_iters", "3", "--val_freq", "3", "--logdir", os.path.join(root, "ipa"), "--dp"],
         want_of(3, 2, True))
     launched["ipa"] = dict(native.LAUNCHES)
+    with open(os.path.join(runs["ipa"], "metrics.jsonl")) as f:
+        losses["ipa"] = {r["step"]: r["loss"] for r in map(json.loads, f) if r["tag"] == "train"}
     for ckpts in glob.glob(os.path.join(root, "*", "*", "checkpoints")):
         shutil.rmtree(ckpts)   # 82 MB each: keep the output directory small
 
@@ -1821,11 +1849,472 @@ def phase_dp(card: str, prod, ipa, ipa_yaml: str) -> dict:
             "distance_embed_bwd": (launched["dp"]["distance_embed_bwd"], "train CLI --dp"),
             "ipa2": (launched["ipa"]["ipa2"], "fused-IPA train CLI --dp"),
             "ipa2_bwd": (launched["ipa"]["ipa2_bwd"], "fused-IPA train CLI --dp"),
-            "serve": served}
+            "serve": served, "losses": losses}
+
+
+# The fsdp_tp phase: the --fsdp train CLI's losses in a world of one against
+# the dp phase's runs (one data rank: the same arithmetic, the clip's norm
+# summed in float64 over the flat block instead of the flat buffer), and the
+# --tp 1 run's against the plain profile's without it (the same model and
+# code path), within this relative gap at every iteration.
+FSDP_RTOL = 1e-5
+# (samples, steps) of the TP sampler's and the --tp 1 server's runs.
+TP_SAMPLES, TP_STEPS = 8, 20
+
+
+def _settled_bytes(dev) -> int:
+    """``torch.cuda.memory_allocated`` once freed tensors are returned: the
+    caching allocator counts a freed block that a collective's stream used
+    until its event is seen, which it checks on the next allocation."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.empty(1, device=dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _warm_blas(dev) -> None:
+    """A float32 and a bf16 Linear's forward and backward: the matrix
+    libraries' workspaces (32 MiB a handle on this card, one for the
+    forward's thread and one for the backward's) exist before a
+    measurement of what the model itself holds."""
+    import torch
+
+    for dt in (torch.float32, torch.bfloat16):
+        lin = torch.nn.Linear(64, 64, device=dev, dtype=dt)
+        lin(torch.randn(64, 64, device=dev, dtype=dt, requires_grad=True)).sum().backward()
+    torch.cuda.synchronize(dev)
+
+
+def _fsdp_tp_rank(prod_yaml: str, plain32_yaml: str) -> dict:
+    """One of two ranks on card 0 over gloo (phase "fsdp_tp", step 2):
+    whether gloo takes CUDA tensors in the two collectives FSDP uses; one
+    ``--fsdp`` step of its 16 rows of the B=32 L=64 batch (launches,
+    metrics, the state it holds, rank 0's gradients); one ``--tp 2`` step
+    of the B=32 L=128 batch, plain profile (the pair rows its
+    EdgeTransitions and IPAs received, its peak memory, rank 0's
+    gradients); the TP sampler of the fp32 plain profile."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
+    from pepflowww_torch.data.synthetic import make_complex
+    from pepflowww_torch.models.flow import build_model, draw_noise
+    from pepflowww_torch.models.ipa import EdgeTransition, InvariantPointAttention
+    from pepflowww_torch.parallel import dist, dp, fsdp, tp
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.sampling import dp_euler_sample
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    dev = dist.init("cuda:0", backend="gloo")
+    rank = dist.rank()
+    out = {"rank": rank, "probe": {}}
+    for name, size, fn in (("all_gather", 8, dist.all_gather_into),
+                           ("reduce_scatter", 2, dist.reduce_scatter_into)):
+        try:
+            fn(torch.empty(size, device=dev), torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            raise RuntimeError(f"gloo refuses CUDA tensors in {name}: {e}") from e
+        out["probe"][name] = "takes CUDA tensors"
+    tc = prod_train_cfg()
+    weights = dict(tc["loss_weights"])
+
+    def grads_of(model, opt, m):
+        clip = min(1.0, float(tc["max_grad_norm"]) / (m["grad_norm"] + 1e-6))
+        names = [n for n, _ in model.named_parameters()]
+        if opt.sharded:
+            per = opt._per_param(opt.shard.grad)
+        else:
+            per = [p.grad.float().cpu() for _, p in model.named_parameters()]
+        return {n: g.numpy() / clip for n, g in zip(names, per)}
+
+    # 1. --fsdp: two data ranks, B=16 each.
+    dist.setup_grid(1)
+    _warm_blas(dev)
+    base = _settled_bytes(dev)
+    model = production_model(dev, load_config(prod_yaml)).train()
+    opt = fsdp.ShardedOptimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    prepared = _settled_bytes(dev) - base
+    batch, _ = main_path_batch(dev, 32, seed=7)
+    noise = draw_noise(32, 64, torch.Generator(device=dev).manual_seed(8), dev)
+    rows = dp.rank_rows(batch, rank, 2)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    m = train_step(model, opt, rows, weights, noise=noise)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    m = {k: float(v) for k, v in m.items()}
+    grads = grads_of(model, opt, m)   # every rank: the blocks are gathered
+    grads = grads if rank == 0 else None
+    opt.shard.grad = None
+    del rows, noise, batch
+    held = _settled_bytes(dev) - base
+    big = sorted(b["size"] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+                 if b["state"] == "active_allocated" and b["size"] >= 1 << 20)
+    m2 = train_step(model, opt, dp.rank_rows(main_path_batch(dev, 32, seed=7)[0], rank, 2),
+                    weights, noise=draw_noise(32, 64, torch.Generator(device=dev).manual_seed(8),
+                                              dev))
+    del m2
+    opt.shard.grad = None
+    held2 = _settled_bytes(dev) - base
+    moments = [v for k, v in opt.opt.state[opt.shard].items() if k != "step"]
+    out["fsdp"] = {"launches": launches, "metrics": m, "grads": grads, "held_bytes": held,
+                   "prepared_bytes": prepared, "held2_bytes": held2, "big_blocks": big,
+                   "state_bytes": 4 * (opt.shard.numel() + sum(v.numel() for v in moments)),
+                   "numel": opt.numel, "span": opt.span, "block": opt.shard.numel(),
+                   "param_bytes": sum(p.untyped_storage().nbytes() for p in model.parameters())}
+    del model, opt, moments
+    torch.cuda.empty_cache()
+
+    # 2. --tp 2: one data rank of two model ranks, B=32 L=128, the plain profile.
+    dist.setup_grid(2)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        plain = tp.plain_profile(load_config(prod_yaml))
+    model = production_model(dev, plain).train()
+    seen = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (EdgeTransition, InvariantPointAttention)):
+            mod.register_forward_hook(
+                lambda mod, args, o, name=name: seen.append(tuple(args[1].shape)))
+    opt = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    batch, _ = main_path_batch(dev, 32, seed=7, complex_=(12, 116, 128))
+    noise = draw_noise(32, 128, torch.Generator(device=dev).manual_seed(8), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = train_step(model, opt, batch, weights, noise=noise)
+    torch.cuda.synchronize()
+    m = {k: float(v) for k, v in m.items()}
+    out["tp"] = {"launches": dict(native.LAUNCHES), "metrics": m, "seen": sorted(set(seen)),
+                 "calls": len(seen), "seconds": time.perf_counter() - t0,
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                 "warnings": [str(r.message) for r in rec],
+                 "grads": grads_of(model, opt, m) if rank == 0 else None}
+    del model, opt, batch, noise
+    torch.cuda.empty_cache()
+
+    # 3. The TP sampler, fp32 plain profile, one data rank of two model ranks.
+    model = build_model(load_config(plain32_yaml), dev, seed=0)
+    item = make_complex(np.random.default_rng(0), pep_len=12, rec_len=48, complex_id="tp")
+    sb = device_batch(pad_and_collate(replicate_item(item, TP_SAMPLES)), dev)
+    native.reset_launch_counts()
+    o = dp_euler_sample(model, sb, dp.rank_generator(0, dist.grid().data_rank, dev),
+                        num_steps=TP_STEPS)
+    torch.cuda.synchronize()
+    out["sample_launches"] = dict(native.LAUNCHES)
+    out["sample"] = None if o is None else {k: v.numpy() for k, v in o.items()}
+    return out
+
+
+def _tp_serve_cli(card: str) -> dict:
+    """``python -m pepflowww_torch.serve --tp 1`` as a process on the card:
+    its warning and start-up line, /healthz with the grid, one request of
+    TP_SAMPLES samples and TP_STEPS steps answered with no kernel launched
+    on rank 0, and a SIGTERM that ends it."""
+    import queue
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from pepflowww_torch.data.collate import mask_select_data
+    from pepflowww_torch.data.pdb import save_pdb
+    from pepflowww_torch.data.synthetic import make_complex
+
+    cmd = [sys.executable, "-m", "pepflowww_torch.serve", "--synthetic_weights", "--port", "0",
+           "--tp", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    seen = []
+    try:
+        port = None
+        while port is None:
+            try:
+                line = lines.get(timeout=max(0.0, 180.0 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                fail("tp serve: the CLI did not report its address within 180 s")
+            seen.append(line)
+            m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        check(health.get("tp", {}).get("model_ranks") == 1
+              and health["tp"].get("profile") == "plain" and health.get("world_size") == 1,
+              f"tp serve: /healthz said {health}")
+        item = make_complex(np.random.default_rng(3), pep_len=SERVE_COMPLEX[0],
+                            rec_len=SERVE_COMPLEX[1])
+        req = {"pocket_pdb": save_pdb(mask_select_data(item, ~item["generate_mask"])),
+               "peptide_pdb": save_pdb(mask_select_data(item, item["generate_mask"])),
+               "num_samples": TP_SAMPLES, "num_steps": TP_STEPS}
+        code, body = _serve_post(port, req)
+        check(code == 200 and len(body.get("pdbs", [])) == TP_SAMPLES
+              and all(np.isfinite(body["metrics"]["ca_rmsd"])),
+              f"tp serve: the request returned {code} {str(body)[:300]}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(60)
+        time.sleep(0.5)
+        while not lines.empty():
+            seen.append(lines.get())
+        text = "".join(seen)
+        check(code == 0, f"tp serve: the CLI exited with {code} after SIGTERM")
+        check("Pallas-profile kernels" in text and "pair rows over 1 model ranks" in text,
+              "tp serve: no profile warning or no grid in its start-up lines")
+        groups = [json.loads(m.group(1)) for m in re.finditer(
+            rf"steps={TP_STEPS} .* ranks=1 rank0_launches=(\{{.*\}})", text)]
+        check(groups == [{}], f"tp serve: groups and rank 0's launches {groups}")
+        say("fsdp_tp", f"serve CLI --tp 1: /healthz {health}; {TP_SAMPLES} samples x "
+                       f"{TP_STEPS} steps answered, {len(body['pdbs'])} PDBs, rank 0 launched "
+                       f"nothing; SIGTERM: exit 0 on {card}")
+        return {}
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        print("".join(seen), file=sys.stderr, flush=True)
+        raise
+
+
+def phase_fsdp_tp(card: str, dp: dict, ipa_yaml: str) -> dict:
+    """FSDP and pair-row TP on the card (phase 9); returns, by kernel entry
+    of the kernels' line, its launches under --fsdp and under --tp."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+    from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
+    from pepflowww_torch.data.synthetic import make_complex
+    from pepflowww_torch.models.flow import build_model, draw_noise
+    from pepflowww_torch.parallel import dist, dp as dp_rows, tp
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.sampling import euler_sample
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    t_phase = time.perf_counter()
+    prod_yaml = os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")
+    plain_yaml = write_config("learn_angle_tpu_plain", use_pallas=False)
+    plain32_yaml = write_config("learn_angle_tpu_plain_fp32", use_pallas=False, dtype=None)
+    zero = dict.fromkeys(native.SOURCES, 0)
+    step = {"edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+            "distance_embed_bwd": 1}
+    fwd = {"edge_transition": 5, "distance_embed": 1}
+
+    def want_of(steps, vals, fused):
+        s = {**step, "ipa2": 6, "ipa2_bwd": 6} if fused else step
+        f = {**fwd, "ipa2": 6} if fused else fwd
+        return {**zero, **{k: steps * s.get(k, 0) + vals * f.get(k, 0) for k in s}}
+
+    def losses_of(run):
+        shutil.rmtree(os.path.join(run, "checkpoints"), ignore_errors=True)   # 82 MB each
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f) if r["tag"] == "train"}
+
+    def gap(a, b):
+        check(set(a) == set(b), f"fsdp_tp: iterations {sorted(a)} vs {sorted(b)}")
+        return max(abs(a[i] / b[i] - 1) for i in a)
+
+    # 1. The train CLI with --fsdp, and with --tp 1, in a world of one over NCCL.
+    root = os.path.join(OUT_DIR, "fsdp_tp_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--synthetic", "--batch_size", "32", "--log_freq", "1"]
+    launched = {}
+    runs = {}
+    for tag, yaml_path, iters, fused, against in (("fsdp", prod_yaml, 6, False, "single"),
+                                                  ("fsdp ipa", ipa_yaml, 3, True, "ipa")):
+        runs[tag], log, _ = _train_cli(f"fsdp_tp train {tag}", yaml_path, common + [
+            "--max_iters", str(iters), "--val_freq", str(iters), "--logdir",
+            os.path.join(root, tag.replace(" ", "_")), "--fsdp"], want_of(iters, 2, fused))
+        launched[tag] = dict(native.LAUNCHES)
+        check("grid: 1 data x 1 model ranks | fsdp: True | tp: off" in log
+              and "world size: 1 | backend: nccl |" in log, f"fsdp_tp {tag}: no grid line")
+        mine, ref = losses_of(runs[tag]), dp["losses"][against]
+        g = gap(mine, ref)
+        say("fsdp_tp", f"train CLI --{tag} (world of one, NCCL), B=32 L=64, {iters} iterations: "
+                       f"losses {[round(mine[i], 6) for i in sorted(mine)]} against the dp "
+                       f"phase's {'run without --dp' if against == 'single' else '--dp run'}, "
+                       f"largest relative gap {g:.3e} (limit {FSDP_RTOL}) on {card}")
+        check(g <= FSDP_RTOL, f"fsdp_tp {tag}: the --fsdp losses left the unsharded run's")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        runs["tp1"], log, _ = _train_cli("fsdp_tp train tp 1", prod_yaml, common + [
+            "--max_iters", "3", "--val_freq", "3", "--logdir", os.path.join(root, "tp1"),
+            "--tp", "1"], zero)
+    launched["tp1"] = dict(native.LAUNCHES)
+    msgs = [str(r.message) for r in rec if "Pallas" in str(r.message)]
+    check(msgs == [tp.PROFILE_WARNING] and "kernels off" in log,
+          f"fsdp_tp tp 1: warnings {msgs}, or no 'kernels off' in the log")
+    runs["plain"], _, _ = _train_cli("fsdp_tp train plain", plain_yaml, common + [
+        "--max_iters", "3", "--val_freq", "3", "--logdir", os.path.join(root, "plain")], zero)
+    g = gap(losses_of(runs["tp1"]), losses_of(runs["plain"]))
+    say("fsdp_tp", f"train CLI --tp 1 on the production YAML: the warning \"{msgs[0]}\"; no "
+                   f"kernel launched; losses against the use_pallas: false run's, largest "
+                   f"relative gap {g:.3e} (limit {FSDP_RTOL}) on {card}")
+    check(g <= FSDP_RTOL, "fsdp_tp tp 1: the losses left the plain profile's")
+
+    # 2. Two ranks sharing the card over gloo, against one process.
+    t0 = time.perf_counter()
+    ranks = dist.launch(_fsdp_tp_rank, 2, (prod_yaml, plain32_yaml))
+    say("fsdp_tp", f"two gloo ranks on the one card (two processes sharing one GPU: "
+                   f"correctness and memory, not a scaling figure): {time.perf_counter() - t0:.1f}"
+                   f" s with their start; gloo with CUDA tensors: {ranks[0]['probe']} on {card}")
+    dev = torch.device("cuda", 0)
+    tc = prod_train_cfg()
+    weights = dict(tc["loss_weights"])
+
+    def single_step(cfg, B, L, complex_):
+        """One process's step: (metrics, gradients before the clip, bytes
+        of parameters and moments after it, peak bytes of the step)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model = production_model(dev, cfg).train()
+        opt = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+        batch, _ = main_path_batch(dev, B, seed=7, complex_=complex_)
+        noise = draw_noise(B, L, torch.Generator(device=dev).manual_seed(8), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        m = {k: float(v) for k, v in train_step(model, opt, batch, weights, noise=noise).items()}
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        clip = min(1.0, float(tc["max_grad_norm"]) / (m["grad_norm"] + 1e-6))
+        grads = {n: p.grad.float().cpu().numpy() / clip for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        opt._flat, opt._views = None, []
+        del batch, noise
+        held = _settled_bytes(dev) - base
+        del model, opt
+        torch.cuda.empty_cache()
+        return m, grads, held, peak, sec
+
+    def closest(got, want):
+        G = float(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in want.values())))
+        worst, name = 0.0, ""
+        for n, g in want.items():
+            excess = float(np.linalg.norm(got[n] - g)) / (STEP_REL * float(np.linalg.norm(g))
+                                                          + STEP_ABS * G)
+            if excess > worst:
+                worst, name = excess, n
+        return worst, name
+
+    prod = load_config(prod_yaml)
+    m1, g1, held1, _, _ = single_step(prod, 32, 64, (12, 48, 64))
+    f = [r["fsdp"] for r in ranks]
+    want_step = {**zero, **step}
+    for r, x in enumerate(f):
+        check(x["launches"] == want_step, f"fsdp_tp fsdp rank {r}: launched {x['launches']}")
+        check(x["block"] == -(-x["span"] // 2) and x["param_bytes"] == 0,
+              f"fsdp_tp fsdp rank {r}: block {x['block']} of {x['numel']}, whole parameters "
+              f"still hold {x['param_bytes']} bytes")
+    m = f[0]["metrics"]
+    loss_gap, norm_gap = abs(m["loss"] / m1["loss"] - 1), abs(m["grad_norm"] / m1["grad_norm"] - 1)
+    worst, worst_name = closest(f[0]["grads"], g1)
+    N = f[0]["numel"]
+    say("fsdp_tp", f"--fsdp step, two gloo ranks x B=16 against one process x B=32 (the same "
+                   f"weights and global noise): loss {m['loss']:.6f} vs {m1['loss']:.6f} (gap "
+                   f"{loss_gap:.3e}), grad_norm {m['grad_norm']:.6f} vs {m1['grad_norm']:.6f} "
+                   f"(gap {norm_gap:.3e}), limit {DP_RTOL}; every parameter's gradient within "
+                   f"{STEP_REL} ||g|| + {STEP_ABS} x global, closest {worst_name} at {worst:.3f} "
+                   f"of it; launches a rank {f[0]['launches']} on {card}")
+    say("fsdp_tp", f"--fsdp memory a rank after the step (gradients dropped): parameters' block "
+                   f"+ two moments {f[0]['state_bytes']} and {f[1]['state_bytes']} bytes "
+                   f"(N = {N} parameters, {f[0]['span']} with the 128-byte gaps: one process "
+                   f"holds 3 x N x 4 = {12 * N} bytes), "
+                   f"torch.cuda.memory_allocated over the run's start after prepare "
+                   f"{f[0]['prepared_bytes']} and after the step {f[0]['held_bytes']} and "
+                   f"{f[1]['held_bytes']} (after a second step {f[0]['held2_bytes']}; blocks of "
+                   f"1 MiB or more {f[0]['big_blocks']}) bytes against one process's {held1} (ratio "
+                   f"{f[0]['held_bytes'] / held1:.3f}; the kernels' cached bf16 operands "
+                   f"included); whole parameters between steps: 0 bytes; on {card}")
+    check(loss_gap <= DP_RTOL and norm_gap <= DP_RTOL and worst <= 1.0,
+          "fsdp_tp fsdp: the two ranks' step left the single process's")
+    check(all(x["state_bytes"] == 12 * x["block"] for x in f)
+          and all(x["held_bytes"] <= 0.55 * held1 for x in f),
+          "fsdp_tp fsdp: a rank holds more than about half of one process's state")
+
+    plain = tp.plain_profile(prod)
+    m2, g2, _, peak2, sec2 = single_step(plain, 32, 128, (12, 116, 128))
+    t = [r["tp"] for r in ranks]
+    for r, x in enumerate(t):
+        check(x["launches"] == zero and x["seen"] == [(32, 64, 128, 64)] and x["calls"] == 11
+              and x["warnings"] == [tp.PROFILE_WARNING],
+              f"fsdp_tp tp rank {r}: launches {x['launches']}, pair tensors {x['seen']} in "
+              f"{x['calls']} calls, warnings {x['warnings']}")
+    m = t[0]["metrics"]
+    loss_gap, norm_gap = abs(m["loss"] / m2["loss"] - 1), abs(m["grad_norm"] / m2["grad_norm"] - 1)
+    worst, worst_name = closest(t[0]["grads"], g2)
+    say("fsdp_tp", f"--tp 2 step, one data x two model ranks on the one card, B=32 L=128, the "
+                   f"plain profile: every EdgeTransition and IPA received {t[0]['seen']} pair "
+                   f"tensors (64 of 128 rows); loss {m['loss']:.6f} vs one process's "
+                   f"{m2['loss']:.6f} (gap {loss_gap:.3e}), grad_norm gap {norm_gap:.3e} (limit "
+                   f"{DP_RTOL}); closest gradient {worst_name} at {worst:.3f} of its limit; peak "
+                   f"memory of the step a rank {t[0]['peak_bytes']} and {t[1]['peak_bytes']} "
+                   f"bytes against one process's {peak2} (ratio "
+                   f"{t[0]['peak_bytes'] / peak2:.3f}); {t[0]['seconds']:.3f} s a step (two "
+                   f"processes sharing one GPU, gloo) against {sec2:.3f} s; no kernel launched; "
+                   f"on {card}")
+    check(loss_gap <= DP_RTOL and norm_gap <= DP_RTOL and worst <= 1.0,
+          "fsdp_tp tp: the two model ranks' step left the single process's")
+
+    model = build_model(load_config(plain32_yaml), dev, seed=0)
+    item = make_complex(np.random.default_rng(0), pep_len=12, rec_len=48, complex_id="tp")
+    sb = device_batch(pad_and_collate(replicate_item(item, TP_SAMPLES)), dev)
+    want = euler_sample(model, sb, dp_rows.rank_generator(0, 0, dev), num_steps=TP_STEPS)
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    got = ranks[0]["sample"]
+    check(got is not None and ranks[1]["sample"] is None
+          and all(r["sample_launches"] == zero for r in ranks),
+          "fsdp_tp: the TP sampler's rows or launches")
+    dt = float(np.abs(got["trans"] - want["trans"]).max())
+    dr = float(np.abs(got["rotmats"] - want["rotmats"]).max())
+    diff = int((got["seqs"] != want["seqs"]).sum())
+    say("fsdp_tp", f"TP sampler, one data x two model ranks, fp32 plain profile, {TP_SAMPLES} "
+                   f"samples x {TP_STEPS} steps, L=64, seed 0, against one process's at the same "
+                   f"seed: max |trans gap| {dt:.3e} A, max |rotmats gap| {dr:.3e}, tokens "
+                   f"differing {diff} of {got['seqs'].size}; on {card}")
+    check(dt <= 5e-5 and dr <= 5e-5 and diff == 0, "fsdp_tp: the TP sampler left one process's")
+    del model
+
+    # 3. The server with --tp 1 as a process.
+    served = _tp_serve_cli(card)
+    say("fsdp_tp", f"phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    fsdp_launches = {"edge_transition": 0, "edge_transition_k1": launched["fsdp"]["edge_transition"],
+                     "distance_embed": launched["fsdp"]["distance_embed"],
+                     "edge_transition_bwd": launched["fsdp"]["edge_transition_bwd"],
+                     "distance_embed_bwd": launched["fsdp"]["distance_embed_bwd"],
+                     "ipa2": launched["fsdp ipa"]["ipa2"],
+                     "ipa2_bwd": launched["fsdp ipa"]["ipa2_bwd"]}
+    tp_total = {k: launched["tp1"].get(k, 0) + sum(r["tp"]["launches"].get(k, 0)
+                                                   + r["sample_launches"].get(k, 0)
+                                                   for r in ranks) + served.get(k, 0)
+                for k in native.SOURCES}
+    return {"fsdp": fsdp_launches, "tp": tp_total}
 
 
 def phase_eval(card: str):
-    """The evaluation CLI over the data phase's samples (phase 9)."""
+    """The evaluation CLI over the data phase's samples (phase 10)."""
     import csv
 
     import numpy as np
@@ -2047,7 +2536,7 @@ def _serve_burst(tag: str, state, clients: int, requests: int, samples: int) -> 
 
 
 def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: dict) -> dict:
-    """The server on the card (phase 10); returns the serve phase's launches
+    """The server on the card (phase 11); returns the serve phase's launches
     by kernel (in-process runs: ladder, load tests, two buckets, over-cap).
     `k_ms`: the kernels phase's ms a call by kernel, printed beside the
     serve shapes' device times."""
@@ -2315,6 +2804,7 @@ def main():
     phase_data(card, prod)
     phase_train_data(card, prod, ipa, ipa_yaml)
     dp = phase_dp(card, prod, ipa, ipa_yaml)
+    grid = phase_fsdp_tp(card, dp, ipa_yaml)
     phase_eval(card)
     served = phase_serve(card, prod, int8, ipa, {
         "production": os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "int8": int8_yaml,
@@ -2360,6 +2850,8 @@ def main():
             k["dp_launches"], k["dp_run"] = dp[k["name"]]
         if k["name"] in dp["serve"]:
             k["dp_serve_launches"] = dp["serve"][k["name"]]
+        k["fsdp_launches"] = grid["fsdp"].get(k["name"], 0)
+        k["tp_launches"] = grid["tp"].get(k["name"].removesuffix("_k1").removesuffix("_long"), 0)
         if k["name"] == "edge_transition":
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":

@@ -52,23 +52,28 @@ def bwd_schedule(B: int, L: int, sms: int):
     return grid, grid + NAA - 1
 
 
-def distance_embed_plain(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16):
+def distance_embed_plain(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16,
+                         rows: slice = slice(None)):
     """d² over the 15×15 heavy atoms in fp32, gaussian with coefficients
     softplus(table[aa_i·22+aa_j]), atom-pair mask, then the 225→F→F ReLU
-    MLP with `dtype` operands and fp32 accumulation, then the pair mask."""
+    MLP with `dtype` operands and fp32 accumulation, then the pair mask.
+    With `rows`, the query rows i of that slice against every j (pair-row
+    TP's part, ``parallel/tp.py``): (B, rows, L, F)."""
     B, L = aa.shape
     pos = pos_nm.float()
-    d2 = ((pos[:, :, None, :, None] - pos[:, None, :, None, :]) ** 2).sum(-1)
-    d2 = d2.reshape(B, L, L, AA2)
+    pos_i = pos[:, rows]
+    Li = pos_i.shape[1]
+    d2 = ((pos_i[:, :, None, :, None] - pos[:, None, :, None, :]) ** 2).sum(-1)
+    d2 = d2.reshape(B, Li, L, AA2)
     aa = aa.long()
-    c = F.softplus(p["table"].float()[aa[:, :, None] * NAA + aa[:, None, :]])
+    c = F.softplus(p["table"].float()[aa[:, rows, None] * NAA + aa[:, None, :]])
     m = mask_atoms.float()
-    mp = (m[:, :, None, :, None] * m[:, None, :, None, :]).reshape(B, L, L, AA2)
+    mp = (m[:, rows, None, :, None] * m[:, None, :, None, :]).reshape(B, Li, L, AA2)
     x = (torch.exp(-c * d2) * mp).to(dtype).float()
     h = torch.relu(x @ p["k1"].to(dtype).float() + p["b1"].float())
     o = torch.relu(h.to(dtype).float() @ p["k2"].to(dtype).float() + p["b2"].float())
     s = smask.float()
-    return (o * (s[:, :, None] * s[:, None, :])[..., None]).to(dtype)
+    return (o * (s[:, rows, None] * s[:, None, :])[..., None]).to(dtype)
 
 
 def kernel_operands(p: dict) -> dict:

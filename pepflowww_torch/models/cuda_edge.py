@@ -73,18 +73,18 @@ def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def _node_terms(n, k, cz):
-    """n_i.k[cz:cz+cb] (B, L, 1, N) and n_j.k[cz+cb:] (B, 1, L, N)."""
+def _node_terms(n, k, cz, rows: slice = slice(None)):
+    """n_i.k[cz:cz+cb] (B, rows, 1, N) and n_j.k[cz+cb:] (B, 1, L, N)."""
     cb = n.shape[-1]
-    return (n @ k[cz:cz + cb])[:, :, None, :], (n @ k[cz + cb:])[:, None, :, :]
+    return (n[:, rows] @ k[cz:cz + cb])[:, :, None, :], (n @ k[cz + cb:])[:, None, :, :]
 
 
-def _output(o, node_mask, p, dtype, readout, eps):
+def _output(o, node_mask, p, dtype, readout, eps, rows: slice = slice(None)):
     """LayerNorm (float32 statistics), pair mask, rounding to `dtype` and,
     with a readout, the next block's transposed b and pz from that output."""
     o = F.layer_norm(o, (o.shape[-1],), p["ln_scale"].float(), p["ln_bias"].float(), eps)
     m = node_mask.float()
-    out = (o * (m[:, :, None] * m[:, None, :])[..., None]).to(dtype)
+    out = (o * (m[:, rows, None] * m[:, None, :])[..., None]).to(dtype)
     if readout is None:
         return out
     kb, bb, kdz, bdz = readout
@@ -95,24 +95,28 @@ def _output(o, node_mask, p, dtype, readout, eps):
 
 
 def edge_transition_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
-                          readout: Optional[tuple] = None, eps: float = 1e-5):
+                          readout: Optional[tuple] = None, eps: float = 1e-5,
+                          rows: slice = slice(None)):
     """The kernel's arithmetic in plain PyTorch: operands rounded to `dtype`
     at the points the kernel rounds them, float32 accumulation, LayerNorm
     statistics in float32. In float32 it is the reference EdgeTransition
-    (with the first layer and the residual projection factorized)."""
+    (with the first layer and the residual projection factorized). With
+    `rows`, `edge` holds the query rows of that slice (pair-row TP's part,
+    ``parallel/tp.py``): the i-side node terms and the pair mask come from
+    those rows of `node_bias` and `node_mask`, the j-side from all."""
     cz = edge.shape[-1]
     e = _round(edge, dtype)
     n = _round(node_bias, dtype)
     k1, k3 = _round(p["k1"], dtype), _round(p["k3"], dtype)
 
     def factorized(k):
-        y_i, y_j = _node_terms(n, k, cz)
+        y_i, y_j = _node_terms(n, k, cz, rows)
         return e @ k[:cz] + y_i + y_j
 
     h = torch.relu(factorized(k1) + p["b1"].float())
     h = torch.relu(_round(h, dtype) @ _round(p["k2"], dtype) + p["b2"].float())
     o = _round(h, dtype) @ k3 + factorized(k3) + p["b3"].float()
-    return _output(o, node_mask, p, dtype, readout, eps)
+    return _output(o, node_mask, p, dtype, readout, eps, rows)
 
 
 # ---------------------------------------------------------------- int8

@@ -16,6 +16,7 @@ from pepflowww_torch.models import cuda_dist
 from pepflowww_torch.models.layers import AngularEncoding, cached_operands, mlp
 from pepflowww_torch.ops import frames
 from pepflowww_torch.ops.dihedrals import get_backbone_dihedral_angles, pairwise_dihedrals
+from pepflowww_torch.parallel import tp
 
 
 def _unk_where_masked(aa, sequence_mask):
@@ -97,20 +98,24 @@ class EdgeEmbedder(nn.Module):
 
     def forward(self, aa, res_nb, chain_nb, pos_atoms, mask_atoms,
                 structure_mask=None, sequence_mask=None):
+        """Under pair-row TP (``parallel/tp.py``) only this rank's query
+        rows i of every pair feature, against all j: (B, rows, L, feat)."""
+        shard = tp.current(kernels=self.use_kernels)
+        rows = slice(None) if shard is None else shard.rows
         N, L = aa.shape
         A = self.max_num_atoms
         pos_atoms, mask_atoms = pos_atoms[:, :, :A], mask_atoms[:, :, :A]
         mask_residue = mask_atoms[:, :, C.BBHeavyAtom.CA].float()
-        mask_pair = mask_residue[:, :, None] * mask_residue[:, None, :]
+        mask_pair = mask_residue[:, rows, None] * mask_residue[:, None, :]
         smask = (structure_mask.float() if structure_mask is not None
                  else torch.ones_like(mask_residue))
-        pair_smask = smask[:, :, None] * smask[:, None, :]
+        pair_smask = smask[:, rows, None] * smask[:, None, :]
 
         aa = _unk_where_masked(aa, sequence_mask).long()
-        feat_aapair = self.aa_pair_embed(aa[:, :, None] * self.max_aa_types + aa[:, None, :])
+        feat_aapair = self.aa_pair_embed(aa[:, rows, None] * self.max_aa_types + aa[:, None, :])
 
-        same_chain = (chain_nb[:, :, None] == chain_nb[:, None, :])
-        relpos = torch.clamp(res_nb[:, :, None] - res_nb[:, None, :],
+        same_chain = (chain_nb[:, rows, None] == chain_nb[:, None, :])
+        relpos = torch.clamp(res_nb[:, rows, None] - res_nb[:, None, :],
                              -self.max_relpos, self.max_relpos).long()
         table = self.relpos_embed.weight
         if self.dtype is not None:
@@ -128,10 +133,11 @@ class EdgeEmbedder(nn.Module):
             feat_dist = cuda_dist.DistanceEmbedFn.apply(pos_nm, mask_atoms, aa, smask,
                                                         *p.values(), dt, ops)
         else:
-            feat_dist = cuda_dist.distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype=dt)
+            feat_dist = cuda_dist.distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype=dt,
+                                                       rows=rows)
         feat_dist = feat_dist.float()
 
-        feat_dihed = self.dihedral_embed(pairwise_dihedrals(pos_atoms))
+        feat_dihed = self.dihedral_embed(pairwise_dihedrals(pos_atoms, rows))
         if structure_mask is not None:
             feat_dihed = feat_dihed * pair_smask[..., None]
 

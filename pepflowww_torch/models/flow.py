@@ -25,7 +25,8 @@ import torch.nn as nn
 from pepflowww_torch import constants as C
 from pepflowww_torch.device import resolve_device
 from pepflowww_torch.models.embed import EdgeEmbedder, NodeEmbedder
-from pepflowww_torch.models.ipa import InvariantPointAttention, TransformerEncoderLayer
+from pepflowww_torch.models.ipa import (EdgeTransition, InvariantPointAttention,
+                                        TransformerEncoderLayer)
 from pepflowww_torch.models.layers import Linear, init_linear
 from pepflowww_torch.models.trunk import GAEncoder, IPAConfig
 from pepflowww_torch.ops import allatom, simplex, so3, torus
@@ -89,6 +90,16 @@ class FlowModel(nn.Module):
         edge_embed = self.edge_embedder(*args, structure_mask=structure_mask,
                                         sequence_mask=sequence_mask)
         return rotmats_1, trans_1, batch["torsion_angle"], batch["aa"], node_embed, edge_embed
+
+    def pair_parameters(self) -> list:
+        """The parameters of the pair work: the EdgeEmbedder, the IPAs and
+        the EdgeTransitions, which take this rank's pair rows under pair-row
+        TP (``parallel/tp.py``) and so get this rank's part of their
+        gradient; every other parameter works on node tensors alike on each
+        rank of a model group and gets the whole gradient there."""
+        return [p for m in self.modules()
+                if isinstance(m, (EdgeEmbedder, InvariantPointAttention, EdgeTransition))
+                for p in m.parameters()]
 
     def denoise(self, t, rotmats_t, trans_t, angles_t, seqs_t, node_embed, edge_embed,
                 generate_mask, res_mask, fused_pair_readout: bool = False):

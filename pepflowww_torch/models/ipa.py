@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from pepflowww_torch.models import cuda_edge, cuda_ipa
 from pepflowww_torch.models.layers import Linear, cached_operands
+from pepflowww_torch.parallel import tp
 
 
 def _rnd(x: torch.Tensor, dt) -> torch.Tensor:
@@ -60,23 +61,35 @@ class InvariantPointAttention(nn.Module):
 
     def forward(self, s, z, R, t, mask, readouts=None):
         """readouts: optional (b (B, H, L, L), pair_z (B, c_z/4, L, L)) from
-        the previous EdgeTransition; when given, z is not read."""
+        the previous EdgeTransition; when given, z is not read.
+
+        Under pair-row TP (``parallel/tp.py``) z holds this rank's query
+        rows (B, rows, L, c_z): the queries and their points come from those
+        rows of s, R and t, the keys from all L, and the update of those
+        rows comes out (B, rows, c_s)."""
+        shard = tp.current(kernels=self.use_kernels)
         if self.use_kernels:
             return self._fused(s, z, R, t, mask, readouts)
+        rows = slice(None)
+        if shard is not None:
+            s, R, t, rows = tp.copy_in(s), tp.copy_in(R), tp.copy_in(t), shard.rows
         H, C, Pq, Pv, dt = self.H, self.C, self.Pq, self.Pv, self.dtype
         B, L, _ = s.shape
-        q = _rnd(self.linear_q(s), dt).reshape(B, L, H, C)
+        s_q, R_q, t_q = s[:, rows], R[:, rows], t[:, rows]
+        Lq = s_q.shape[1]
+        q = _rnd(self.linear_q(s_q), dt).reshape(B, Lq, H, C)
         kv = _rnd(self.linear_kv(s), dt).reshape(B, L, H, 2 * C)
         k, v = kv[..., :C], kv[..., C:]
 
-        def to_global(flat, n):
-            # [x | y | z] blocks of H*n lanes -> global points (B, L, H, n, 3)
-            p = flat.float().reshape(B, L, 3, H * n).transpose(-1, -2)
+        def to_global(flat, n, R, t):
+            # [x | y | z] blocks of H*n lanes -> global points (B, l, H, n, 3)
+            l = flat.shape[1]
+            p = flat.float().reshape(B, l, 3, H * n).transpose(-1, -2)
             g = p @ R.transpose(-1, -2) + t[:, :, None, :]
-            return g.reshape(B, L, H, n, 3)
+            return g.reshape(B, l, H, n, 3)
 
-        q_pts = to_global(self.linear_q_points(s), Pq)
-        kv_pts = to_global(self.linear_kv_points(s), Pq + Pv)
+        q_pts = to_global(self.linear_q_points(s_q), Pq, R_q, t_q)
+        kv_pts = to_global(self.linear_kv_points(s), Pq + Pv, R, t)
         k_pts, v_pts = kv_pts[..., :Pq, :], kv_pts[..., Pq:, :]
 
         if readouts is not None:
@@ -90,29 +103,29 @@ class InvariantPointAttention(nn.Module):
         a = torch.einsum("bihc,bjhc->bhij", q, k) * math.sqrt(1.0 / (3 * C))
         a = a + math.sqrt(1.0 / 3) * b_t.float()
         # -w/2 * sum_p |q_ip - k_jp|^2 through the square expansion, in fp32.
-        q3 = q_pts.reshape(B, L, H, Pq * 3)
+        q3 = q_pts.reshape(B, Lq, H, Pq * 3)
         k3 = k_pts.reshape(B, L, H, Pq * 3)
         pt = (q3.square().sum(-1).transpose(1, 2)[:, :, :, None]
               + k3.square().sum(-1).transpose(1, 2)[:, :, None, :]
               - 2.0 * torch.einsum("bihx,bjhx->bhij", q3, k3))
         a = a + pt * head_w[None, :, None, None] * (-0.5)
         m = mask.float()
-        a = a + (self.inf * (m[:, :, None] * m[:, None, :] - 1.0))[:, None]
+        a = a + (self.inf * (m[:, rows, None] * m[:, None, :] - 1.0))[:, None]
         a = torch.softmax(a, -1)
 
         a_c = _rnd(a, dt)
-        o = torch.einsum("bhij,bjhc->bihc", a_c, v).reshape(B, L, H * C)
+        o = torch.einsum("bhij,bjhc->bihc", a_c, v).reshape(B, Lq, H * C)
         o_pt = torch.einsum("bhij,bjhpd->bihpd", a, v_pts)
-        local = (o_pt - t[:, :, None, None, :]) @ R[:, :, None]        # Rᵀ (o - t)
+        local = (o_pt - t_q[:, :, None, None, :]) @ R_q[:, :, None]        # Rᵀ (o - t)
         o_norm = torch.sqrt(local.square().sum(-1) + self.eps)
         if pair_z is None:
             o_pair = torch.einsum("bhij,bdij->bihd", a_c, pz_t.float())
         else:
             o_pair = torch.einsum("bhij,bijd->bihd", a_c, pair_z.float())
         # Reference concat order: o | o_pt x | y | z | norms | pair.
-        o_feats = torch.cat([o, local[..., 0].reshape(B, L, -1), local[..., 1].reshape(B, L, -1),
-                             local[..., 2].reshape(B, L, -1), o_norm.reshape(B, L, -1),
-                             o_pair.reshape(B, L, -1)], -1)
+        o_feats = torch.cat([o, local[..., 0].reshape(B, Lq, -1),
+                             local[..., 1].reshape(B, Lq, -1), local[..., 2].reshape(B, Lq, -1),
+                             o_norm.reshape(B, Lq, -1), o_pair.reshape(B, Lq, -1)], -1)
         if dt is None:
             return F.linear(o_feats, self.linear_out.weight, self.linear_out.bias)
         y = _rnd(o_feats, dt) @ _rnd(self.linear_out.weight, dt).t() + self.linear_out.bias
@@ -187,6 +200,10 @@ class EdgeTransition(nn.Module):
         """readout: the next IPA block's (kb, bb, kdz, bdz); when given the
         result is (edge_out, (b, pair_z)) with b (B, H, L, L) and pair_z
         (B, c_z/4, L, L)."""
+        shard = tp.current(kernels=self.use_kernels)
+        rows = slice(None)
+        if shard is not None:   # edge_embed holds this rank's query rows (parallel/tp.py)
+            node_embed, rows = tp.copy_in(node_embed), shard.rows
         dt = self.dtype or torch.float32
         node_bias = self.initial_embed(node_embed)
         p = self.params()
@@ -206,7 +223,8 @@ class EdgeTransition(nn.Module):
             res = fn(edge_embed.to(dt).contiguous(), node_bias.to(dt).contiguous(), node_mask, p,
                      dt, readout, ops=ops)
         else:
-            res = cuda_edge.edge_transition_plain(edge_embed, node_bias, node_mask, p, dt, readout)
+            res = cuda_edge.edge_transition_plain(edge_embed, node_bias, node_mask, p, dt, readout,
+                                                  rows=rows)
         if readout is None:
             return res
         out, b_t, pz_t = res

@@ -5,6 +5,7 @@ the JAX package's ``models/layers.py``)."""
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -81,16 +82,33 @@ def get_time_embedding(timesteps: torch.Tensor, embedding_dim: int,
     return emb
 
 
+_GENERATION = [0]
+_HOLDERS: "weakref.WeakSet[nn.Module]" = weakref.WeakSet()   # modules with a cache
+
+
+def invalidate_operand_caches() -> None:
+    """Drop every :func:`cached_operands` entry: parameters that were
+    refilled without an in-place version bump (an FSDP all-gather into a
+    new buffer, which may reuse the old one's address) must rebuild them,
+    and operands that are views of released parameters must not keep their
+    storage alive."""
+    _GENERATION[0] += 1
+    for module in list(_HOLDERS):
+        module.__dict__.pop("_operand_cache", None)
+
+
 def cached_operands(module: nn.Module, tensors, make):
     """``make()`` memoized on `module` until one of `tensors` changes (by
-    storage or in-place version): kernel operands derived from parameters
-    (bf16 copies, packed layouts) are built once, not on every call."""
-    key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
+    storage or in-place version) or :func:`invalidate_operand_caches` is
+    called: kernel operands derived from parameters (bf16 copies, packed
+    layouts) are built once, not on every call."""
+    key = (_GENERATION[0],) + tuple((t.data_ptr(), t._version, t.device) for t in tensors)
     hit = getattr(module, "_operand_cache", None)
     if hit is None or hit[0] != key:
         with torch.no_grad():
             hit = (key, make())
         module._operand_cache = hit
+        _HOLDERS.add(module)
     return hit[1]
 
 

@@ -19,6 +19,7 @@ from pepflowww_torch.models.ipa import (BackboneUpdate, EdgeTransition,
                                         TransformerEncoder)
 from pepflowww_torch.models.layers import AngularEncoding, Linear, get_time_embedding, mlp
 from pepflowww_torch.ops.frames import compose_q_update
+from pepflowww_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +103,10 @@ class GAEncoder(nn.Module):
         R, trans = rotmats_t.float(), trans_t.float()
         readouts = None
         for b in range(cfg.num_blocks):
-            ipa_embed = tr[f"ipa_{b}"](node_embed, edge_embed, R, trans, node_mask,
-                                       readouts=readouts)
+            # Under pair-row TP each rank computes its rows' update; every row's
+            # is gathered (parallel/tp.py), and the node work below runs whole.
+            ipa_embed = tp.gather_rows(tr[f"ipa_{b}"](node_embed, edge_embed, R, trans, node_mask,
+                                                      readouts=readouts))
             node_embed = tr[f"ipa_ln_{b}"](node_embed + ipa_embed * node_mask[..., None])
             seq_out = tr[f"seq_tfmr_{b}"](node_embed, key_padding_mask=node_mask < 0.5)
             node_embed = node_embed + tr[f"post_tfmr_{b}"](seq_out)

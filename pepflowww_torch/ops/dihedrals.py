@@ -77,19 +77,21 @@ def get_backbone_dihedral_angles(pos_atoms, chain_nb, res_nb, mask):
     return bb_dihedral, mask_bb_dihed
 
 
-def pairwise_dihedrals(pos_atoms) -> torch.Tensor:
+def pairwise_dihedrals(pos_atoms, rows: slice = slice(None)) -> torch.Tensor:
     """Inter-residue Phi/Psi angles, (B, L, L, 2):
-    phi[i, j] = dihedral(C_i, N_j, CA_j, C_j), psi[i, j] = dihedral(N_i, CA_i, C_i, N_j)."""
+    phi[i, j] = dihedral(C_i, N_j, CA_j, C_j), psi[i, j] = dihedral(N_i, CA_i, C_i, N_j).
+    With `rows`, the rows i of that slice only: (B, rows, L, 2)."""
     pos_N = pos_atoms[:, :, BBHeavyAtom.N]
     pos_CA = pos_atoms[:, :, BBHeavyAtom.CA]
     pos_C = pos_atoms[:, :, BBHeavyAtom.C]
     L = pos_N.shape[1]
+    Li = pos_N[:, rows].shape[1]
 
-    def row(x):  # (B, L, 3) -> (B, L, L, 3), varying over i
-        return x[:, :, None].expand(-1, -1, L, -1)
+    def row(x):  # (B, L, 3) -> (B, Li, L, 3), varying over i
+        return x[:, rows, None].expand(-1, -1, L, -1)
 
     def col(x):  # varying over j
-        return x[:, None, :].expand(-1, L, -1, -1)
+        return x[:, None, :].expand(-1, Li, -1, -1)
 
     ir_phi = dihedral_from_four_points(row(pos_C), col(pos_N), col(pos_CA), col(pos_C))
     ir_psi = dihedral_from_four_points(row(pos_N), row(pos_CA), row(pos_C), col(pos_N))

@@ -1,2 +1,4 @@
-"""Data parallelism on ``torch.distributed``: process groups (``dist``) and
-the row and generator rules of a data-parallel batch (``dp``)."""
+"""Parallelism on ``torch.distributed``: process groups and the (data,
+model) grid (``dist``), the row and generator rules of a data-parallel
+batch (``dp``), fully sharded training state (``fsdp``) and pair-row tensor
+parallelism (``tp``)."""

@@ -24,6 +24,7 @@ group every function here acts as the one rank of a world of one.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import queue
@@ -36,6 +37,7 @@ import torch
 import torch.distributed as tdist
 
 _CONTROL = None   # the gloo group of host values; None: the default group
+_GRID = None      # the grid of setup_grid; None: the data axis alone
 #: Seconds :func:`launch` waits for its ranks after passing a signal on to them.
 LAUNCH_GRACE = 120.0
 
@@ -132,10 +134,67 @@ def init(device=None, *, coordinator_address: Optional[str] = None,
 
 
 def destroy() -> None:
-    global _CONTROL
+    global _CONTROL, _GRID
     if is_initialized():
         tdist.destroy_process_group()
-    _CONTROL = None
+    _CONTROL, _GRID = None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in the (data, model) grid and its two groups. A
+    group is None where its axis spans the world (the default group) or
+    has size 1 (callers run no collective over an axis of size 1)."""
+
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+    data_group: object = None
+    model_group: object = None
+
+
+def setup_grid(n_model: int = 1) -> Grid:
+    """Split the initialized world into ``world // n_model`` data ranks of
+    `n_model` model ranks each; every rank calls it (groups are made
+    collectively). Raises SystemExit where `n_model` does not divide the
+    world size. The groups take the default group's backend."""
+    global _GRID
+    world, r = world_size(), rank()
+    n_model = int(n_model)
+    if n_model < 1 or world % n_model:
+        raise SystemExit(f"--tp {n_model} must divide the world size {world}")
+    n_data = world // n_model
+    data_group = model_group = None
+    if n_model > 1 and is_initialized():
+        for d in range(n_data):
+            g = tdist.new_group([d * n_model + m for m in range(n_model)])
+            if d == r // n_model:
+                model_group = g
+        if n_data > 1:
+            for m in range(n_model):
+                g = tdist.new_group([d * n_model + m for d in range(n_data)])
+                if m == r % n_model:
+                    data_group = g
+    _GRID = Grid(n_data, n_model, r // n_model, r % n_model, data_group, model_group)
+    return _GRID
+
+
+def grid() -> Grid:
+    """The grid of :func:`setup_grid`, else every rank a data rank."""
+    if _GRID is not None:
+        return _GRID
+    return Grid(world_size(), 1, rank(), 0)
+
+
+def all_gather_into(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
+    """`out` (size n x `inp`'s) = every rank of `group`'s `inp`, in rank order."""
+    tdist.all_gather_into_tensor(out, inp, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
+    """`out` = this rank's block of the sum over `group` of `inp`."""
+    tdist.reduce_scatter_tensor(out, inp, group=group)
 
 
 def barrier() -> None:
@@ -206,12 +265,15 @@ def launch(fn, world: int, args: tuple = ()) -> list:
             try:
                 r, ok, value = results.get(timeout=1.0)
             except queue.Empty:
-                dead = [i for i, p in enumerate(procs)
-                        if i not in out and p.exitcode not in (None, 0)]
+                # A rank that ended without a result (any exit code: a result
+                # its queue thread failed to send leaves code 0) fails the
+                # launch one poll later; its traceback may still be on its way.
+                dead = [i for i, p in enumerate(procs) if i not in out and p.exitcode is not None]
                 if dead and not seen_dead:
-                    seen_dead = True   # its traceback may still be on its way
+                    seen_dead = True
                 elif dead:
-                    failure = f"rank {dead[0]} exited with code {procs[dead[0]].exitcode}"
+                    failure = (f"rank {dead[0]} exited with code {procs[dead[0]].exitcode} "
+                               f"without a result")
                 continue
             if ok:
                 out[r] = value

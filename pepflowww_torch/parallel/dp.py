@@ -69,18 +69,20 @@ def rank_generator(seed: int, rank: int, device) -> torch.Generator:
 
 
 def gather_rows(x: dict, n: Optional[int] = None) -> Optional[dict]:
-    """Every rank's tensors of `x` (equal shapes on every rank) on rank 0,
-    on the host, concatenated in rank order and cut to the first `n` rows
-    (the padding discarded); None on the other ranks."""
+    """Every data rank's tensors of `x` (equal shapes on every rank) on rank
+    0, on the host, concatenated in data-rank order (model rank 0's of each
+    model group: its other ranks hold the same rows) and cut to the first
+    `n` rows (the padding discarded); None on the other ranks."""
     x = {k: v.detach().cpu().contiguous() for k, v in x.items()}
     if dist.world_size() > 1:
         world, primary = dist.world_size(), dist.is_primary()
+        n_model = dist.grid().n_model
         out = {}
         for k, v in x.items():
             parts = [torch.empty_like(v) for _ in range(world)] if primary else None
             torch.distributed.gather(v, parts, dst=0, group=dist.control_group())
             if primary:
-                out[k] = torch.cat(parts)
+                out[k] = torch.cat(parts[::n_model])
         x = out
     if not dist.is_primary():
         return None

@@ -8,6 +8,7 @@ sample, the per-sample metrics (``outputs.csv``) and their aggregate
         [--num_steps 100] [--ckpt logs/<run>/checkpoints] [--device cpu]
     python -m pepflowww_torch.sample --synthetic --out results/ [--ckpt model1.pt]
     python -m pepflowww_torch.sample --dp ...   (or under torchrun)
+    python -m pepflowww_torch.sample --tp N ...
 
 Complexes come from a PepMerge-style directory (``<id>/{peptide.pdb,
 pocket.pdb}``), preprocessed once into ``--dataset_dir`` (the cache reads in
@@ -28,6 +29,11 @@ contiguous block with its own generator (``sampling.dp_euler_sample``); a
 ``num_samples`` the world size does not divide is padded with copies of
 the last row, which are dropped. Rank 0 gathers the outputs and alone
 scores them and writes the PDBs, ``outputs.csv`` and ``summary.json``.
+``--tp N`` makes a (data, model) grid of the ranks, N model ranks to a data
+rank: each data rank's model group samples its rows together, with one
+generator (``dp.rank_seed(seed, data rank)``), splitting the pair rows
+(``parallel/tp.py``; the model built without its kernels,
+``tp.plain_profile``), so at one data rank it draws what one process draws.
 """
 
 from __future__ import annotations
@@ -65,6 +71,10 @@ def _parser():
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--dp", action="store_true",
                     help="shard each complex's samples over the ranks (one a visible GPU)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-axis size of a (data, model) grid: the pair tensors' query rows "
+                         "split over this many ranks, the samples over the rest; the model runs "
+                         "without its kernels")
     return ap
 
 
@@ -84,13 +94,14 @@ def main(argv=None) -> dict:
     if not args.synthetic and not (args.structure_dir and args.dataset_dir):
         ap.error("give --structure_dir and --dataset_dir, or --synthetic")
     dev = resolve_device(args.device)
-    if not args.dp:
+    if not (args.dp or args.tp):
         return _sample(args, dev)
     world = dist.spawn_world(args.device)
     if world > 1:
         return dist.launch(main, world, (argv,))[0]
     dev = dist.init(args.device)
     try:
+        dist.setup_grid(args.tp or 1)
         out = _sample(args, dev)
         dist.barrier()
     finally:
@@ -107,7 +118,7 @@ def _sample(args, dev: torch.device):
     from pepflowww_torch.data.collate import device_batch, pad_and_collate, replicate_item
     from pepflowww_torch.inference import write_sample_pdbs
     from pepflowww_torch.models.flow import build_model
-    from pepflowww_torch.parallel import dist, dp
+    from pepflowww_torch.parallel import dist, dp, tp
     from pepflowww_torch.sampling import dp_euler_sample, euler_sample
     from pepflowww_torch.training.checkpoints import latest_checkpoint
 
@@ -135,9 +146,15 @@ def _sample(args, dev: torch.device):
         if path is None:
             raise FileNotFoundError(f"no checkpoint in {args.ckpt}")
         sd = read_torch_checkpoint(path)
+    if args.tp:
+        cfg = tp.plain_profile(cfg)
+        if primary:
+            g = dist.grid()
+            print(f"grid: {g.n_data} data x {g.n_model} model ranks; pair rows over "
+                  f"{g.n_model} model ranks, the plain profile (kernels off)")
     model = build_model(cfg, dev, state_dict=sd, seed=args.seed)
-    gen = dp.rank_generator(args.seed, dist.rank(), dev)
-    sampler = dp_euler_sample if args.dp else euler_sample
+    gen = dp.rank_generator(args.seed, dist.grid().data_rank, dev)
+    sampler = dp_euler_sample if (args.dp or args.tp) else euler_sample
 
     if primary:
         os.makedirs(args.out, exist_ok=True)

@@ -21,7 +21,8 @@ kernel's epilogue).
 The JAX package's ``make_sampler`` closes over these arguments to microbatch
 a large batch with ``lax.map``; the port samples the whole batch in one
 pass, so callers call :func:`euler_sample` directly. :func:`dp_euler_sample`
-is the data-parallel sampler over the ranks of ``parallel/dist.py``.
+is the data-parallel sampler over the ranks of ``parallel/dist.py``, and
+with pair-row TP over their model groups (:func:`grid_euler_sample`).
 """
 
 from __future__ import annotations
@@ -137,18 +138,72 @@ def euler_sample(model: FlowModel, batch: dict, generator: torch.Generator,
     return out
 
 
+class _PaddedModel:
+    """`model` as :func:`euler_sample` calls it, run at a length `Lp`
+    padded from the batch's `L` by masked residues: the batch and the
+    denoiser's per-residue inputs go in padded, the model's outputs come
+    out cut back to L, so the sampler draws every number at L. The padded
+    residues hold their context (the padded batch's own frames, angles and
+    tokens), as the generate mask, 0 there, keeps them in a sampler run at
+    Lp. The node and edge features stay at Lp, between the two calls."""
+
+    def __init__(self, model: FlowModel, Lp: int, L: int):
+        self.model, self.cfg, self.Lp, self.L = model, model.cfg, Lp, L
+        self.context = None
+
+    def encode(self, batch: dict):
+        from pepflowww_torch.parallel import tp
+
+        *data, node_embed, edge_embed = self.model.encode(tp.pad_length(batch, self.Lp))
+        self.context = [x[:, self.L:] for x in data]
+        return (*[x[:, :self.L] for x in data], node_embed, edge_embed)
+
+    def denoise(self, t, rotmats_t, trans_t, angles_t, seqs_t, node_embed, edge_embed,
+                generate_mask, res_mask, **kwargs):
+        x = [torch.cat([v, c], 1) for v, c in
+             zip((rotmats_t, trans_t, angles_t, seqs_t), self.context)]
+        masks = [torch.cat([m, m.new_zeros(m.shape[0], self.Lp - self.L)], 1)
+                 for m in (generate_mask, res_mask)]
+        out = self.model.denoise(t, *x, node_embed, edge_embed, *masks, **kwargs)
+        return tuple(v[:, :self.L] for v in out)
+
+
+def grid_euler_sample(model: FlowModel, batch: dict, generator: torch.Generator,
+                      **kwargs) -> dict:
+    """:func:`euler_sample` of this rank's rows on the grid's model axis
+    (the counterpart of the JAX package's ``make_tp_sampler`` for one data
+    rank): the ranks of a model group call it together with the same rows
+    and a generator seeded alike, and run the model on their pair rows, L
+    padded to a multiple of the model size by masked residues
+    (``parallel/tp.py``; the model built by ``tp.plain_profile``). The
+    sampler draws at L (:class:`_PaddedModel`), as a single process does.
+    Returns every row's outputs on every rank of the group;
+    :func:`euler_sample` itself without a model axis."""
+    from pepflowww_torch.parallel import tp
+
+    L = int(batch["aa"].shape[1])
+    with tp.pair_rows(L) as shard:
+        if shard is not None and shard.length != L:
+            model = _PaddedModel(model, shard.length, L)
+        return euler_sample(model, batch, generator, **kwargs)
+
+
 def dp_euler_sample(model: FlowModel, batch: dict, generator: torch.Generator,
                     **kwargs) -> Optional[dict]:
-    """Data-parallel :func:`euler_sample` (counterpart of the JAX package's
-    ``make_best_dp_sampler`` with its manual sampler): `batch` is the whole
-    device batch on every rank; padded to a multiple of the world size
-    with copies of its last row, rank r samples its contiguous block with
-    its own `generator` (``dp.rank_generator(seed, r, device)``; a world of
-    one draws what a single process draws). Returns the outputs of every
-    row, gathered on the host of rank 0 in row order with the padding
-    dropped; None on the other ranks."""
+    """Data-parallel :func:`euler_sample` over the grid of
+    ``parallel/dist.py`` (counterpart of the JAX package's
+    ``make_best_dp_sampler`` with its manual sampler, and, on a grid with a
+    model axis, of ``make_tp_sampler``): `batch` is the whole device batch
+    on every rank; padded to a multiple of the number of data ranks with
+    copies of its last row, data rank d samples its contiguous block with
+    its own `generator` (``dp.rank_generator(seed, d, device)``, alike on
+    the ranks of its model group, which split its pair rows:
+    :func:`grid_euler_sample`; a world of one draws what a single process
+    draws). Returns the outputs of every row, gathered on the host of rank
+    0 in row order with the padding dropped; None on the other ranks."""
     from pepflowww_torch.parallel import dist, dp
 
-    n, world = int(batch["aa"].shape[0]), dist.world_size()
-    mine = dp.rank_rows(dp.pad_rows(batch, world), dist.rank(), world)
-    return dp.gather_rows(euler_sample(model, mine, generator, **kwargs), n)
+    g = dist.grid()
+    n = int(batch["aa"].shape[0])
+    mine = dp.rank_rows(dp.pad_rows(batch, g.n_data), g.data_rank, g.n_data)
+    return dp.gather_rows(grid_euler_sample(model, mine, generator, **kwargs), n)

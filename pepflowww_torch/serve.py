@@ -6,7 +6,8 @@ can see, and serves full-atom peptide codesign over HTTP.
 
 Endpoints:
     GET  /healthz             -> {"status": "ok", "device": "<torch device> <card>"}
-                                 (and "world_size": N under --dp)
+                                 (and "world_size": N under --dp or --tp, and
+                                 "tp": {...} under --tp)
     POST /sample              -> generated peptides for one pocket
         request JSON:
             pocket_pdb:   str   PDB text of the receptor pocket
@@ -28,6 +29,7 @@ Usage:
     python -m pepflowww_torch.serve --synthetic_weights --port 8300 --warmup 64
     python -m pepflowww_torch.serve --synthetic_weights --port 0 --device cpu
     python -m pepflowww_torch.serve --dp ...   (or under torchrun)
+    python -m pepflowww_torch.serve --tp N ...
 
 Runs on CUDA unless ``--device`` names another device, and raises without
 CUDA. Concurrent requests whose complexes fall in the same (length bucket,
@@ -44,6 +46,13 @@ each group to every rank in one order (collectives from two threads on one
 group are not ordered); each rank samples its contiguous block of the rows
 in 64-row chunks with its own generator, and rank 0 gathers the outputs
 and post-processes them on the host while the next group is dispatched.
+
+``--tp N`` makes a (data, model) grid of those ranks, N model ranks to a
+data rank: a group's rows split over the data ranks (the merge cap and the
+padded sizes follow their number), and the ranks of each model group
+sample their rows together, splitting the pair rows (``parallel/tp.py``;
+the model built without its kernels, ``tp.plain_profile``, which the
+start-up line and /healthz report).
 """
 
 from __future__ import annotations
@@ -72,8 +81,10 @@ DP_TIMEOUT = datetime.timedelta(days=365)
 class ServeState:
     """What a server holds: the model on its device, the profile's name,
     the scheduler (made by the first request), the group counter that
-    seeds each group's generator and, under ``--dp``, the world size and
-    the :class:`Dispatcher`."""
+    seeds each group's generator and, under ``--dp`` or ``--tp``, the
+    number of data ranks (``world``: a group's rows split over them), the
+    model ranks to a data rank (``tp``, 0 without ``--tp``) and the
+    :class:`Dispatcher`."""
 
     def __init__(self, model, device: torch.device, profile: str):
         self.model, self.device, self.profile = model, device, profile
@@ -84,6 +95,7 @@ class ServeState:
         self.scheduler = None
         self.key_counter = 0
         self.world = 1
+        self.tp = 0
         self.dispatcher = None
 
 
@@ -235,13 +247,14 @@ def _make_group_sampler(steps: int):
     sampler: a callable (model, batch, generator) -> outputs that runs the
     Euler sampler for `steps` steps on sequential chunks of at most
     MICROBATCH rows (the JAX sampler's B=64 microbatch) and concatenates
-    them in row order."""
-    from pepflowww_torch.sampling import euler_sample
+    them in row order (on a grid with a model axis, each chunk on this
+    rank's pair rows: ``sampling.grid_euler_sample``)."""
+    from pepflowww_torch.sampling import grid_euler_sample
 
     def run(model, batch, generator):
         B = batch["aa"].shape[0]
-        outs = [euler_sample(model, {k: v[i: i + MICROBATCH] for k, v in batch.items()},
-                             generator, num_steps=steps) for i in range(0, B, MICROBATCH)]
+        outs = [grid_euler_sample(model, {k: v[i: i + MICROBATCH] for k, v in batch.items()},
+                                  generator, num_steps=steps) for i in range(0, B, MICROBATCH)]
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
     return run
@@ -282,10 +295,11 @@ def _sample_rows(model, device: torch.device, group: tuple):
     from pepflowww_torch.parallel import dist, dp
 
     bucket, steps, rows, seed = group
-    rank, world = dist.rank(), dist.world_size()
-    batch = device_batch(pad_and_collate(dp.rank_rows(rows, rank, world), pad_to=bucket), device)
+    g = dist.grid()
+    batch = device_batch(pad_and_collate(dp.rank_rows(rows, g.data_rank, g.n_data),
+                                         pad_to=bucket), device)
     before = dict(native.LAUNCHES)
-    out = _make_group_sampler(steps)(model, batch, dp.rank_generator(seed, rank, device))
+    out = _make_group_sampler(steps)(model, batch, dp.rank_generator(seed, g.data_rank, device))
     # .cpu() waits for the card, so the server's split of a group's time is
     # honest; the rebuild then runs on the host, beside the next group's
     # device work.
@@ -356,7 +370,7 @@ def _run_group(state: ServeState, group_key, rows, contexts) -> list:
     group = (bucket, steps, rows, seed)
     if state.dispatcher is not None:
         out, launched = state.dispatcher.run(group)
-        ranks = f" ranks={state.world} rank0_launches={json.dumps(launched)}"
+        ranks = f" ranks={state.world * max(state.tp, 1)} rank0_launches={json.dumps(launched)}"
     else:
         out, ranks = _sample_rows(state.model, state.device, group)[0], ""
     t1 = time.perf_counter()
@@ -432,7 +446,11 @@ class Handler(BaseHTTPRequestHandler):
             state = self.server.state
             health = {"status": "ok", "device": state.device_name}
             if state.dispatcher is not None:
-                health["world_size"] = state.world
+                health["world_size"] = state.world * max(state.tp, 1)
+            if state.tp:
+                health["tp"] = {"model_ranks": state.tp, "data_ranks": state.world,
+                                "profile": state.profile,
+                                "kernels": "off: pair-row TP runs the plain profile"}
             self._json(200, health)
         else:
             self._json(404, {"error": "unknown path"})
@@ -470,6 +488,10 @@ def _parser():
     ap.add_argument("--dp", action="store_true",
                     help="serve data-parallel over the ranks (one a visible GPU): merged "
                          "groups split over them, the merge cap 64 x the world size")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-axis size of a (data, model) grid of the ranks: the pair "
+                         "tensors' query rows split over this many, the rows over the rest; the "
+                         "model runs without its kernels")
     return ap
 
 
@@ -497,7 +519,12 @@ def _load_model(args, dev: torch.device):
         sd = read_torch_checkpoint(path)
     elif not args.synthetic_weights:
         print("[serve] WARNING: no checkpoint given; serving random weights", flush=True)
-    return build_model(load_config(args.config), dev, state_dict=sd, seed=args.seed)
+    cfg = load_config(args.config)
+    if args.tp:
+        from pepflowww_torch.parallel import tp
+
+        cfg = tp.plain_profile(cfg)
+    return build_model(cfg, dev, state_dict=sd, seed=args.seed)
 
 
 def start(args, model=None, device=None, dispatcher=None) -> ServeState:
@@ -515,9 +542,13 @@ def start(args, model=None, device=None, dispatcher=None) -> ServeState:
         model = _load_model(args, dev)
     state = ServeState(model, dev, _profile(model.cfg))
     if dispatcher is not None:
-        state.world, state.dispatcher = dist.world_size(), dispatcher
+        g = dist.grid()
+        state.world, state.dispatcher = g.n_data, dispatcher
+        state.tp = g.n_model if args.tp else 0
+        pair = (f", pair rows over {g.n_model} model ranks a data rank (pair-row TP: the plain "
+                f"profile, kernels off)" if state.tp else "")
         print(f"[serve] {state.profile} profile on {state.device_name}, data-parallel over "
-              f"{state.world} ranks", flush=True)
+              f"{state.world} ranks{pair}", flush=True)
     else:
         print(f"[serve] {state.profile} profile on {state.device_name}", flush=True)
 
@@ -544,7 +575,7 @@ def main(argv=None):
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    if not args.dp:
+    if not (args.dp or args.tp):
         _serve(args, start(args))
         return
     resolve_device(args.device)
@@ -554,6 +585,7 @@ def main(argv=None):
         return
     dev = dist.init(args.device, timeout=DP_TIMEOUT)
     try:
+        dist.setup_grid(args.tp or 1)
         model = _load_model(args, dev)
         if not dist.is_primary():
             _rank_loop(model, dev)

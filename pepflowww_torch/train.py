@@ -11,6 +11,7 @@ scheduler, and checkpoints in the reference layout.
         [--profile_dir DIR] [--device cpu]
     python -m pepflowww_torch.train --config ... --synthetic [...]
     python -m pepflowww_torch.train --dp [--dp_manual] ...
+    python -m pepflowww_torch.train --fsdp [--tp N] ... | --tp N ...
     torchrun --nproc_per_node N -m pepflowww_torch.train --dp ...
     python -m pepflowww_torch.train --multihost --coordinator_address HOST:PORT \
         --num_processes N --process_id I ...
@@ -54,6 +55,19 @@ corruption (``dp.rank_seed``) and rescues its own non-finite step. Every
 rank validates on the whole split; rank 0 alone writes the run directory
 (its path broadcast), the metrics, the checkpoints and the trace. SIGTERM
 on any rank checkpoints and stops every rank at the next iteration.
+
+FSDP and pair-row TP. ``--fsdp`` shards the parameters, Adam's moments
+and the accumulator over the data ranks (``parallel/fsdp.py``): each rank
+keeps a block between steps, gathers the parameters for the step and for
+validation, and reduce-scatters the gradients; a checkpoint holds the
+single process's layout and resumes at any data size. ``--tp N`` makes a
+(data, model) grid of the ranks, N model ranks to a data rank (N must
+divide the world size): the ranks of a model group train on the same rows
+and split the query rows of the pair tensors (``parallel/tp.py``), with the
+model built without its kernels (``tp.plain_profile``, the JAX package's
+rule; the log says so). Each implies the data grid, as ``--dp`` does, and
+they compose (state over the data ranks, pair rows over the model ranks);
+``--batch_size`` is per data rank, and ``--dp_manual`` with either exits.
 """
 
 from __future__ import annotations
@@ -68,6 +82,11 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The JAX package's train CLI's words for --dp_manual with --fsdp or --tp.
+DP_MANUAL_GRID = ("--dp_manual is the 1-D data-mesh path (the whole per-device program runs "
+                  "inside shard_map); it cannot compose with --fsdp/--tp/--pp, which need GSPMD "
+                  "to place collectives inside the step. Those factories fall back to the "
+                  "XLA-graph profile on multi-chip meshes instead (parallel/tp.py).")
 
 
 def _parser():
@@ -102,6 +121,13 @@ def _parser():
     ap.add_argument("--dp_manual", action="store_true",
                     help="with --dp: each rank draws its own corruption noise and rescues its "
                          "own non-finite step (the JAX package's manual DP step)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="data-parallel with the parameters and the optimizer state sharded "
+                         "over the data ranks (parallel/fsdp.py); implies the data grid")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-axis size of a (data, model) grid: the pair tensors' query rows "
+                         "split over this many ranks (parallel/tp.py), the batch over the rest; "
+                         "the model runs without its kernels; composes with --fsdp")
     ap.add_argument("--multihost", action="store_true",
                     help="join ranks of other processes or hosts (implies --dp): torchrun's "
                          "environment, or the three flags below")
@@ -120,9 +146,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.synthetic and not (args.structure_dir and args.dataset_dir):
         ap.error("give --structure_dir and --dataset_dir, or --synthetic")
+    if args.dp_manual and (args.fsdp or args.tp):
+        raise SystemExit(DP_MANUAL_GRID)
     if args.dp_manual and args.multihost:
         raise SystemExit("--dp_manual is single-process; drop it or drop --multihost")
-    args.dp = args.dp or args.dp_manual or args.multihost
+    args.dp = args.dp or args.dp_manual or args.multihost or args.fsdp or bool(args.tp)
     from pepflowww_torch.device import resolve_device
     from pepflowww_torch.parallel import dist
 
@@ -136,6 +164,7 @@ def main(argv=None):
                     coordinator_address=args.coordinator_address,
                     num_processes=args.num_processes, process_id=args.process_id)
     try:
+        dist.setup_grid(args.tp or 1)
         run_dir = _train(args, dev)
         dist.barrier()
     finally:
@@ -148,13 +177,14 @@ def _train(args, dev: torch.device) -> str:
     from pepflowww_torch.config import load_train_config
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.models.flow import FlowModel, init_weights
-    from pepflowww_torch.parallel import dist, dp
+    from pepflowww_torch.parallel import dist, dp, fsdp, tp
     from pepflowww_torch.training import checkpoints
     from pepflowww_torch.training.optim import Optimizer, PlateauScheduler
     from pepflowww_torch.training.train_step import loss_and_total, train_step
     from pepflowww_torch.utils import misc
 
     rank, world, primary = dist.rank(), dist.world_size(), dist.is_primary()
+    grid = dist.grid()
     model_cfg, cfg, cfg_name = load_train_config(args.config)
     train_cfg = cfg["train"]
     seed = int(train_cfg["seed"])
@@ -188,12 +218,13 @@ def _train(args, dev: torch.device) -> str:
         rng = np.random.default_rng(seed)
 
         def synthetic(r):
-            return make_batch(r, batch_size=batch_size * world, pep_len=12, rec_len=48,
+            return make_batch(r, batch_size=batch_size * grid.n_data, pep_len=12, rec_len=48,
                               pad_to=64)
 
         val_rng = np.random.default_rng(seed + 7919)
         val_loader = [synthetic(val_rng) for _ in range(2)]
-        train_iter = (dp.rank_rows(synthetic(rng), rank, world) for _ in iter(int, 1))
+        train_iter = (dp.rank_rows(synthetic(rng), grid.data_rank, grid.n_data)
+                      for _ in iter(int, 1))
         n_train = -1
     else:
         from pepflowww_torch.data.dataset import DataLoader, PepDataset
@@ -202,7 +233,7 @@ def _train(args, dev: torch.device) -> str:
                              exclude_names_file=args.exclude_names)
         n_train = len(dataset)
         train_iter = DataLoader(dataset, batch_size=batch_size, shuffle=True, seed=seed,
-                                num_shards=world, shard_index=rank).prefetch()
+                                num_shards=grid.n_data, shard_index=grid.data_rank).prefetch()
         val_loader = None
         if args.val_dataset_name:
             val_dataset = PepDataset(args.val_structure_dir or args.structure_dir,
@@ -210,15 +241,24 @@ def _train(args, dev: torch.device) -> str:
             val_loader = DataLoader(val_dataset, batch_size=batch_size, shuffle=False,
                                     drop_last=False)
 
+    if args.tp:
+        model_cfg = tp.plain_profile(model_cfg)
     model = FlowModel(model_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(dev).train()
     logger.info("Device: %s | world size: %d | backend: %s | train size: %d | run dir: %s",
                 dev, world, dist.backend(), n_train, run_dir)
+    if args.fsdp or args.tp:
+        logger.info("grid: %d data x %d model ranks | fsdp: %s | tp: %s", grid.n_data,
+                    grid.n_model, bool(args.fsdp),
+                    f"pair rows over {grid.n_model} model ranks, kernels off "
+                    "(use_pallas, use_pallas_ipa, quant_int8: the plain profile)" if args.tp
+                    else "off")
     logger.info("Number of parameters: %d", misc.count_parameters(model))
 
-    optimizer = Optimizer(model.parameters(), train_cfg["optimizer"], train_cfg["max_grad_norm"],
-                          accum_grad=int(train_cfg.get("accum_grad", 1)))
+    opt_cls = fsdp.ShardedOptimizer if args.fsdp else Optimizer
+    optimizer = opt_cls(model.parameters(), train_cfg["optimizer"], train_cfg["max_grad_norm"],
+                        accum_grad=int(train_cfg.get("accum_grad", 1)))
     sc = train_cfg["scheduler"]
     sched = PlateauScheduler(factor=sc["factor"], patience=sc["patience"], min_lr=sc["min_lr"])
     it_first = 1
@@ -235,7 +275,7 @@ def _train(args, dev: torch.device) -> str:
         acc = misc.ScalarMetricAccumulator()
         vgen = torch.Generator(device=dev).manual_seed(0)
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), optimizer.gathered():
             for vb in val_loader:
                 total, losses = loss_and_total(model, device_batch(vb, dev), loss_weights, vgen)
                 bsz = int(vb["aa"].shape[0])
@@ -254,10 +294,12 @@ def _train(args, dev: torch.device) -> str:
             optimizer.lr = new_lr
             logger.info("lr -> %.3g", new_lr)
 
-    stop = {"flag": False}
+    # Set by the handler only, never cleared: a signal that lands while the
+    # ranks agree on stopping (inside dist.any_flag) is read at the next one.
+    requested = {"flag": False}
 
     def _request_stop(signum, frame):
-        stop["flag"] = True
+        requested["flag"] = True
         logger.info("signal %d received; checkpointing and exiting", signum)
 
     prof = None
@@ -278,7 +320,7 @@ def _train(args, dev: torch.device) -> str:
                 prof = _stop_profile(prof, args.profile_dir, logger)
             m = train_step(model, optimizer, batch, loss_weights, generator,
                            manual=args.dp_manual)
-            seen += int(batch["aa"].shape[0]) * world
+            seen += int(batch["aa"].shape[0]) * grid.n_data
             if it % args.log_freq == 0:
                 m = {k: float(v) for k, v in m.items()}
                 m["samples_per_sec"] = seen / (time.time() - t0)
@@ -292,12 +334,12 @@ def _train(args, dev: torch.device) -> str:
             if val_loader is not None and it % val_freq == 0:
                 # Rank 0's value, so that every rank's learning rate moves alike.
                 step_scheduler(dist.broadcast_object(validate(it)))
-            if args.dp:
-                stop["flag"] = dist.any_flag(stop["flag"])
-            if (it % val_freq == 0 or stop["flag"]) and primary:
+            stop = dist.any_flag(requested["flag"]) if args.dp else requested["flag"]
+            if it % val_freq == 0 or stop:
                 path = checkpoints.save_checkpoint(ckpt_dir, it, model, optimizer, sched, cfg)
-                logger.info("checkpoint -> %s", path)
-            if stop["flag"]:
+                if path is not None:
+                    logger.info("checkpoint -> %s", path)
+            if stop:
                 logger.info("exiting at iteration %d after preemption checkpoint", it)
                 break
             batch = device_batch(next(train_iter), dev)

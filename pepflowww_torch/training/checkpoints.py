@@ -12,12 +12,25 @@ from typing import Optional
 import torch
 
 
-def save_checkpoint(ckpt_dir: str, it: int, model, optimizer, scheduler, config: dict) -> str:
-    """Write ``<ckpt_dir>/<it>.pt`` (through a temporary file) and return its path."""
+def save_checkpoint(ckpt_dir: str, it: int, model, optimizer, scheduler,
+                    config: dict) -> Optional[str]:
+    """Write ``<ckpt_dir>/<it>.pt`` (through a temporary file) on rank 0 and
+    return its path (None on the other ranks). Every rank calls it: a
+    sharded optimizer (``parallel/fsdp.py``) gathers the parameters and its
+    state from every data rank, so the file holds the single process's
+    layout at any data size."""
+    from pepflowww_torch.parallel import dist
+
+    if not dist.is_primary() and not optimizer.sharded:
+        return None
+    with optimizer.gathered():
+        model_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        opt_sd = optimizer.state_dict()
+    if not dist.is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"{it}.pt")
-    state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-             "optimizer": optimizer.state_dict(), "scheduler": scheduler.state_dict(),
+    state = {"model": model_sd, "optimizer": opt_sd, "scheduler": scheduler.state_dict(),
              "iteration": int(it), "config": config}
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(state, tmp)
@@ -35,7 +48,8 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, model, optimizer, scheduler) -> int:
     """Load model (strict), optimizer and scheduler state from `path` (a
-    checkpoint file, or a directory: its latest); returns the iteration."""
+    checkpoint file, or a directory: its latest); returns the iteration.
+    Under FSDP every rank calls it and takes its block."""
     from pepflowww_torch.convert import load_state_dict
 
     if os.path.isdir(path):
@@ -44,7 +58,8 @@ def restore_checkpoint(path: str, model, optimizer, scheduler) -> int:
             raise FileNotFoundError(f"no checkpoint in {path}")
         path = found
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    load_state_dict(model, ckpt["model"])
+    with optimizer.gathered(writeback=True):   # a sharded optimizer keeps its block
+        load_state_dict(model, ckpt["model"])
     optimizer.load_state_dict(ckpt["optimizer"])
     scheduler.load_state_dict(ckpt["scheduler"])
     return int(ckpt["iteration"])

@@ -83,6 +83,34 @@ def test_dp_flags_and_dp_without_cuda_raise(monkeypatch, tmp_path):
     assert started == [] and not any(tmp_path.iterdir())
 
 
+def test_fsdp_tp_flags_and_without_cuda_raise(monkeypatch, tmp_path):
+    """JAX's ``--fsdp`` and ``--tp N`` in the train CLI and ``--tp N`` in the
+    sample CLI and the server (``--pp`` waits for its slice: argparse
+    refuses it); without CUDA each raises before it starts a rank, spawns
+    one or binds a port."""
+    from pepflowww_torch import sample, serve, train
+    from pepflowww_torch.parallel import dist
+
+    assert {"--fsdp", "--tp"} <= set(train._parser()._option_string_actions)
+    assert "--tp" in sample._parser()._option_string_actions
+    assert "--tp" in serve._parser()._option_string_actions
+    assert "--pp" not in train._parser()._option_string_actions
+    with pytest.raises(SystemExit):
+        train._parser().parse_args(["--pp", "2"])
+    _no_cuda(monkeypatch)
+    started = []
+    monkeypatch.setattr(dist, "init", lambda *a, **k: started.append(("init", a)))
+    monkeypatch.setattr(dist, "launch", lambda *a, **k: started.append(("launch", a)))
+    monkeypatch.setattr(serve, "_Server", lambda *a, **k: started.append(("bind", a)))
+    for argv, main in ((["--synthetic", "--fsdp", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--tp", "2", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--tp", "2", "--out", str(tmp_path)], sample_main),
+                       (["--synthetic_weights", "--tp", "2", "--port", "0"], serve.main)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert started == [] and not any(tmp_path.iterdir())
+
+
 def test_sample_cli_on_cpu_writes_pdbs(tmp_path, capsys):
     """The production profile (configs/learn_angle_tpu.yaml: 6 blocks, bf16,
     kernels on) on the CPU, where the kernels take their plain versions."""

@@ -53,3 +53,35 @@ def test_dp_modules_load_no_jax():
                          timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_fsdp_tp_modules_load_no_jax():
+    """The FSDP and pair-row TP modules, at run time in a fresh interpreter:
+    a one-rank gloo group with its grid, a sharded optimizer that gathers
+    and releases a module's parameters, a batch padded to the model size,
+    and no JAX module and no JAX-package module in sys.modules."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "from pepflowww_torch.parallel import dist, fsdp, tp\n"
+        "assert dist.init('cpu') == torch.device('cpu')\n"
+        "g = dist.setup_grid(1)\n"
+        "assert (g.n_data, g.n_model, g.data_rank, g.model_rank) == (1, 1, 0, 0)\n"
+        "m = torch.nn.Linear(3, 2)\n"
+        "opt = fsdp.ShardedOptimizer(m.parameters(), {'type': 'adam'})\n"
+        "assert opt.numel == 8 and m.weight.numel() == 0\n"
+        "with opt.gathered():\n"
+        "    assert m.weight.shape == (2, 3)\n"
+        "assert m.weight.numel() == 0\n"
+        "b = tp.pad_length({'aa': torch.zeros(1, 3, dtype=torch.long)}, 4)\n"
+        "assert b['aa'].tolist() == [[0, 0, 0, 21]]\n"
+        "dist.destroy()\n"
+        f"print(sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
