@@ -151,12 +151,28 @@ Phases, each on its own lines:
    warning, /healthz with the grid, one request of 8 samples × 20 steps
    answered with no kernel launched, SIGTERM exit 0. Outputs:
    chiprun_out/fsdp_tp_logs.
-10. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
+10. pp: GPipe pipeline parallelism (``parallel/pp.py``) at full width and
+   depth. Two processes on the one card first probe whether gloo's send
+   and recv take CUDA tensors (printed either way: the port's stage hops
+   over a gloo group go through host buffers by its backend, NCCL's take
+   device tensors). Then ``--pp 2`` over two ranks sharing the card over
+   gloo (the production YAML, which becomes the plain profile with the
+   JAX rule's warning, 3 blocks a stage, B=32 L=128, 4 microbatches): one
+   step against one process's plain-profile step on the same rows and
+   noise (loss and grad_norm within DP_RTOL, every gradient within
+   STEP_REL/STEP_ABS), no kernel launched, the hop transport, each rank's
+   peak memory beside one process's, and a second step's seconds. Then
+   ``--pp 2 --fsdp`` over four ranks (2 data x 2 pipe, B=16 a data rank)
+   against the same process: the loss within DP_RTOL, the state a rank
+   (12 bytes an element of its block). Last, the train CLI on this
+   one-GPU world: ``--pp 2`` exits with "must divide the world size" and
+   ``--pp 2 --tp 2`` with the JAX CLI's words.
+11. eval: ``pepflowww_torch.evalrun`` in-process over the data phase's
    samples (6 complexes x 32 PDBs) against its structures, with ``--tools
    ss`` (the Ramachandran fallback) and ``--tools auto``: 192 rows with a
    finite ``ss_recovery``, every absent tool recorded as unavailable, the
    wall time, and no kernel launched.
-11. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
+12. serve: ``python -m pepflowww_torch.serve --synthetic_weights --port 0``
    as a process with the production YAML (its address read from its
    output): ``/healthz`` names cuda and the card, a request without a
    native peptide (12 residues, 2 samples, 100 steps) returns 2 PDBs with
@@ -197,7 +213,8 @@ kernel gives ``fsdp_launches``, its launches in the fsdp_tp phase's
 ``--fsdp`` train CLI runs (K1, K3, K4 and K5 the production one's, K7 and
 K8 the fused-IPA one's; the others none: the step has no readout), and
 ``tp_launches``, its launches in every ``--tp`` run of that phase (none:
-the model is built without its kernels).
+the model is built without its kernels), and ``pp_launches``, its launches
+in the pp phase's ranks (none: ``--pp`` builds the plain profile).
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -2313,6 +2330,266 @@ def phase_fsdp_tp(card: str, dp: dict, ipa_yaml: str) -> dict:
     return {"fsdp": fsdp_launches, "tp": tp_total}
 
 
+# The pp phase: pipeline stages and microbatches of the --pp runs, and the
+# peptide, pocket and padded length of their batch (the loader's 128 bucket).
+PP_STAGES, PP_MICRO, PP_COMPLEX = 2, 4, (12, 116, 128)
+
+
+# One rank of the pp phase's probe: a CUDA tensor through gloo's send and recv.
+PP_PROBE = """
+import datetime, sys, torch, torch.distributed as tdist
+sys.path.insert(0, {root!r})
+from pepflowww_torch.parallel import dist
+dev = dist.init("cuda:0", backend="gloo", timeout=datetime.timedelta(seconds=20))
+x = torch.arange(4.0, device=dev)
+if dist.rank() == 0:
+    tdist.send(x, 1)
+else:
+    buf = torch.zeros(4, device=dev)
+    tdist.recv(buf, 0)
+    torch.cuda.synchronize()
+    print("received", buf.tolist(), flush=True)
+print("sent or received", flush=True)
+"""
+
+
+def _pp_probe() -> list:
+    """Whether gloo's send and recv take CUDA tensors (phase "pp", step 1):
+    two processes on card 0, each its own interpreter, since a gloo I/O
+    error in its transport thread ends the process. Returns each rank's
+    exit code and the line that says what happened. The port's hops do not
+    depend on the answer: over a gloo group they go through host buffers
+    (``dist.hop_on_host``)."""
+    import resource
+
+    from pepflowww_torch.parallel import dist
+
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.free_port()), WORLD_SIZE="2")
+    procs = [subprocess.Popen([sys.executable, "-c", PP_PROBE.format(root=ROOT)], cwd=ROOT,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              preexec_fn=lambda: resource.setrlimit(resource.RLIMIT_CORE, (0, 0)))
+             for r in range(2)]
+    out = []
+    for p in procs:
+        try:
+            text = p.communicate(timeout=90)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text = p.communicate()[0] + "\n(killed after 90 s)"
+        lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+        said = next((ln for ln in lines if any(w in ln for w in ("what()", "Bad address",
+                                                                 "Error", "received"))),
+                    lines[-1] if lines else "")
+        out.append({"code": p.returncode, "said": said[:240]})
+    return out
+
+
+def _pp_rank(prod_yaml: str, sharded: bool) -> dict:
+    """One rank on card 0 over gloo (phase "pp"): ``--pp 2`` on two ranks,
+    or ``--pp 2 --fsdp`` on four (`sharded`), one step of this data rank's
+    rows of the B=32 L=128 batch, then a second, timed. Returns the launches,
+    the metrics, rank 0's gradients (before the clip; unsharded only), the
+    peak memory of the first step over the rank's start, the state a
+    sharded rank holds, the hop transport and the profile's warnings."""
+    import warnings
+
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.parallel import dist, dp, fsdp, pp
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    dev = dist.init("cuda:0", backend="gloo")
+    g = dist.setup_grid(1, PP_STAGES)
+    tc = prod_train_cfg()
+    weights = dict(tc["loss_weights"])
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        cfg = pp.plain_profile(load_config(prod_yaml))
+    _warm_blas(dev)
+    model = production_model(dev, cfg).train()
+    opt = (fsdp.ShardedOptimizer if sharded else Optimizer)(
+        model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    batch, _ = main_path_batch(dev, 32, seed=7, complex_=PP_COMPLEX)
+    noise = draw_noise(32, PP_COMPLEX[2], torch.Generator(device=dev).manual_seed(8), dev)
+    rows = dp.rank_rows(batch, g.data_rank, g.n_data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    native.reset_launch_counts()
+    m = train_step(model, opt, rows, weights, noise=noise, n_micro=PP_MICRO)
+    torch.cuda.synchronize()
+    out = {"rank": dist.rank(), "data_rank": g.data_rank, "pipe_rank": g.pipe_rank,
+           "launches": dict(native.LAUNCHES), "metrics": {k: float(v) for k, v in m.items()},
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "transport": "host buffers (gloo)" if dist.hop_on_host() else "device tensors",
+           "warnings": [str(r.message) for r in rec], "grads": None}
+    if sharded:
+        moments = [v for k, v in opt.opt.state[opt.shard].items() if k != "step"]
+        out.update(block=opt.shard.numel(), span=opt.span,
+                   state_bytes=4 * (opt.shard.numel() + sum(v.numel() for v in moments)))
+    elif dist.rank() == 0:
+        clip = min(1.0, float(tc["max_grad_norm"]) / (out["metrics"]["grad_norm"] + 1e-6))
+        out["grads"] = {n: p.grad.float().cpu().numpy() / clip
+                        for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step(model, opt, rows, weights, noise=noise, n_micro=PP_MICRO)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["launches2"] = dict(native.LAUNCHES)
+    return out
+
+
+def _pp_single(cfg, tc: dict, dev) -> tuple:
+    """One process's plain-profile step on the pp phase's batch and noise:
+    (metrics, gradients before the clip, peak bytes of the step, seconds
+    of a second step)."""
+    import torch
+
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    weights = dict(tc["loss_weights"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = production_model(dev, cfg).train()
+    opt = Optimizer(model.parameters(), tc["optimizer"], tc["max_grad_norm"])
+    batch, _ = main_path_batch(dev, 32, seed=7, complex_=PP_COMPLEX)
+    noise = draw_noise(32, PP_COMPLEX[2], torch.Generator(device=dev).manual_seed(8), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    m = {k: float(v) for k, v in train_step(model, opt, batch, weights, noise=noise).items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    clip = min(1.0, float(tc["max_grad_norm"]) / (m["grad_norm"] + 1e-6))
+    grads = {n: p.grad.float().cpu().numpy() / clip for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    train_step(model, opt, batch, weights, noise=noise)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    del model, opt, batch, noise
+    torch.cuda.empty_cache()
+    return m, grads, peak, sec
+
+
+def phase_pp(card: str) -> dict:
+    """GPipe pipeline parallelism on the card (phase 10); returns the
+    launches of every kernel in the phase's ranks (all 0)."""
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.config import load_config
+    from pepflowww_torch.parallel import dist, pp
+
+    t_phase = time.perf_counter()
+    prod_yaml = os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")
+    zero = dict.fromkeys(native.SOURCES, 0)
+    dev = torch.device("cuda", 0)
+    tc = prod_train_cfg()
+
+    # 1. Does gloo's point-to-point take CUDA tensors? (A probe: the port's
+    # hops over gloo go through host buffers whatever it answers.)
+    probe = _pp_probe()
+    say("pp", f"gloo send/recv with CUDA tensors, two processes on the card: rank 0 exit "
+              f"{probe[0]['code']}: {probe[0]['said']}; rank 1 exit {probe[1]['code']}: "
+              f"{probe[1]['said']}; the port's hops over a gloo group go through host buffers "
+              f"(dist.hop_on_host), over NCCL as device tensors (not runnable here: NCCL puts "
+              f"no two ranks on one GPU); on {card}")
+
+    # 2. --pp 2 over two ranks sharing the card, against one process.
+    t0 = time.perf_counter()
+    ranks = dist.launch(_pp_rank, 2, (prod_yaml, False))
+    t_two = time.perf_counter() - t0
+    cfg = pp.plain_profile(load_config(prod_yaml))
+    m1, g1, peak1, sec1 = _pp_single(cfg, tc, dev)
+    for r in ranks:
+        check(r["transport"] == "host buffers (gloo)", f"pp rank {r['rank']}: {r['transport']}")
+        check(r["launches"] == zero and r["launches2"] == zero,
+              f"pp rank {r['rank']}: launched {r['launches']}, then {r['launches2']}")
+        check(r["warnings"] == [pp.PROFILE_WARNING], f"pp rank {r['rank']}: {r['warnings']}")
+        check(r["metrics"] == ranks[0]["metrics"], "pp: the two ranks' metrics differ")
+    m = ranks[0]["metrics"]
+    loss_gap = abs(m["loss"] / m1["loss"] - 1)
+    norm_gap = abs(m["grad_norm"] / m1["grad_norm"] - 1)
+    G = float(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in g1.values())))
+    worst, worst_name = 0.0, ""
+    for n, g in g1.items():
+        share = float(np.linalg.norm(ranks[0]["grads"][n] - g)) / (
+            STEP_REL * float(np.linalg.norm(g)) + STEP_ABS * G)
+        if share > worst:
+            worst, worst_name = share, n
+    Bm = 32 // PP_MICRO
+    L = PP_COMPLEX[2]
+    edge_bytes = 2 if cfg.ipa.compute_dtype == torch.bfloat16 else 4
+    hop = Bm * L * (cfg.ipa.c_s + 12) * 4 + Bm * L * L * cfg.ipa.c_z * edge_bytes
+    say("pp", f"--pp 2, two gloo ranks on the one card ({cfg.ipa.num_blocks // PP_STAGES} "
+              f"blocks a stage, B=32 L={L}, {PP_MICRO} microbatches of {Bm}, bubble {(PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1):.3f}; "
+              f"the production YAML as the plain profile, warning \"{ranks[0]['warnings'][0][:60]}...\"; "
+              f"stage hops through {ranks[0]['transport']}, {hop} bytes a hop, "
+              f"{PP_MICRO} forward and {PP_MICRO} backward a step) against one process: loss "
+              f"{m['loss']:.6f} vs {m1['loss']:.6f} (gap {loss_gap:.3e}), grad_norm "
+              f"{m['grad_norm']:.6f} vs {m1['grad_norm']:.6f} (gap {norm_gap:.3e}), limit "
+              f"{DP_RTOL}; closest gradient {worst_name} at {worst:.3f} of its limit; kernel "
+              f"launches a rank over two steps {sum(ranks[0]['launches2'].values())}; on {card}")
+    say("pp", f"--pp 2 peak memory of the step over a rank's start: stage 0 "
+              f"{ranks[0]['peak_bytes']}, stage 1 {ranks[1]['peak_bytes']} bytes against one "
+              f"process's {peak1} (ratios {ranks[0]['peak_bytes'] / peak1:.3f}, "
+              f"{ranks[1]['peak_bytes'] / peak1:.3f}); a second step {ranks[0]['step_s']:.3f} s "
+              f"(two processes sharing one GPU, hops through gloo's host copies: not a scaling "
+              f"figure) against one process's {sec1:.3f} s; the launch {t_two:.1f} s with its "
+              f"start; on {card}")
+    check(loss_gap <= DP_RTOL and norm_gap <= DP_RTOL and worst <= 1.0,
+          "pp: the two stages' step left the single process's")
+
+    # 3. --pp 2 --fsdp over four ranks (2 data x 2 pipe), B=16 a data rank.
+    t0 = time.perf_counter()
+    four = dist.launch(_pp_rank, 4, (prod_yaml, True))
+    t_four = time.perf_counter() - t0
+    for r in four:
+        check(r["launches"] == zero and r["launches2"] == zero,
+              f"pp fsdp rank {r['rank']}: launched {r['launches']}")
+        check(r["block"] == -(-r["span"] // 2) and r["state_bytes"] == 12 * r["block"],
+              f"pp fsdp rank {r['rank']}: block {r['block']} of {r['span']}, state "
+              f"{r['state_bytes']} bytes")
+    gaps = [abs(r["metrics"]["loss"] / m1["loss"] - 1) for r in four]
+    say("pp", f"--pp 2 --fsdp, 2 data x 2 pipe gloo ranks on the one card, B=16 a data rank, "
+              f"{PP_MICRO} microbatches of 4: loss {four[0]['metrics']['loss']:.6f} vs one "
+              f"process's {m1['loss']:.6f} at B=32 (largest gap over the ranks "
+              f"{max(gaps):.3e}, limit {DP_RTOL}); state a rank (block and two moments) "
+              f"{[r['state_bytes'] for r in four]} bytes (a block of {four[0]['block']} of "
+              f"{four[0]['span']}); peak memory of the step {[r['peak_bytes'] for r in four]} "
+              f"bytes; a second step {four[0]['step_s']:.3f} s; the launch {t_four:.1f} s; on "
+              f"{card}")
+    check(max(gaps) <= DP_RTOL, "pp fsdp: the four ranks' loss left the single process's")
+
+    # 4. The train CLI on this one-GPU world.
+    outs = {}
+    for tag, flags, words in (("world", ["--pp", "2"], "--pp 2 must divide the world size 1"),
+                              ("tp", ["--pp", "2", "--tp", "2"], pp.PP_TP)):
+        res = subprocess.run([sys.executable, "-m", "pepflowww_torch.train", "--synthetic",
+                              "--logdir", os.path.join(OUT_DIR, "pp_logs"), *flags], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        outs[tag] = res.returncode
+        check(res.returncode != 0 and words in res.stderr,
+              f"pp CLI {' '.join(flags)}: exit {res.returncode}, {res.stderr[-600:]}")
+    say("pp", f"train CLI --pp 2 on this one-GPU world: exit {outs['world']}, \"--pp 2 must "
+              f"divide the world size 1\"; --pp 2 --tp 2: exit {outs['tp']} with the JAX CLI's "
+              f"words; phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    # launches2: both steps (the counts run on from the reset before the first)
+    return {k: sum(r["launches2"].get(k, 0) for r in ranks + four) for k in native.SOURCES}
+
+
 def phase_eval(card: str):
     """The evaluation CLI over the data phase's samples (phase 10)."""
     import csv
@@ -2805,6 +3082,7 @@ def main():
     phase_train_data(card, prod, ipa, ipa_yaml)
     dp = phase_dp(card, prod, ipa, ipa_yaml)
     grid = phase_fsdp_tp(card, dp, ipa_yaml)
+    pp_launches = phase_pp(card)
     phase_eval(card)
     served = phase_serve(card, prod, int8, ipa, {
         "production": os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "int8": int8_yaml,
@@ -2852,6 +3130,7 @@ def main():
             k["dp_serve_launches"] = dp["serve"][k["name"]]
         k["fsdp_launches"] = grid["fsdp"].get(k["name"], 0)
         k["tp_launches"] = grid["tp"].get(k["name"].removesuffix("_k1").removesuffix("_long"), 0)
+        k["pp_launches"] = pp_launches.get(k["name"].removesuffix("_k1").removesuffix("_long"), 0)
         if k["name"] == "edge_transition":
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":

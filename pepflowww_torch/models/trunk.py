@@ -88,8 +88,21 @@ class GAEncoder(nn.Module):
                 generate_mask, res_mask, fused_pair_readout: bool = False):
         """fused_pair_readout: each EdgeTransition also emits the NEXT IPA
         block's linear_b / down_z readouts from its on-chip output tile
-        (sampler path; forward only)."""
-        cfg, tr = self.cfg, self.trunk
+        (sampler path; forward only). The composition of :meth:`prologue`,
+        :meth:`block` for every b and :meth:`epilogue`."""
+        state = self.prologue(t, rotmats_t, trans_t, angles_t, seqs_t, node_embed, edge_embed,
+                              res_mask)
+        readouts = None
+        for b in range(self.cfg.num_blocks):
+            state, readouts = self.block(b, state, readouts, fused_pair_readout)
+        return self.epilogue(state)
+
+    def prologue(self, t, rotmats_t, trans_t, angles_t, seqs_t, node_embed, edge_embed,
+                 res_mask) -> tuple:
+        """The features mixed before the blocks: the state (node_embed,
+        edge_embed, R, trans, node_mask) that :meth:`block` steps (the JAX
+        package's ``parallel/pp.py::trunk_prologue``)."""
+        cfg = self.cfg
         B, L = seqs_t.shape
         node_mask = res_mask.float()
         seq_embed = self.current_seq_embedder(seqs_t.long())
@@ -99,28 +112,39 @@ class GAEncoder(nn.Module):
         node_embed = self.res_feat_mixer(
             torch.cat([node_embed, seq_embed, t_embed, ang_embed], -1)).float()
         node_embed = node_embed * node_mask[..., None]
+        return node_embed, edge_embed, rotmats_t.float(), trans_t.float(), node_mask
 
-        R, trans = rotmats_t.float(), trans_t.float()
+    def block(self, b: int, state: tuple, readouts=None, fused_pair_readout: bool = False):
+        """Block `b` of the trunk on `state`, by its modules' checkpoint names
+        (``ipa_{b}`` ... ``edge_transition_{b}``; the last block has no
+        EdgeTransition, its pair output being dead). Returns the next state
+        and, with `fused_pair_readout`, the next IPA's readouts (else None)."""
+        tr = self.trunk
+        node_embed, edge_embed, R, trans, node_mask = state
+        # Under pair-row TP each rank computes its rows' update; every row's
+        # is gathered (parallel/tp.py), and the node work below runs whole.
+        ipa_embed = tp.gather_rows(tr[f"ipa_{b}"](node_embed, edge_embed, R, trans, node_mask,
+                                                  readouts=readouts))
+        node_embed = tr[f"ipa_ln_{b}"](node_embed + ipa_embed * node_mask[..., None])
+        seq_out = tr[f"seq_tfmr_{b}"](node_embed, key_padding_mask=node_mask < 0.5)
+        node_embed = node_embed + tr[f"post_tfmr_{b}"](seq_out)
+        node_embed = tr[f"node_transition_{b}"](node_embed) * node_mask[..., None]
+        update = tr[f"bb_update_{b}"](node_embed * node_mask[..., None])
+        R, trans = compose_q_update(R, trans, update, update_mask=node_mask)
         readouts = None
-        for b in range(cfg.num_blocks):
-            # Under pair-row TP each rank computes its rows' update; every row's
-            # is gathered (parallel/tp.py), and the node work below runs whole.
-            ipa_embed = tp.gather_rows(tr[f"ipa_{b}"](node_embed, edge_embed, R, trans, node_mask,
-                                                      readouts=readouts))
-            node_embed = tr[f"ipa_ln_{b}"](node_embed + ipa_embed * node_mask[..., None])
-            seq_out = tr[f"seq_tfmr_{b}"](node_embed, key_padding_mask=node_mask < 0.5)
-            node_embed = node_embed + tr[f"post_tfmr_{b}"](seq_out)
-            node_embed = tr[f"node_transition_{b}"](node_embed) * node_mask[..., None]
-            update = tr[f"bb_update_{b}"](node_embed * node_mask[..., None])
-            R, trans = compose_q_update(R, trans, update, update_mask=node_mask)
-            if b < cfg.num_blocks - 1:
-                et = tr[f"edge_transition_{b}"]
-                if fused_pair_readout:
-                    edge_embed, readouts = et(node_embed, edge_embed, node_mask,
-                                              readout=tr[f"ipa_{b + 1}"].readout_params())
-                else:
-                    edge_embed = et(node_embed, edge_embed, node_mask)
+        if b < self.cfg.num_blocks - 1:
+            et = tr[f"edge_transition_{b}"]
+            if fused_pair_readout:
+                edge_embed, readouts = et(node_embed, edge_embed, node_mask,
+                                          readout=tr[f"ipa_{b + 1}"].readout_params())
+            else:
+                edge_embed = et(node_embed, edge_embed, node_mask)
+        return (node_embed, edge_embed, R, trans, node_mask), readouts
 
+    def epilogue(self, state: tuple):
+        """(R, trans, angles in [0, 2π), sequence logits) read out of the
+        last block's state (``trunk_epilogue``)."""
+        node_embed, _, R, trans, _ = state
         pred_seqs = self.seq_net(node_embed)
         pred_angles = torch.remainder(self.angle_net(node_embed), 2 * math.pi)
         return R, trans, pred_angles, pred_seqs

@@ -142,9 +142,11 @@ def destroy() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in the (data, model) grid and its two groups. A
-    group is None where its axis spans the world (the default group) or
-    has size 1 (callers run no collective over an axis of size 1)."""
+    """This rank's place in the (data, model) or (data, pipe) grid and its
+    groups. The minor axis is the model axis (pair-row TP) or the pipe axis
+    (pipeline stages), never both, as in the JAX package. A group is None
+    where its axis spans the world (the default group) or has size 1
+    (callers run no collective over an axis of size 1)."""
 
     n_data: int
     n_model: int
@@ -152,31 +154,51 @@ class Grid:
     model_rank: int
     data_group: object = None
     model_group: object = None
+    n_pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: object = None
+
+    @property
+    def minor_group(self):
+        """The group of the ranks that hold the same rows: the model or the pipe group."""
+        return self.pipe_group if self.n_pipe > 1 else self.model_group
+
+    @property
+    def n_minor(self) -> int:
+        return self.n_model * self.n_pipe
 
 
-def setup_grid(n_model: int = 1) -> Grid:
-    """Split the initialized world into ``world // n_model`` data ranks of
-    `n_model` model ranks each; every rank calls it (groups are made
-    collectively). Raises SystemExit where `n_model` does not divide the
-    world size. The groups take the default group's backend."""
+def setup_grid(n_model: int = 1, n_pipe: int = 1) -> Grid:
+    """Split the initialized world into ``world // n`` data ranks of `n`
+    model ranks (`n_model`) or pipeline stages (`n_pipe`) each, the minor
+    axis minor in the rank order (the JAX package's ``make_mesh_2d`` and
+    ``make_mesh_pp``); every rank calls it (groups are made collectively).
+    Raises SystemExit where `n` does not divide the world size. The groups
+    take the default group's backend."""
     global _GRID
     world, r = world_size(), rank()
-    n_model = int(n_model)
-    if n_model < 1 or world % n_model:
-        raise SystemExit(f"--tp {n_model} must divide the world size {world}")
-    n_data = world // n_model
-    data_group = model_group = None
-    if n_model > 1 and is_initialized():
+    n_model, n_pipe = int(n_model), int(n_pipe)
+    if n_model > 1 and n_pipe > 1:
+        raise ValueError("the model and pipe axes do not compose: one minor axis a grid")
+    n, flag = (n_pipe, "--pp") if n_pipe > 1 else (n_model, "--tp")
+    if n < 1 or world % n:
+        raise SystemExit(f"{flag} {n} must divide the world size {world}")
+    n_data = world // n
+    data_group = minor_group = None
+    if n > 1 and is_initialized():
         for d in range(n_data):
-            g = tdist.new_group([d * n_model + m for m in range(n_model)])
-            if d == r // n_model:
-                model_group = g
+            g = tdist.new_group([d * n + m for m in range(n)])
+            if d == r // n:
+                minor_group = g
         if n_data > 1:
-            for m in range(n_model):
-                g = tdist.new_group([d * n_model + m for d in range(n_data)])
-                if m == r % n_model:
+            for m in range(n):
+                g = tdist.new_group([d * n + m for d in range(n_data)])
+                if m == r % n:
                     data_group = g
-    _GRID = Grid(n_data, n_model, r // n_model, r % n_model, data_group, model_group)
+    if n_pipe > 1:
+        _GRID = Grid(n_data, 1, r // n, 0, data_group, None, n_pipe, r % n, minor_group)
+    else:
+        _GRID = Grid(n_data, n_model, r // n, r % n, data_group, minor_group)
     return _GRID
 
 
@@ -185,6 +207,36 @@ def grid() -> Grid:
     if _GRID is not None:
         return _GRID
     return Grid(world_size(), 1, rank(), 0)
+
+
+def hop_on_host() -> bool:
+    """Whether a stage hop goes through host buffers: gloo's point-to-point
+    calls take CPU tensors (a CUDA tensor's address fails its transport's
+    write, which ends the process), so over gloo a hop copies a CUDA tensor
+    to the host and back; NCCL's take device tensors."""
+    return backend() == "gloo"
+
+
+def send_state(tensors, dst: int) -> None:
+    """Send `tensors` in order to global rank `dst` (a stage hop; blocks
+    until the receiver has posted its receives, so both sides of a hop
+    post them in one fixed order)."""
+    host = hop_on_host()
+    for t in tensors:
+        t = t.detach().contiguous()
+        tdist.send(t.cpu() if host else t, dst)
+
+
+def recv_state(specs, src: int, device) -> list:
+    """Receive tensors of the (shape, dtype) `specs`, in order, on `device`
+    from global rank `src`: the counterpart of :func:`send_state`."""
+    host = hop_on_host()
+    out = []
+    for shape, dtype in specs:
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if host else device)
+        tdist.recv(buf, src)
+        out.append(buf.to(device))
+    return out
 
 
 def all_gather_into(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:

@@ -17,7 +17,8 @@ numbers are the single-process step's). A step (``train_step`` drives it):
    gradient buffer of which their gradients are views;
 2. the forward and the backward;
 3. :meth:`ShardedOptimizer.reduce_grads` reduce-scatters the gradient
-   buffer (and sums it over the model group under pair-row TP), all-reduces
+   buffer (and sums it over the model group under pair-row TP, over the
+   pipe group under pipeline parallelism), all-reduces
    the losses beside it, and releases the whole parameters and gradients;
 4. :meth:`ShardedOptimizer.step` clips by the global norm of every data
    rank's block and steps Adam on this rank's block.
@@ -130,7 +131,8 @@ class ShardedOptimizer(Optimizer):
 
     def reduce_grads(self, flat: torch.Tensor, extra: int) -> torch.Tensor:
         """This rank's block of the data-mean gradient (reduce-scatter over
-        the data group, then a sum over the model group under pair-row TP),
+        the data group, then a sum over the model group under pair-row TP or
+        over the pipe group under pipeline parallelism),
         the `extra` slots all-reduced over every rank; then the whole
         parameters and gradients are released. Returns the block."""
         g = dist.grid()
@@ -139,8 +141,8 @@ class ShardedOptimizer(Optimizer):
             block.copy_(flat[:self.padded])
         else:
             dist.reduce_scatter_into(block, flat[:self.padded], self.group)
-        if g.n_model > 1:
-            tdist.all_reduce(block, group=g.model_group)
+        if g.n_minor > 1:
+            tdist.all_reduce(block, group=g.minor_group)
         tail = flat[self.padded:]
         if dist.is_initialized():
             tdist.all_reduce(tail)

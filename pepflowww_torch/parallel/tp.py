@@ -172,13 +172,14 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     return x if shard is None else _GatherRows.apply(x, shard)
 
 
-def plain_profile(cfg):
+def plain_profile(cfg, warning: str = PROFILE_WARNING):
     """`cfg` (a FlowModelConfig) with the kernels off, warning where any was
     on: the model that pair-row TP runs (the JAX package's
-    ``xla_profile_model``, ``tests/test_tp.py:112``)."""
+    ``xla_profile_model``, ``tests/test_tp.py:112``), and pipeline
+    parallelism with its own `warning`."""
     ipa = cfg.ipa
     if not (ipa.use_pallas or ipa.use_pallas_ipa or ipa.quant_int8):
         return cfg
-    warnings.warn(PROFILE_WARNING, stacklevel=2)
+    warnings.warn(warning, stacklevel=2)
     return dataclasses.replace(cfg, ipa=dataclasses.replace(
         ipa, use_pallas=False, use_pallas_ipa=False, quant_int8=False))

@@ -12,6 +12,7 @@ scheduler, and checkpoints in the reference layout.
     python -m pepflowww_torch.train --config ... --synthetic [...]
     python -m pepflowww_torch.train --dp [--dp_manual] ...
     python -m pepflowww_torch.train --fsdp [--tp N] ... | --tp N ...
+    python -m pepflowww_torch.train --pp N [--pp_microbatches M] [--fsdp] ...
     torchrun --nproc_per_node N -m pepflowww_torch.train --dp ...
     python -m pepflowww_torch.train --multihost --coordinator_address HOST:PORT \
         --num_processes N --process_id I ...
@@ -68,6 +69,18 @@ model built without its kernels (``tp.plain_profile``, the JAX package's
 rule; the log says so). Each implies the data grid, as ``--dp`` does, and
 they compose (state over the data ranks, pair rows over the model ranks);
 ``--batch_size`` is per data rank, and ``--dp_manual`` with either exits.
+
+Pipeline parallelism. ``--pp N`` makes a (data, pipe) grid, N pipeline
+stages to a data rank (N must divide the world size and the model's
+num_blocks): the stages of a pipe group train on the same rows, stage s
+running blocks [s·k, (s+1)·k) of the trunk, k = num_blocks / N, over
+``--pp_microbatches`` M microbatches a step in a GPipe schedule
+(``parallel/pp.py``; M must divide the batch a data rank), with the model
+built without its kernels (``pp.plain_profile``, as the JAX package's
+``make_pp_train_step`` does; the log says so). It implies the data grid,
+composes with ``--fsdp`` (state over the data ranks) and not with ``--tp``
+or ``--dp_manual``. Every rank holds the whole model and validates with the
+unpipelined loss; checkpoints hold the single process's layout.
 """
 
 from __future__ import annotations
@@ -128,6 +141,14 @@ def _parser():
                     help="model-axis size of a (data, model) grid: the pair tensors' query rows "
                          "split over this many ranks (parallel/tp.py), the batch over the rest; "
                          "the model runs without its kernels; composes with --fsdp")
+    ap.add_argument("--pp", type=int, default=0,
+                    help="pipe-axis size of a (data, pipe) grid: the trunk's block stack splits "
+                         "over this many pipeline stages (GPipe microbatching, parallel/pp.py) "
+                         "while the batch splits over the rest; num_blocks must be divisible by "
+                         "it; the model runs without its kernels; composes with --fsdp")
+    ap.add_argument("--pp_microbatches", type=int, default=4,
+                    help="microbatches per step under --pp; the fill/drain bubble is "
+                         "(pp-1)/(microbatches+pp-1)")
     ap.add_argument("--multihost", action="store_true",
                     help="join ranks of other processes or hosts (implies --dp): torchrun's "
                          "environment, or the three flags below")
@@ -146,11 +167,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.synthetic and not (args.structure_dir and args.dataset_dir):
         ap.error("give --structure_dir and --dataset_dir, or --synthetic")
-    if args.dp_manual and (args.fsdp or args.tp):
+    if args.pp and args.tp:
+        from pepflowww_torch.parallel import pp
+
+        ap.error(pp.PP_TP)
+    if args.dp_manual and (args.fsdp or args.tp or args.pp):
         raise SystemExit(DP_MANUAL_GRID)
     if args.dp_manual and args.multihost:
         raise SystemExit("--dp_manual is single-process; drop it or drop --multihost")
-    args.dp = args.dp or args.dp_manual or args.multihost or args.fsdp or bool(args.tp)
+    args.dp = (args.dp or args.dp_manual or args.multihost or args.fsdp or bool(args.tp)
+               or bool(args.pp))
     from pepflowww_torch.device import resolve_device
     from pepflowww_torch.parallel import dist
 
@@ -164,7 +190,7 @@ def main(argv=None):
                     coordinator_address=args.coordinator_address,
                     num_processes=args.num_processes, process_id=args.process_id)
     try:
-        dist.setup_grid(args.tp or 1)
+        dist.setup_grid(args.tp or 1, args.pp or 1)
         run_dir = _train(args, dev)
         dist.barrier()
     finally:
@@ -177,7 +203,7 @@ def _train(args, dev: torch.device) -> str:
     from pepflowww_torch.config import load_train_config
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.models.flow import FlowModel, init_weights
-    from pepflowww_torch.parallel import dist, dp, fsdp, tp
+    from pepflowww_torch.parallel import dist, dp, fsdp, pp, tp
     from pepflowww_torch.training import checkpoints
     from pepflowww_torch.training.optim import Optimizer, PlateauScheduler
     from pepflowww_torch.training.train_step import loss_and_total, train_step
@@ -194,6 +220,11 @@ def _train(args, dev: torch.device) -> str:
     val_freq = int(train_cfg["val_freq"])
     batch_size = int(args.batch_size or train_cfg["batch_size"])
     max_iters = args.max_iters or int(train_cfg["max_iters"])
+    if args.pp:
+        refused = pp.check(model_cfg, args.pp, args.pp_microbatches, batch_size * grid.n_data,
+                           grid.n_data)
+        if refused is not None:
+            raise SystemExit(refused)
 
     # One run directory, made by rank 0, however many ranks train.
     run_dir = dist.broadcast_object(
@@ -243,17 +274,26 @@ def _train(args, dev: torch.device) -> str:
 
     if args.tp:
         model_cfg = tp.plain_profile(model_cfg)
+    elif args.pp:
+        model_cfg = pp.plain_profile(model_cfg)
     model = FlowModel(model_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(dev).train()
     logger.info("Device: %s | world size: %d | backend: %s | train size: %d | run dir: %s",
                 dev, world, dist.backend(), n_train, run_dir)
-    if args.fsdp or args.tp:
+    if (args.fsdp or args.tp) and not args.pp:
         logger.info("grid: %d data x %d model ranks | fsdp: %s | tp: %s", grid.n_data,
                     grid.n_model, bool(args.fsdp),
                     f"pair rows over {grid.n_model} model ranks, kernels off "
                     "(use_pallas, use_pallas_ipa, quant_int8: the plain profile)" if args.tp
                     else "off")
+    if args.pp:
+        M, nb = args.pp_microbatches, model_cfg.ipa.num_blocks
+        logger.info("grid: %d data x %d pipe ranks | fsdp: %s | pp: %d stages of %d blocks, %d "
+                    "microbatches of %d rows, bubble %.3f, kernels off (use_pallas, "
+                    "use_pallas_ipa, quant_int8: the plain profile)", grid.n_data, grid.n_pipe,
+                    bool(args.fsdp), grid.n_pipe, nb // grid.n_pipe, M, batch_size // M,
+                    (grid.n_pipe - 1) / (M + grid.n_pipe - 1))
     logger.info("Number of parameters: %d", misc.count_parameters(model))
 
     opt_cls = fsdp.ShardedOptimizer if args.fsdp else Optimizer
@@ -319,7 +359,7 @@ def _train(args, dev: torch.device) -> str:
             if prof is not None and it == it_first + 15:
                 prof = _stop_profile(prof, args.profile_dir, logger)
             m = train_step(model, optimizer, batch, loss_weights, generator,
-                           manual=args.dp_manual)
+                           manual=args.dp_manual, n_micro=args.pp_microbatches)
             seen += int(batch["aa"].shape[0]) * grid.n_data
             if it % args.log_freq == 0:
                 m = {k: float(v) for k, v in m.items()}

@@ -40,6 +40,13 @@ def sum_weighted_losses(losses: dict, weights: Optional[dict]):
     return sum(weights.get(k, 0.0) * v for k, v in losses.items())
 
 
+def finite_total(losses: dict, weights: Optional[dict]) -> torch.Tensor:
+    """The weighted total of `losses`, 0 where it is not finite (its
+    gradient then zero: the NaN rescue of the JAX package's ``loss_fn``)."""
+    total = sum_weighted_losses(losses, weights)
+    return torch.where(torch.isfinite(total), total, torch.zeros_like(total))
+
+
 def make_torch_optimizer(params, opt_cfg: dict) -> torch.optim.Optimizer:
     """Adam, or AdamW where weight decay is set, with optax's betas and eps 1e-8."""
     kind = opt_cfg.get("type", "adam")

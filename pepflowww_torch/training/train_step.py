@@ -2,7 +2,8 @@
 ``training/train_step.py::make_train_step`` and, over the ranks of
 ``parallel/dist.py``, of ``make_dp_train_step``, the manual
 ``make_manual_dp_train_step``, ``make_tp_train_step`` and
-``parallel/fsdp.py::make_fsdp_train_step``), with its NaN semantics: a non-finite total
+``parallel/fsdp.py::make_fsdp_train_step`` and, over pipeline stages,
+``make_pp_train_step``), with its NaN semantics: a non-finite total
 loss gives zero gradients (the optimizer still steps), and residual
 non-finite gradient entries are zeroed before the clip."""
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pepflowww_torch.training.optim import Optimizer, sum_weighted_losses
+from pepflowww_torch.training.optim import Optimizer, finite_total, sum_weighted_losses
 
 
 def loss_and_total(model, batch: dict, loss_weights: dict, generator=None, noise=None):
@@ -25,13 +26,11 @@ def loss_and_total(model, batch: dict, loss_weights: dict, generator=None, noise
             batch = tp.pad_length(batch, shard.length)
             noise = None if noise is None else tp.pad_length(noise, shard.length, L)
         losses = model.loss(batch, generator, noise)
-    total = sum_weighted_losses(losses, loss_weights)
-    total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
-    return total, losses
+    return finite_total(losses, loss_weights), losses
 
 
 def train_step(model, optimizer: Optimizer, batch: dict, loss_weights: dict, generator=None,
-               noise=None, manual: bool = False) -> dict:
+               noise=None, manual: bool = False, n_micro: int = 4) -> dict:
     """Forward, backward and optimizer step on this rank's rows `batch`.
     Returns the six losses, ``loss`` (the weighted total, 0 where it is not
     finite) and ``grad_norm`` (the global norm of the gradients before the
@@ -58,7 +57,11 @@ def train_step(model, optimizer: Optimizer, batch: dict, loss_weights: dict, gen
     which every rank of the group computes whole, and the losses are kept on
     its model rank 0 only before the sum. A ``ShardedOptimizer``
     (``parallel/fsdp.py``, ``make_fsdp_train_step``) gathers the parameters
-    first and reduce-scatters the gradients; both compose.
+    first and reduce-scatters the gradients; both compose. On a pipe axis
+    (``make_pp_train_step``) the ranks of a pipe group hold the same rows,
+    cut into `n_micro` microbatches, and run the GPipe schedule of
+    ``parallel/pp.py``: each gradient comes from one stage, and the losses
+    from the last; a ``ShardedOptimizer`` composes with it too.
 
     The gradients (accumulated in place into ``optimizer.flat_grads``), the
     six losses, the total and a non-finite flag travel in one flat buffer
@@ -70,8 +73,8 @@ def train_step(model, optimizer: Optimizer, batch: dict, loss_weights: dict, gen
     from pepflowww_torch.parallel import dist, dp
 
     g = dist.grid()
-    if manual and (g.n_model > 1 or optimizer.sharded):
-        raise ValueError("the manual step is the data axis alone: no --fsdp, no --tp")
+    if manual and (g.n_minor > 1 or optimizer.sharded):
+        raise ValueError("the manual step is the data axis alone: no --fsdp, --tp or --pp")
     extra = len(LOSS_NAMES) + 2
     flat = optimizer.flat_grads(extra)
     tail = flat[-extra:]
@@ -81,15 +84,20 @@ def train_step(model, optimizer: Optimizer, batch: dict, loss_weights: dict, gen
                            model.cfg.interpolant.num_classes)
     if not manual:
         noise = dp.rank_rows(noise, g.data_rank, g.n_data)
-    total, losses = loss_and_total(model, batch, loss_weights, noise=noise)
-    raw = sum_weighted_losses(losses, loss_weights)
-    finite = torch.isfinite(raw)
-    total.backward()
+    if g.n_pipe > 1:
+        from pepflowww_torch.parallel import pp
+
+        losses = pp.loss_and_backward(model, batch, loss_weights, noise, n_micro)
+    else:
+        total, losses = loss_and_total(model, batch, loss_weights, noise=noise)
+        total.backward()
     if manual:
         torch.nan_to_num_(flat[:-extra], nan=0.0, posinf=0.0, neginf=0.0)
-    tail.copy_(torch.stack([losses[k].detach().float() for k in LOSS_NAMES]
-                           + [(total if manual else raw).detach().float(),
-                              (~finite).float()]))
+    if losses is not None:   # off the last stage of a pipe group the slots stay 0
+        raw = sum_weighted_losses(losses, loss_weights)
+        tail.copy_(torch.stack([losses[k].detach().float() for k in LOSS_NAMES]
+                               + [(total if manual else raw).detach().float(),
+                                  (~torch.isfinite(raw)).float()]))
     if g.model_rank:
         pair = {id(p) for p in model.pair_parameters()}
         for p in model.parameters():

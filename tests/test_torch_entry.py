@@ -84,19 +84,22 @@ def test_dp_flags_and_dp_without_cuda_raise(monkeypatch, tmp_path):
 
 
 def test_fsdp_tp_flags_and_without_cuda_raise(monkeypatch, tmp_path):
-    """JAX's ``--fsdp`` and ``--tp N`` in the train CLI and ``--tp N`` in the
-    sample CLI and the server (``--pp`` waits for its slice: argparse
-    refuses it); without CUDA each raises before it starts a rank, spawns
-    one or binds a port."""
+    """JAX's ``--fsdp``, ``--tp N``, ``--pp N`` and ``--pp_microbatches M`` in
+    the train CLI and ``--tp N`` in the sample CLI and the server, which
+    take no ``--pp`` (JAX's do not: argparse refuses it); without CUDA each
+    raises before it starts a rank, spawns one or binds a port."""
     from pepflowww_torch import sample, serve, train
     from pepflowww_torch.parallel import dist
 
-    assert {"--fsdp", "--tp"} <= set(train._parser()._option_string_actions)
+    assert {"--fsdp", "--tp", "--pp", "--pp_microbatches"} <= set(
+        train._parser()._option_string_actions)
+    assert train._parser().parse_args(["--pp", "2"]).pp_microbatches == 4
     assert "--tp" in sample._parser()._option_string_actions
     assert "--tp" in serve._parser()._option_string_actions
-    assert "--pp" not in train._parser()._option_string_actions
-    with pytest.raises(SystemExit):
-        train._parser().parse_args(["--pp", "2"])
+    for parser in (sample._parser(), serve._parser()):
+        assert "--pp" not in parser._option_string_actions
+        with pytest.raises(SystemExit):
+            parser.parse_args(["--pp", "2"])
     _no_cuda(monkeypatch)
     started = []
     monkeypatch.setattr(dist, "init", lambda *a, **k: started.append(("init", a)))
@@ -104,6 +107,9 @@ def test_fsdp_tp_flags_and_without_cuda_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(serve, "_Server", lambda *a, **k: started.append(("bind", a)))
     for argv, main in ((["--synthetic", "--fsdp", "--logdir", str(tmp_path)], train_main),
                        (["--synthetic", "--tp", "2", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--pp", "2", "--logdir", str(tmp_path)], train_main),
+                       (["--synthetic", "--pp", "2", "--fsdp", "--pp_microbatches", "2",
+                         "--logdir", str(tmp_path)], train_main),
                        (["--synthetic", "--tp", "2", "--out", str(tmp_path)], sample_main),
                        (["--synthetic_weights", "--tp", "2", "--port", "0"], serve.main)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -85,3 +85,36 @@ def test_fsdp_tp_modules_load_no_jax():
                          timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_pp_neighbors_dssp_load_no_jax():
+    """The pipeline, neighbour and DSSP modules, at run time in a fresh
+    interpreter: a one-rank gloo group with a grid of no pipe axis, the
+    pipeline's refusal of one stage, a k-nearest query and a DSSP parse,
+    and no JAX module and no JAX-package module in sys.modules."""
+    import subprocess
+    import sys
+
+    code = (
+        "import io, sys, torch\n"
+        "from pepflowww_torch.data import dssp\n"
+        "from pepflowww_torch.models.flow import FlowModelConfig\n"
+        "from pepflowww_torch.ops import neighbors\n"
+        "from pepflowww_torch.parallel import dist, pp\n"
+        "assert dist.init('cpu') == torch.device('cpu')\n"
+        "g = dist.setup_grid(1, 1)\n"
+        "assert (g.n_pipe, g.pipe_rank, g.n_minor) == (1, 0, 1)\n"
+        "assert pp.check(FlowModelConfig(), 1, 4, 8) == pp.STAGES\n"
+        "assert pp.check(FlowModelConfig(), 2, 4, 8) is None\n"
+        "dist.destroy()\n"
+        "d, i, n = neighbors.knn_points(torch.zeros(1, 1, 3), torch.eye(3)[None], 2)\n"
+        "assert i.tolist() == [[[0, 1]]] and n.shape == (1, 1, 2, 3)\n"
+        "c = dssp.make_dssp_dict(io.StringIO('  #  RESIDUE AA STRUCTURE\\n    1    1 A M  H\\n'))\n"
+        "assert c == {'A': [(1, ' ', 'M', 'H')]}\n"
+        f"print(sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**env, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"

@@ -25,13 +25,18 @@ def model_of(sd, ipa: dict, node: int, edge: int):
 
 def run(n_model: int, calls: list) -> list:
     """Start this rank on a grid of `n_model` model ranks (one thread), then
-    ``fn(*args)`` of this module for each (name, args) of `calls`."""
+    ``fn(*args)`` of this module for each (name, args) of `calls`; a call
+    (name, args, (n_model, n_pipe)) first makes that grid."""
     from pepflowww_torch.parallel import dist
 
     torch.set_num_threads(1)
     dist.init("cpu")
     dist.setup_grid(n_model)
-    out = [globals()[name](*args) for name, args in calls]
+    out = []
+    for name, args, *grid in calls:
+        if grid:
+            dist.setup_grid(*grid[0])
+        out.append(globals()[name](*args))
     dist.barrier()
     return out
 
@@ -47,14 +52,15 @@ def _grads(model, opt, m) -> dict:
     return {n: p.grad.numpy() / clip for n, p in model.named_parameters()}
 
 
-def steps(sd, widths, batch_np, noises, sharded, hooks=False):
+def steps(sd, widths, batch_np, noises, sharded, hooks=False, n_micro=4):
     """``train_step`` of a fresh model on this rank's rows of `batch_np`, once
     for each global draw of `noises`, on this rank's grid, with a
     ``ShardedOptimizer`` where `sharded`. Returns the metrics and the
     reduced gradients (before the clip) and the parameters after each
     step (``params`` those after the last), the sizes this rank holds after ``prepare`` and
     after each step and, with `hooks`, the shapes of the pair tensor that
-    every EdgeTransition and IPA received."""
+    every EdgeTransition and IPA received. On a pipe axis the step cuts
+    the rows into `n_micro` microbatches."""
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.models.ipa import EdgeTransition, InvariantPointAttention
     from pepflowww_torch.parallel import dist, dp
@@ -86,13 +92,14 @@ def steps(sd, widths, batch_np, noises, sharded, hooks=False):
     metrics, grads, after = [], [], []
     for noise in noises:
         m = train_step(model, opt, batch, WEIGHTS,
-                       noise={k: torch.from_numpy(v) for k, v in noise.items()})
+                       noise={k: torch.from_numpy(v) for k, v in noise.items()}, n_micro=n_micro)
         metrics.append({k: float(v) for k, v in m.items()})
         grads.append(_grads(model, opt, metrics[-1]))
         sizes.append(held())
         with opt.gathered():
             after.append({n: p.detach().numpy().copy() for n, p in model.named_parameters()})
-    return {"data_rank": g.data_rank, "model_rank": g.model_rank, "metrics": metrics,
+    return {"data_rank": g.data_rank, "model_rank": g.model_rank, "pipe_rank": g.pipe_rank,
+            "metrics": metrics,
             "grads": grads, "params": after[-1], "after": after, "sizes": sizes, "numel": opt.numel if sharded
             else None, "span": opt.span if sharded else None, "n_params": len(opt.params),
             "seen": seen}
@@ -131,3 +138,65 @@ def sample(sd, widths, batch_np, seed, n_steps, plain_of=None):
                           dp.rank_generator(seed, g.data_rank, "cpu"), num_steps=n_steps)
     return {"out": None if out is None else {k: v.numpy() for k, v in out.items()},
             "warnings": caught}
+
+
+def trunk(ipa, state_np, n_micro):
+    """The pipelined trunk (``parallel/pp.py``) on this data rank's rows of
+    `state_np` (GAEncoder's inputs as numpy) against the port's own
+    ``GAEncoder.forward`` on them: a GAEncoder of IPAConfig(**`ipa`),
+    reference init plus 0.02 noise from seed 0. Returns, on a last stage,
+    the largest gap of each output; None elsewhere."""
+    from pepflowww_torch.models.flow import init_weights
+    from pepflowww_torch.models.trunk import GAEncoder, IPAConfig
+    from pepflowww_torch.parallel import dist, dp, pp
+
+    g = dist.grid()
+    torch.manual_seed(0)
+    enc = GAEncoder(IPAConfig(**ipa))
+    gen = torch.Generator().manual_seed(0)
+    init_weights(enc, gen)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    args = [torch.from_numpy(dp.rank_rows(v, g.data_rank, g.n_data)) for v in state_np]
+    t, rot, trans, angles, seqs, node, edge, gen_mask, res = args
+    with torch.no_grad():
+        want = enc(*args)
+        pipe = pp.Pipeline(enc, n_micro)
+        state0 = (enc.prologue(t, rot, trans, angles, seqs, node, edge, res) if pipe.first
+                  else None)
+        out = pipe.forward(state0, res)
+        if out is None:
+            return None
+        node, R, tr = out
+        got = enc.epilogue((node, None, R, tr, None))
+    return {"data_rank": g.data_rank, "stages": g.n_pipe,
+            "gaps": [float((a.detach() - b).abs().max()) for a, b in zip(got, want)]}
+
+
+def ownership(sd, widths, batch_np, noise_np, n_micro):
+    """One pipelined forward and backward (``pp.loss_and_backward``) on this
+    rank's rows of a model with the weights `sd` plus 0.02 noise from seed 0
+    (so that no zero-initialized layer hides a gradient): the names of the
+    parameters with a gradient other than zero on this stage, before any
+    reduce, and of those ``pp.stage_parameters`` gives this stage."""
+    from pepflowww_torch.data.collate import device_batch
+    from pepflowww_torch.parallel import dist, dp, pp
+
+    g = dist.grid()
+    model = model_of(sd, *widths)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    batch = device_batch(dp.rank_rows(batch_np, g.data_rank, g.n_data), "cpu")
+    noise = dp.rank_rows({k: torch.from_numpy(v) for k, v in noise_np.items()}, g.data_rank,
+                         g.n_data)
+    losses = pp.loss_and_backward(model, batch, WEIGHTS, noise, n_micro)
+    own = {id(p) for p in pp.stage_parameters(model, g.pipe_rank, g.n_pipe)}
+    return {"pipe_rank": g.pipe_rank, "losses": None if losses is None else
+            {k: float(v) for k, v in losses.items()},
+            "nonzero": sorted(n for n, p in model.named_parameters()
+                              if p.grad is not None and bool(p.grad.ne(0).any())),
+            "owned": sorted(n for n, p in model.named_parameters() if id(p) in own),
+            "names": [n for n, _ in model.named_parameters()]}
