@@ -38,7 +38,7 @@ Phases, each on its own lines:
    at the model's widths (the tensor-core kernel) at B=64 and L = 64, 24,
    100, 128, 256 and at B=2, L=1, timed on the device at L = 64, 128, 256;
    fp32 at the JAX tests' widths (the fp32 kernel) at L=40 and 256; each
-   call one launch of its kernel (the profiler's device kernels).
+   call one launch of its kernel (the library's count of each kernel).
 3. oracle: the bf16 sampler with the kernels, weights of the trained nb=6
    reference oracle (``tests/golden/sampler_stats_trained6.npz``) loaded
    strict, its 64x24 batch for its 25 steps and 3 seeds pooled; AAR and
@@ -194,6 +194,19 @@ Phases, each on its own lines:
    seconds a ladder size, peptides/s and latencies beside the main phase's
    figure, the merged group sizes, K2's and K3's device time a call at
    B = 1, 2, 4 in bucket 64.
+13. widths: the production profile at the JAX package's 2x, 4x and 8x
+   widths (c_z = F = 128, 256, 512, ``tools/width_sweep.py``'s
+   configuration, B = 64, 32, 8 at L = 64). For each width, K1-K5 through
+   their wrappers against their plain versions (K1/K2 within EDGE_TOL, K3
+   within DIST_TOL, K4 and K5 each gradient within BWD_REL of its norm and
+   bit-identical across two calls), the device kernels of one call (the
+   library's count, by design 5, 6, 4, 20 and 15), each one's device time beside
+   its bound; then the 6-block model of that width with seeded weights
+   through the normal entry points: a 20-step sampler run (K2 100 times, K3
+   once, nothing else) and a training step (K1 5, K4 5, K3 1, K5 1) with
+   finite outputs and gradients, and the width sweep's row
+   (``width_sweep.run_width``: train ms/step, samples/s, MFU, sampler
+   peptides/s at 100 steps) beside the card's name and power limit.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition forward with the readout (K2) and the distance forward
@@ -214,7 +227,12 @@ kernel gives ``fsdp_launches``, its launches in the fsdp_tp phase's
 K8 the fused-IPA one's; the others none: the step has no readout), and
 ``tp_launches``, its launches in every ``--tp`` run of that phase (none:
 the model is built without its kernels), and ``pp_launches``, its launches
-in the pp phase's ranks (none: ``--pp`` builds the plain profile).
+in the pp phase's ranks (none: ``--pp`` builds the plain profile). K1-K5
+(``edge_transition_k1``, ``edge_transition``, ``distance_embed``,
+``edge_transition_bwd``, ``distance_embed_bwd``) also give ``widths``: by
+width, the launches of the widths phase's model runs (K2 and K3 the
+sampler's, K1, K4 and K5 the training step's) and the kernel's error,
+times and bound at that width.
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -337,7 +355,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got, want, tol) -> float:
+def compare(name: str, got, want, tol, phase: str = "kernels") -> float:
     import torch
 
     atol, rtol = tol
@@ -346,7 +364,7 @@ def compare(name: str, got, want, tol) -> float:
     err = (got - want).abs()
     worst = float((err - rtol * want.abs()).max())
     max_abs = float(err.max())
-    say("kernels", f"{name}: max_abs_err={max_abs:.3e} (tolerance atol {atol} + rtol {rtol}"
+    say(phase, f"{name}: max_abs_err={max_abs:.3e} (tolerance atol {atol} + rtol {rtol}"
                    f" x |plain|; worst excess {worst:.3e})")
     check(worst <= atol, f"{name}: kernel disagrees with its plain version")
     return max_abs
@@ -464,6 +482,28 @@ def phase_setup():
         say("setup", f"edge_transition_bwd K4 {m[0]}: {use}; {spill}")
         check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
               f"edge_transition_bwd K4 {m[0]} spills ({spill})")
+    # The wide kernels (c_z = F = 128, 256, 512; csrc/wide_gemm.cuh, wide_dist.cuh) of each
+    # library: the tiled GEMM's instances (tile, operand layout, epilogue) and the row
+    # kernels; no spills. The GEMM's dynamic shared memory: three stages of its A and B
+    # tiles, rows padded by 16 bytes.
+    modes = ("relu", "relu+pair mask", "fp32", "residual", "dA", "dA2 (distance)", "dx",
+             "readout", "split-K partial")
+    for lib, tag in (("edge_transition", "K1/K2"), ("edge_transition_bwd", "K4"),
+                     ("distance_embed", "K3"), ("distance_embed_bwd", "K5")):
+        entries = [(re.search(r"(wide_\w+?_kernel)(?:ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E)?", entry),
+                    use, spill) for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
+                   if "wide_" in entry]
+        check(any(m and m[2] for m, _, _ in entries), f"{lib}: ptxas -v reported no wide GEMM")
+        for m, use, spill in entries:
+            extra = ""
+            if m[2]:
+                bm, bn, tt, mode = int(m[2]), int(m[3]), m[4] == "1", int(m[5])
+                smem = 3 * 2 * (64 * (bm + bn + 16) if tt else 72 * (bm + bn))
+                extra = (f" {bm}x{bn} {'TT' if tt else 'NT'} {modes[mode]}; {smem} bytes of "
+                         f"dynamic shared memory a block")
+            say("setup", f"{lib} {tag} wide {m[1]}{extra}: {use}; {spill}")
+            check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                                   "loads"), f"{lib} {tag} wide {m[1]} spills ({spill})")
     return card
 
 
@@ -729,7 +769,7 @@ def phase_kernels():
     # it. bf16 at the model's widths runs the tensor-core kernel (B=64 at L =
     # 64, 24, 100, 128, 256; B=2 at L=1), fp32 at the JAX tests' widths the
     # fp32 kernel (B=64 at L = 40, 256). Each call launches its one kernel
-    # once (the profiler's device kernels); times on the device, the calls
+    # once (the library's count of each kernel); times on the device, the calls
     # queued behind a sleep (kernel_times.device_ms: the wrapper's host work
     # would set the per-call time at L=64).
     checks = 0
@@ -741,6 +781,7 @@ def phase_kernels():
         args = _ipa1_inputs(B, L, widths, dt, dev, seed=1000 + L)
         tol = IPA_TOL if dt == torch.bfloat16 else IPA1_FP32_TOL
         kernel = "ipa1_hopper_kernel" if widths == "model" else "ipa1_fwd_kernel"
+        want_ran = (1, 0) if widths == "model" else (0, 1)
         want = cuda_ipa1.ipa_attention_plain(*args)
         for fn in (cuda_ipa1.fused_ipa_attention, cuda_ipa1.fused_ipa_attention_bh):
             tag = f"ipa1 {fn.__name__} B={B} L={L} {widths} widths {str(dt)[6:]}"
@@ -748,10 +789,10 @@ def phase_kernels():
             checks += 1
             err = max(compare(f"{tag} [{n}]", a, b, tol)
                       for n, a, b in zip(("o", "o_pt", "o_pair"), got, want))
-            names = [n for n in _device_kernels(lambda: fn(*args)) if "ipa1" in n]
+            ran = _ipa1_kernels(lambda: fn(*args))
             checks += 1
-            check(len(names) == 1 and kernel in names[0],
-                  f"{tag}: launched {names}, not one {kernel}")
+            check(ran == want_ran, f"{tag}: launched {ran} (tensor-core, fp32) kernels, "
+                                   f"not one {kernel}")
         say("kernels", f"ipa1 B={B} L={L} {widths} widths: one {kernel} launch a call")
         if widths == "model" and B == 64 and L in (64, 128, 256):
             row = _time_row(f"ipa1 B=64 L={L} model widths bf16",
@@ -853,28 +894,27 @@ def _launch_once(name, call, tag):
     return out
 
 
-def _device_kernels(call) -> list:
-    """The names of the device kernels that one call of `call` launches
-    (torch.profiler), in order. A profile with no device activity at all is
-    taken again, up to three in all: CUPTI has returned an empty trace for
-    a call whose kernel ran (the wrapper's launch counted, its output
-    checked just before) on an H100 machine."""
+def _ipa1_kernels(call) -> tuple:
+    """(tensor-core, fp32) launches of csrc/ipa1.cu's two kernels in one
+    synchronized call of `call`, by the library's own count of the launches
+    the runtime accepted. torch.profiler's CUPTI trace is not used here: on
+    an H100 machine it has returned no device activity, three profiles in a
+    row, for calls whose kernel ran."""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
-        say("kernels", "the profiler recorded no device kernels; profiling the call again")
-    fail("the profiler recorded no device kernels in three profiles of one call")
+    from pepflowww_torch import native
+
+    count = native.function("ipa1", "ipa1_kernel_launches", [ctypes.c_int])
+    torch.cuda.synchronize()
+    before = count(0), count(1)
+    call()
+    torch.cuda.synchronize()
+    return count(0) - before[0], count(1) - before[1]
 
 
-def compare_grads(tag, names, got, want, again) -> float:
+def compare_grads(tag, names, got, want, again, phase: str = "kernels") -> float:
     """Each gradient within BWD_REL of the plain gradient's norm and
     bit-identical across two calls; returns the largest max abs error."""
     import torch
@@ -887,7 +927,7 @@ def compare_grads(tag, names, got, want, again) -> float:
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         max_abs = float((a - b).abs().max())
         worst = max(worst, max_abs)
-        say("kernels", f"{tag} [{name}]: max_abs_err={max_abs:.3e} (|plain| max "
+        say(phase, f"{tag} [{name}]: max_abs_err={max_abs:.3e} (|plain| max "
                        f"{float(b.abs().max()):.3e}), ||diff||/||plain|| {rel:.3e} "
                        f"(tolerance {BWD_REL}), bit-identical across two calls")
         check(rel <= BWD_REL, f"{tag} [{name}]: kernel disagrees with its plain version")
@@ -3007,6 +3047,154 @@ def _serve_kernels(card: str, dev, k_ms: dict):
                  f"us); {card}")
 
 
+# The widths phase: the width sweep's widths (c_z = F = 64 w) at its
+# batches (kernel_times.WIDTH_BATCHES: B = 64, 32, 8 at L = 64). K1, K2 and
+# K3 are held to their plain versions with EDGE_TOL and DIST_TOL as at 1x
+# (bf16 outputs: a hidden activation that rounds to the other bf16
+# neighbour in one of the two moves an output by about one bf16 step of
+# the hidden layer's scale; the wider sums change the rounding points'
+# values, not their number); K4 and K5 with BWD_REL and bit-identical
+# across two calls.
+WIDTHS = (2, 4, 8)
+WIDE_STEPS = 20          # the sweep's sampler: 20 Euler steps (scaled to 100 for its rate)
+WIDE_NAMES = {"K1": "edge_transition_k1", "K2": "edge_transition", "K3": "distance_embed",
+              "K4": "edge_transition_bwd", "K5": "distance_embed_bwd"}
+
+
+def _widths_kernels(card: str, w: int) -> dict:
+    """K1-K5 at width `w` against their plain versions, the device kernels
+    of one call (the library's count of its launches), and their device
+    times."""
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.kernel_times import WIDTH_BATCHES, device_ms, wide_calls
+    from pepflowww_torch.models import cuda_dist, cuda_edge
+
+    dev = torch.device("cuda", 0)
+    B = WIDTH_BATCHES[w]
+    rows = {}
+    for name, (call, plain, (bound, by), per_call, counter) in wide_calls(w, B, dev, 40 + w).items():
+        tag = f"{name} w={w} B={B} L=64"
+        got = _launch_once(counter, call, tag)
+        if name in ("K1", "K2", "K3"):
+            want = plain()
+            got, want = (got, want) if name == "K2" else ((got,), (want,))
+            tol = DIST_TOL if name == "K3" else EDGE_TOL
+            err = max(compare(f"{tag} [{n}]", a, b, tol, phase="widths")
+                      for n, a, b in zip(("out", "b", "pz"), got, want))
+        elif name == "K4":
+            flat = lambda r: (r[0], r[1], *(r[2][k] for k in cuda_edge.PARAM_NAMES))
+            err = compare_grads(tag, ("d_edge", "d_node") + cuda_edge.PARAM_NAMES, flat(got),
+                                flat(plain()), flat(call()), phase="widths")
+        else:
+            flat = lambda r: tuple(r[k] for k in cuda_dist.PARAM_NAMES)
+            err = compare_grads(tag, cuda_dist.PARAM_NAMES, flat(got), flat(plain()), flat(call()),
+                                phase="widths")
+        # The library's own count of the kernels it launched (each launch
+        # accepted: cudaGetLastError 0); a profiler trace of these calls has
+        # lost one of two launches of one name on the H100.
+        launched = native.function(counter, f"{counter}_wide_launches", [])
+        before = launched()
+        call()
+        torch.cuda.synchronize()
+        check(launched() - before == per_call, f"{tag}: {launched() - before} device kernels "
+                                               f"a call, {per_call} by design")
+        with torch.no_grad():
+            k_ms = device_ms(call)
+            p_ms = cuda_ms(plain, reps=2, warmup=1)
+        say("widths", f"{tag}: {per_call} device kernels a call; kernel {1e3 * k_ms:.1f} us, "
+                      f"plain {1e3 * p_ms:.1f} us, bound {1e3 * bound:.1f} us by {by} "
+                      f"({100 * bound / k_ms:.1f}% of bound) on {card}")
+        rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _widths_model(card: str, w: int, zero: dict) -> dict:
+    """The flagship architecture at width `w` (6 blocks, the production
+    profile, seeded weights) through the normal entry points: a 20-step
+    sampler run (K2 100 times, K3 once) and a training step (K1 5, K4 5, K3
+    1, K5 1) with exact launches and finite outputs and gradients; then the
+    width sweep's row of measurements for it. Returns the launches."""
+    import torch
+
+    from pepflowww_torch import native
+    from pepflowww_torch.bench import width_config
+    from pepflowww_torch.kernel_times import WIDTH_BATCHES
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.sampling import euler_sample
+    from pepflowww_torch.training.train_step import loss_and_total
+    from pepflowww_torch.width_sweep import LOSS_WEIGHTS, run_width
+
+    dev = torch.device("cuda", 0)
+    B, L = WIDTH_BATCHES[w], 64
+    model = production_model(dev, width_config(w))
+    batch, _ = main_path_batch(dev, B)
+    native.reset_launch_counts()
+    out = euler_sample(model, batch, torch.Generator(device=dev).manual_seed(1),
+                       num_steps=WIDE_STEPS)
+    torch.cuda.synchronize()
+    sampled = dict(native.LAUNCHES)
+    want = {**zero, "edge_transition": 5 * WIDE_STEPS, "distance_embed": 1}
+    say("widths", f"w={w} B={B} sampler {WIDE_STEPS} steps: launches {sampled}")
+    check(sampled == want, f"widths w={w}: the sampler launched {sampled}, expected {want}")
+    for k in ("rotmats", "trans", "angles"):
+        check(bool(torch.isfinite(out[k]).all()), f"widths w={w}: non-finite {k}")
+    check(tuple(out["trans"].shape) == (B, L, 3), f"widths w={w}: unexpected output shape")
+
+    model.train()
+    noise = draw_noise(B, L, torch.Generator(device=dev).manual_seed(8), dev)
+    for rep in range(2):   # the first builds the kernels' operands
+        model.zero_grad(set_to_none=True)
+        native.reset_launch_counts()
+        total, _ = loss_and_total(model, batch, dict(LOSS_WEIGHTS), noise=noise)
+        total.backward()
+        torch.cuda.synchronize()
+    trained = dict(native.LAUNCHES)
+    want = {**zero, "edge_transition": 5, "edge_transition_bwd": 5, "distance_embed": 1,
+            "distance_embed_bwd": 1}
+    say("widths", f"w={w} B={B} training step: loss {float(total):.4f}, launches {trained}")
+    check(trained == want, f"widths w={w}: the training step launched {trained}, expected {want}")
+    missing = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"widths w={w}: parameters without a finite gradient: {missing}")
+    model.zero_grad(set_to_none=True)
+
+    row = run_width(w, B, dev, model=model)
+    check("error" not in row, f"widths w={w}: the sweep's row failed: {row}")
+    say("widths", f"sweep row {json.dumps(row)} on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return {"K1": trained["edge_transition"], "K2": sampled["edge_transition"],
+            "K3": sampled["distance_embed"], "K4": trained["edge_transition_bwd"],
+            "K5": trained["distance_embed_bwd"]}
+
+
+def phase_widths(card: str) -> dict:
+    """K1-K5 and the flagship architecture at the JAX package's 2x, 4x and
+    8x widths: {kernel entry name: {width: measurements and launches}}."""
+    from pepflowww_torch import native
+
+    t0 = time.perf_counter()
+    zero = dict.fromkeys(native.SOURCES, 0)
+    out = {entry: {} for entry in WIDE_NAMES.values()}
+    for w in WIDTHS:
+        rows = _widths_kernels(card, w)
+        launches = _widths_model(card, w, zero)
+        for name, entry in WIDE_NAMES.items():
+            out[entry][str(w)] = {"launches": launches[name], "max_abs_err": rows[name]["err"],
+                                  "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+                                  "bound_ms": rows[name]["bound_ms"],
+                                  "bound_by": rows[name]["bound_by"]}
+        say("widths", f"w={w}: " + ", ".join(
+            f"{n} {1e3 * rows[n]['ms']:.1f} us (bound {1e3 * rows[n]['bound_ms']:.1f})"
+            for n in WIDE_NAMES) + f" on {card}")
+    say("widths", f"phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def write_config(name: str, **ipa) -> str:
     """configs/learn_angle_tpu.yaml with the `ipa` keys set under
     model.encoder.ipa, written to chiprun_out/<name>.yaml
@@ -3087,6 +3275,7 @@ def main():
     served = phase_serve(card, prod, int8, ipa, {
         "production": os.path.join(ROOT, "configs", "learn_angle_tpu.yaml"), "int8": int8_yaml,
         "fused IPA": ipa_yaml}, pps, {k: r["ms"] for k, r in rows.items()})
+    widths = phase_widths(card)
     launches = {"edge_transition": sampled["edge_transition"],
                 "edge_transition_k1": trained["edge_transition"],
                 "distance_embed": sampled["distance_embed"],
@@ -3131,6 +3320,8 @@ def main():
         k["fsdp_launches"] = grid["fsdp"].get(k["name"], 0)
         k["tp_launches"] = grid["tp"].get(k["name"].removesuffix("_k1").removesuffix("_long"), 0)
         k["pp_launches"] = pp_launches.get(k["name"].removesuffix("_k1").removesuffix("_long"), 0)
+        if k["name"] in widths:
+            k["widths"] = widths[k["name"]]
         if k["name"] == "edge_transition":
             k["variant"] = "readout on (K2), B=64, the sampler's"
         if k["name"] == "edge_transition_k1":

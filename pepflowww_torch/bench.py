@@ -153,6 +153,24 @@ def train_flops(model, b: dict, loss_weights: dict) -> float:
     return float(fc.get_total_flops())
 
 
+def width_config(width: int, num_blocks: int = 6, use_kernels: bool = True):
+    """The flagship architecture at `width` times its channel widths, the
+    JAX package's ``tools/width_sweep.py`` configuration in the port's
+    types: c_s, c_hidden and the node embedding 128 w, c_z and the edge
+    embedding 64 w; 8 heads, 8 query and 12 value points at every width, 8
+    sequence-transformer heads above 1x (4 at 1x); bf16 and, with
+    `use_kernels`, the hand-written kernels (the production profile)."""
+    from pepflowww_torch.models.flow import FlowModelConfig
+    from pepflowww_torch.models.trunk import IPAConfig
+
+    return FlowModelConfig(
+        node_embed_size=128 * width, edge_embed_size=64 * width,
+        ipa=IPAConfig(c_s=128 * width, c_z=64 * width, c_hidden=128 * width, no_heads=8,
+                      no_qk_points=8, no_v_points=12,
+                      seq_tfmr_num_heads=8 if width > 1 else 4, seq_tfmr_num_layers=2,
+                      num_blocks=num_blocks, dtype="bfloat16", use_pallas=use_kernels))
+
+
 def device_info(dev) -> dict:
     """{name, power_limit} from nvidia-smi for a CUDA device; the device
     type and no limit otherwise."""

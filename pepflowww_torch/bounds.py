@@ -201,6 +201,24 @@ TABLE = (
 )
 
 
+def _wide_rows(w: int, B: int):
+    """K1-K5 at `w` times the flagship widths (c_z = F = 64 w, hidden 3 c_z,
+    readout 8 + c_z/4 lanes) at batch B, L = 64."""
+    cz, shape = 64 * w, f"B={B} L=64 ({w}x, width sweep)"
+    edge = dict(B=B, L=64, cz=cz, hid=3 * cz, cb=cz)
+    return (("K1", "EdgeTransition forward, readout off", shape, edge_bound_ms, {**edge, "n_ro": 0}),
+            ("K2", "EdgeTransition forward with readout", shape, edge_bound_ms,
+             {**edge, "n_ro": 8 + cz // 4}),
+            ("K3", "distance embedding forward", shape, dist_bound_ms, dict(B=B, L=64, f=cz)),
+            ("K4", "EdgeTransition backward", shape, edge_bwd_bound_ms, edge),
+            ("K5", "distance embedding backward", shape, dist_bwd_bound_ms, dict(B=B, L=64, f=cz)))
+
+
+#: K1-K5 at the JAX package's 2x, 4x and 8x widths, at the width sweep's
+#: batches (tools/width_sweep.py: 64, 32 and 8).
+TABLE += sum((_wide_rows(w, B) for w, B in ((2, 64), (4, 32), (8, 8))), ())
+
+
 def main() -> None:
     print("kernel | what | shape | bound us (by); computed from the shapes for one H100 SXM "
           "at its published peaks (700 W), not measured")

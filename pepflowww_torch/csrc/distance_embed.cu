@@ -39,6 +39,7 @@
 #include <climits>
 
 #include "distance_tile.cuh"
+#include "wide_dist.cuh"
 
 namespace {
 
@@ -247,3 +248,60 @@ extern "C" int distance_embed_forward(const void* pos, const void* amask, const 
   distance_embed_kernel<<<grid, NT, Smem::BYTES, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- 2x, 4x, 8x
+// K3 at F = 128, 256, 512 (csrc/wide_dist.cuh): softplus of the table once,
+// the bf16 gaussian rows x [B L L][256], then the MLP as two tiled GEMMs
+// (wide_gemm.cuh) that stream K1 and K2 through shared memory:
+//   h = bf16(relu(x.K1 + b1)), out = bf16(relu(h.K2 + b2) s_i s_j).
+// What bounds it: from F = 128 on, the tensor cores and the 225 exps a pair
+// (bounds.py); x's and h's round trips through device memory are the price
+// of the simple design.
+
+// Device launches of one call of distance_embed_wide_forward.
+extern "C" int distance_embed_wide_kernels_per_call() { return 4; }
+
+// k1t [F][256] is k1 transposed and padded with zeros from 225 columns,
+// k2t [F][F] k2 transposed, both bf16. Scratch: sp [484][225] f32, x [B L
+// L][256] and h [B L L][F] bf16. Returns the first nonzero cudaError_t.
+namespace wide {
+
+static int dist_forward(const void* pos, const void* amask, const void* aa,
+                                           const void* smask, const void* table, const void* k1t,
+                                           const void* b1, const void* k2t, const void* b2,
+                                           void* sp, void* x, void* h, void* out, int B, int L,
+                                           int F, void* stream) {
+  const long long total = (long long)B * L * L;
+  if (B < 1 || L < 1 || total > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (F != 128 && F != 256 && F != 512) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = (int)total;
+  WIDE_TRY(dist_x(pos, amask, aa, table, sp, x, B, L, st));
+  Epi e{};
+  e.out = static_cast<bf16*>(h);
+  e.ld_out = F;
+  e.bias = static_cast<const float*>(b1);
+  WIDE_TRY((gemm<128, 128, false, RELU>(opd(seg(x, XW)), opd(seg(k1t, XW)), M, F, XW, 0, L, e,
+                                        st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(out);
+  e.ld_out = F;
+  e.bias = static_cast<const float*>(b2);
+  e.pmask = static_cast<const float*>(smask);
+  return gemm<128, 128, false, RELU_PAIRMASK>(opd(seg(h, F)), opd(seg(k2t, F)), M, F, F, 0, L, e,
+                                              st);
+}
+
+}  // namespace wide
+
+extern "C" int distance_embed_wide_forward(const void* pos, const void* amask, const void* aa,
+                                           const void* smask, const void* table, const void* k1t,
+                                           const void* b1, const void* k2t, const void* b2,
+                                           void* sp, void* x, void* h, void* out, int B, int L,
+                                           int F, void* stream) {
+  return wide::dist_forward(pos, amask, aa, smask, table, k1t, b1, k2t, b2, sp, x, h, out, B, L,
+                            F, stream);
+}
+
+// Kernels launched on the wide paths since the library was loaded.
+extern "C" int distance_embed_wide_launches() { return wide::g_launches.load(); }

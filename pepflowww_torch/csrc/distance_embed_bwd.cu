@@ -68,6 +68,7 @@
 #include <climits>
 
 #include "distance_tile.cuh"
+#include "wide_dist.cuh"
 
 namespace {
 
@@ -595,3 +596,174 @@ extern "C" int distance_embed_backward(const void* pos, const void* amask, const
       static_cast<float*>(d_b2));
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- 2x, 4x, 8x
+// K5 at F = 128, 256, 512 (csrc/wide_dist.cuh): the forward recomputed
+// (softplus once, the gaussian rows x, h = bf16(relu(x.K1 + b1)), then
+//   da2 = g s_i s_j [h.K2 + b2 > 0] -> bf16 with its column sums (db2),
+//   da1 = (da2.K2^T)[h > 0] -> bf16 with its column sums (db1),
+//   dx = da1.K1^T (fp32, 256 wide),
+// as tiled GEMMs (wide_gemm.cuh); the table gradient from dx a residue at a
+// time (wide_dcoef_kernel) and a token and chunk of residues at a time
+// (wide_table_kernel); dK1 = x^T.da1 and dK2 = h^T.da2 over the pairs in K
+// slices; every partial added in a fixed order (two calls, same bits).
+
+namespace wide {
+
+// The table gradient of residue n = b L + i's pairs, by token of j: slab[t][a]
+// = sum over j in order with aa_j = t of dx[p][a] m_i m_j e (-d2)
+// sigmoid(coef), written to part1[n][t][a] (rows of table row aa_i 22 + t).
+__global__ void __launch_bounds__(XW)
+wide_dcoef_kernel(const float* __restrict__ pos, const float* __restrict__ amask,
+                  const int* __restrict__ aa, const float* __restrict__ table,
+                  const float* __restrict__ sp, const float* __restrict__ dx,
+                  float* __restrict__ part1, int L) {
+  __shared__ float slab[NTOK][APAIRS];
+  const int n = blockIdx.x, a = threadIdx.x, b = n / L;
+  if (a >= APAIRS) return;
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) slab[t][a] = 0.f;   // a thread owns column a
+  const int ai = a / ATOMS, aj = a % ATOMS;
+  const float* pi = pos + ((long long)n * ATOMS + ai) * 3;
+  const float p0 = pi[0], p1 = pi[1], p2 = pi[2], mi = amask[(long long)n * ATOMS + ai];
+  const int row_i = tok(aa[n]) * NTOK;
+  for (int j = 0; j < L; ++j) {
+    const long long nj = (long long)b * L + j;
+    const int t = tok(aa[nj]);
+    const int idx = (row_i + t) * APAIRS + a;
+    const float* pj = pos + (nj * ATOMS + aj) * 3;
+    const float d0 = p0 - pj[0], d1 = p1 - pj[1], d2 = p2 - pj[2];
+    const float dd = d0 * d0 + d1 * d1 + d2 * d2;
+    const float ee = expf(-sp[idx] * dd);
+    const float mp = mi * amask[nj * ATOMS + aj];
+    const float coef = table[idx];
+    slab[t][a] += dx[((long long)n * L + j) * XW + a] * mp * ee * (-dd) *
+                  (1.f / (1.f + expf(-coef)));
+  }
+  float* out = part1 + (long long)n * NTOK * APAIRS + a;
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) out[t * APAIRS] = slab[t][a];
+}
+
+// part2[c][ta][t][a] = sum over residues n of chunk c, in order, whose token
+// is ta, of part1[n][t][a]. Grid (22 tokens, chunks).
+__global__ void __launch_bounds__(XW)
+wide_table_kernel(const int* __restrict__ aa, const float* __restrict__ part1,
+                  float* __restrict__ part2, int nres, int chunk) {
+  const int ta = blockIdx.x, c = blockIdx.y, a = threadIdx.x;
+  if (a >= APAIRS) return;
+  float acc[NTOK];
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) acc[t] = 0.f;
+  const int n1 = min(nres, (c + 1) * chunk);
+  for (int n = c * chunk; n < n1; ++n) {
+    if (tok(aa[n]) != ta) continue;
+    const float* p = part1 + (long long)n * NTOK * APAIRS + a;
+#pragma unroll
+    for (int t = 0; t < NTOK; ++t) acc[t] += p[t * APAIRS];
+  }
+  float* o = part2 + ((long long)c * NTAB + ta * NTOK) * APAIRS + a;
+#pragma unroll
+  for (int t = 0; t < NTOK; ++t) o[t * APAIRS] = acc[t];
+}
+
+}  // namespace wide
+
+// Device launches of one call of distance_embed_wide_backward.
+extern "C" int distance_embed_wide_bwd_kernels_per_call() { return 15; }
+
+// k1t [F][256] and k2t [F][F] as for the forward, k2 [F][F] as stored
+// ([in][out]) and k1p [256][F] k1 padded with zero rows from 225, all bf16.
+// Scratch, for M = B L L pairs: sp [484][225] f32, x [M][256], hc, da2c,
+// da1c [M][F] bf16, dx [M][256] f32, part1 [B L][22][225] and part2
+// [nchunk][484][225] f32 (chunk = ceil(B L / nchunk) residues),
+// colpart1, colpart2 [ceil(M / 128)][F], wpart1 [ceil(M / ks1)][256][F] and
+// wpart2 [ceil(M / ks2)][F][F] f32, ks1, ks2 multiples of 64. Returns the
+// first nonzero cudaError_t.
+namespace wide {
+
+static int dist_backward(
+    const void* pos, const void* amask, const void* aa, const void* smask, const void* g,
+    const void* table, const void* k1t, const void* b1, const void* k2t, const void* k2,
+    const void* b2, const void* k1p, void* sp, void* x, void* hc, void* da2c, void* da1c,
+    void* dx, void* part1, void* part2, void* colpart1, void* colpart2, void* wpart1,
+    void* wpart2, void* d_table, void* dk1, void* db1, void* dk2, void* db2, int B, int L, int F,
+    int nchunk, int ks1, int ks2, void* stream) {
+  const long long total = (long long)B * L * L;
+  if (B < 1 || L < 1 || total > INT_MAX || nchunk < 1 || ks1 < 1 || ks2 < 1)
+    return (int)cudaErrorInvalidValue;
+  if (F != 128 && F != 256 && F != 512) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = (int)total, nres = B * L, chunk = (nres + nchunk - 1) / nchunk;
+  WIDE_TRY(dist_x(pos, amask, aa, table, sp, x, B, L, st));
+  Epi e{};
+  e.out = static_cast<bf16*>(hc);
+  e.ld_out = F;
+  e.bias = static_cast<const float*>(b1);
+  WIDE_TRY((gemm<128, 128, false, RELU>(opd(seg(x, XW)), opd(seg(k1t, XW)), M, F, XW, 0, L, e,
+                                        st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(da2c);
+  e.ld_out = F;
+  e.bias = static_cast<const float*>(b2);
+  e.g = static_cast<const bf16*>(g);
+  e.pmask = static_cast<const float*>(smask);
+  e.colpart = static_cast<float*>(colpart2);
+  WIDE_TRY((gemm<128, 128, false, DA2D>(opd(seg(hc, F)), opd(seg(k2t, F)), M, F, F, 0, L, e,
+                                        st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(da1c);
+  e.ld_out = F;
+  e.hmask = static_cast<const bf16*>(hc);
+  e.colpart = static_cast<float*>(colpart1);
+  WIDE_TRY((gemm<128, 128, false, DA>(opd(seg(da2c, F)), opd(seg(k2, F)), M, F, F, 0, L, e,
+                                      st)));
+  e = Epi{};
+  e.f32 = static_cast<float*>(dx);
+  e.ld_f32 = XW;
+  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(da1c, F)), opd(seg(k1p, F)), M, XW, F, 0, L, e,
+                                       st)));
+  wide_dcoef_kernel<<<nres, XW, 0, st>>>(
+      static_cast<const float*>(pos), static_cast<const float*>(amask),
+      static_cast<const int*>(aa), static_cast<const float*>(table),
+      static_cast<const float*>(sp), static_cast<const float*>(dx), static_cast<float*>(part1),
+      L);
+  WIDE_TRY(launched());
+  wide_table_kernel<<<dim3(NTOK, (nres + chunk - 1) / chunk), XW, 0, st>>>(
+      static_cast<const int*>(aa), static_cast<const float*>(part1), static_cast<float*>(part2),
+      nres, chunk);
+  WIDE_TRY(launched());
+  WIDE_TRY(reduce(static_cast<const float*>(part2), static_cast<float*>(d_table),
+                  (nres + chunk - 1) / chunk, (long long)NTAB * APAIRS, NTAB * APAIRS, st));
+  e = Epi{};
+  e.f32 = static_cast<float*>(wpart1);
+  WIDE_TRY((gemm<128, 128, true, PART>(opd(seg(x, XW)), opd(seg(da1c, F)), XW, F, M, ks1, L, e,
+                                       st)));
+  e.f32 = static_cast<float*>(wpart2);
+  WIDE_TRY((gemm<128, 128, true, PART>(opd(seg(hc, F)), opd(seg(da2c, F)), F, F, M, ks2, L, e,
+                                       st)));
+  const int nblk = (M + 127) / 128;
+  WIDE_TRY(reduce(static_cast<const float*>(wpart1), static_cast<float*>(dk1), (M + ks1 - 1) / ks1,
+                  (long long)XW * F, APAIRS * F, st));
+  WIDE_TRY(reduce(static_cast<const float*>(wpart2), static_cast<float*>(dk2), (M + ks2 - 1) / ks2,
+                  (long long)F * F, F * F, st));
+  WIDE_TRY(reduce(static_cast<const float*>(colpart1), static_cast<float*>(db1), nblk, F, F, st));
+  return reduce(static_cast<const float*>(colpart2), static_cast<float*>(db2), nblk, F, F, st);
+}
+
+}  // namespace wide
+
+extern "C" int distance_embed_wide_backward(
+    const void* pos, const void* amask, const void* aa, const void* smask, const void* g,
+    const void* table, const void* k1t, const void* b1, const void* k2t, const void* k2,
+    const void* b2, const void* k1p, void* sp, void* x, void* hc, void* da2c, void* da1c,
+    void* dx, void* part1, void* part2, void* colpart1, void* colpart2, void* wpart1,
+    void* wpart2, void* d_table, void* dk1, void* db1, void* dk2, void* db2, int B, int L, int F,
+    int nchunk, int ks1, int ks2, void* stream) {
+  return wide::dist_backward(pos, amask, aa, smask, g, table, k1t, b1, k2t, k2, b2, k1p, sp, x, hc,
+                             da2c, da1c, dx, part1, part2, colpart1, colpart2, wpart1, wpart2,
+                             d_table, dk1, db1, dk2, db2, B, L, F, nchunk, ks1, ks2, stream);
+}
+
+// Kernels launched on the wide paths since the library was loaded.
+extern "C" int distance_embed_bwd_wide_launches() { return wide::g_launches.load(); }

@@ -64,6 +64,7 @@
 #include <climits>
 
 #include "wgmma.cuh"
+#include "wide_gemm.cuh"
 
 namespace {
 
@@ -870,3 +871,265 @@ extern "C" int edge_transition_backward(
       static_cast<float*>(dsc), static_cast<float*>(dbi), static_cast<float*>(d_node));
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- 2x, 4x, 8x
+// K4 at c_z = 128, 256, 512 (hidden 3 c_z): the recomputing backward of
+// the same function as the kernels above, as launches of csrc/wide_gemm.cuh's
+// tiled GEMM, two row kernels and fixed-order reductions, since neither
+// the weights nor a tile's hidden rows fit a block any more. With x = [e |
+// n_i | n_j] read in place by the GEMMs:
+//   a1 = e.W1e + Y_i + Y_j + b1 (Y = node.[W1i | W1j], once a residue);
+//   h1 = bf16(relu(a1))                                   (scratch h1c)
+//   a2 = h1.W2 + b2; r = bf16(relu(a2) + x), a2 > 0 kept as bytes
+//   o = r.W3 + b3 (fp32); LayerNorm backward a pair row: do = bf16(...),
+//       with one partial row a block of sum(do), sum(g y), sum(g)
+//   da2 = (do.W3^T) [a2 > 0] -> bf16, its column sums a block row (db2)
+//   da1 = (da2.W2^T) [h1 > 0] -> bf16, its column sums (db1)
+//   dx = [da1 | do].[W1 ; W3]^T: d_edge its first c_z columns, the node
+//       columns to a fp32 scratch summed over j and i (d_node)
+//   dW1 = x^T.da1, dW2 = h1^T.da2, dW3 = r^T.do over the pairs, split in
+//       K slices (ks1..ks3 pairs each) whose fp32 partial slots are added
+//       in slot order.
+// Every cross-block sum goes through partials added in a fixed order, so
+// two calls give the same bits, as the 1x kernels' do. What bounds it: the
+// tensor cores (bounds.py); this design also does dx and dW1 over the whole
+// 3 c_z-wide x (the bound counts their node rows once a residue).
+
+namespace wide {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+constexpr int LN_WARPS = 4, LN_ROWS = 32;   // rows of a warp; a block's rows: 128
+
+// LayerNorm backward, one warp a pair row: do = bf16((dy - mean(dy) - y
+// mean(dy y)) / sigma) with dy = g s_i s_j ln_scale; each block writes one
+// partial row [sum do | sum g_out y | sum g_out] of its 128 rows, rows in
+// order within a warp and warps in order.
+template <int NQ>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+wide_ln_bwd_kernel(const float* __restrict__ o, const bf16* __restrict__ g,
+                   const float* __restrict__ mask, const float* __restrict__ ln_s,
+                   bf16* __restrict__ doc, float* __restrict__ part, int M, int L, float eps) {
+  constexpr int CZ = NQ * 32;
+  __shared__ float red[LN_WARPS][3 * CZ];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float s_do[NQ], s_gy[NQ], s_g[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) s_do[q] = s_gy[q] = s_g[q] = 0.f;
+  const int r0 = (blockIdx.x * LN_WARPS + w) * LN_ROWS;
+  for (int rr = 0; rr < LN_ROWS; ++rr) {
+    const int r = r0 + rr;
+    if (r >= M) break;
+    const float* row = o + (long long)r * CZ;
+    float y[NQ], s = 0.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      y[q] = row[lane + 32 * q];
+      s += y[q];
+    }
+    const float mu = warp_sum(s) / CZ;
+    float ss = 0.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) ss += (y[q] - mu) * (y[q] - mu);
+    const float inv = rsqrtf(warp_sum(ss) / CZ + eps);
+    const float m = mask[src_row(NODE_I, r, L)] * mask[src_row(NODE_J, r, L)];
+    float go[NQ], dy[NQ], sdy = 0.f, sdyy = 0.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c = lane + 32 * q;
+      y[q] = (y[q] - mu) * inv;
+      go[q] = __bfloat162float(g[(long long)r * CZ + c]) * m;
+      dy[q] = go[q] * ln_s[c];
+      sdy += dy[q];
+      sdyy += dy[q] * y[q];
+    }
+    const float mdy = warp_sum(sdy) / CZ, mdyy = warp_sum(sdyy) / CZ;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c = lane + 32 * q;
+      const float d = (dy[q] - mdy - y[q] * mdyy) * inv;
+      doc[(long long)r * CZ + c] = __float2bfloat16(d);
+      s_do[q] += d;
+      s_gy[q] += go[q] * y[q];
+      s_g[q] += go[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int c = lane + 32 * q;
+    red[w][c] = s_do[q];
+    red[w][CZ + c] = s_gy[q];
+    red[w][2 * CZ + c] = s_g[q];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 3 * CZ; t += LN_WARPS * 32) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < LN_WARPS; ++k) s += red[k][t];
+    part[(long long)blockIdx.x * 3 * CZ + t] = s;
+  }
+}
+
+// d_node[b L + n][c] = sum_j dxn[(b L + n) L + j][c] + sum_i dxn[(b L + i) L + n][cz + c],
+// each sum in order of j (i).
+__global__ void __launch_bounds__(256)
+wide_node_reduce_kernel(const float* __restrict__ dxn, float* __restrict__ d_node, int B, int L,
+                        int cz) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)B * L * cz) return;
+  const int c = (int)(t % cz), n = (int)(t / cz), b = n / L, i = n % L;
+  const long long ld = 2LL * cz;
+  float s = 0.f, s2 = 0.f;
+  for (int j = 0; j < L; ++j) s += dxn[((long long)n * L + j) * ld + c];
+  for (int j = 0; j < L; ++j) s2 += dxn[((long long)(b * L + j) * L + i) * ld + cz + c];
+  d_node[t] = s + s2;
+}
+
+static int edge_backward(const void* edge, const void* node, const void* mask, const void* g,
+                         const void* wn, const void* w1t, const void* b1, const void* w2t,
+                         const void* b2, const void* w3t, const void* b3, const void* ln_s,
+                         const void* k1b, const void* k2b, const void* k3b, void* y, void* h1c,
+                         void* rc, void* m2, void* o, void* doc, void* da2c, void* da1c,
+                         void* dxn, void* lnpart, void* colpart1, void* colpart2, void* wpart1,
+                         void* wpart2, void* wpart3, void* d_edge, void* d_node, void* dk1,
+                         void* db1, void* dk2, void* db2, void* dk3, void* db3, void* dln_s,
+                         void* dln_b, int B, int L, int cz, int ks1, int ks2, int ks3,
+                         int d_edge_f32, float eps, cudaStream_t st) {
+  const long long total = (long long)B * L * L;
+  if (total > INT_MAX) return (int)cudaErrorInvalidValue;   // pair rows are 32-bit
+  if (cz != 128 && cz != 256 && cz != 512) return (int)cudaErrorInvalidValue;
+  if (total == 0 || ks1 < 1 || ks2 < 1 || ks3 < 1) return (int)cudaErrorInvalidValue;
+  const int M = (int)total, hid = 3 * cz, ny = 2 * hid;
+  float* Y = static_cast<float*>(y);
+  const Opd x = opd(seg(edge, cz), seg(node, cz, cz, NODE_I), seg(node, cz, 2 * cz, NODE_J));
+  // Recompute: Y, h1, r (and a2 > 0), o.
+  Epi e{};
+  e.f32 = Y;
+  e.ld_f32 = ny;
+  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(node, cz)), opd(seg(wn, cz)), B * L, ny, cz, 0, L,
+                                       e, st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(h1c);
+  e.ld_out = hid;
+  e.bias = static_cast<const float*>(b1);
+  e.yi = Y;
+  e.yj = Y + hid;
+  e.ld_y = ny;
+  WIDE_TRY((gemm<128, 128, false, RELU>(opd(seg(edge, cz)), opd(seg(w1t, hid)), M, hid, cz, 0, L,
+                                        e, st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(rc);
+  e.ld_out = hid;
+  e.bias = static_cast<const float*>(b2);
+  e.mask_out = static_cast<uint8_t*>(m2);
+  e.x = x;
+  WIDE_TRY((gemm<128, 128, false, RC>(opd(seg(h1c, hid)), opd(seg(w2t, hid)), M, hid, hid, 0, L,
+                                      e, st)));
+  e = Epi{};
+  e.f32 = static_cast<float*>(o);
+  e.ld_f32 = cz;
+  e.bias = static_cast<const float*>(b3);
+  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(rc, hid)), opd(seg(w3t, hid)), M, cz, hid, 0, L,
+                                       e, st)));
+  // LayerNorm backward.
+  const int nln = (M + LN_WARPS * LN_ROWS - 1) / (LN_WARPS * LN_ROWS);
+  const float* of = static_cast<const float*>(o);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* mk = static_cast<const float*>(mask);
+  const float* sc = static_cast<const float*>(ln_s);
+  bf16* dob = static_cast<bf16*>(doc);
+  float* lp = static_cast<float*>(lnpart);
+  if (cz == 128) wide_ln_bwd_kernel<4><<<nln, LN_WARPS * 32, 0, st>>>(of, gb, mk, sc, dob, lp, M, L, eps);
+  else if (cz == 256) wide_ln_bwd_kernel<8><<<nln, LN_WARPS * 32, 0, st>>>(of, gb, mk, sc, dob, lp, M, L, eps);
+  else wide_ln_bwd_kernel<16><<<nln, LN_WARPS * 32, 0, st>>>(of, gb, mk, sc, dob, lp, M, L, eps);
+  WIDE_TRY(launched());
+  // da2 = (do.W3^T)[a2 > 0], da1 = (da2.W2^T)[h1 > 0], with their column sums.
+  e = Epi{};
+  e.out = static_cast<bf16*>(da2c);
+  e.ld_out = hid;
+  e.mask_in = static_cast<const uint8_t*>(m2);
+  e.colpart = static_cast<float*>(colpart2);
+  WIDE_TRY((gemm<128, 128, false, DA>(opd(seg(doc, cz)), opd(seg(k3b, cz)), M, hid, cz, 0, L, e,
+                                      st)));
+  e = Epi{};
+  e.out = static_cast<bf16*>(da1c);
+  e.ld_out = hid;
+  e.hmask = static_cast<const bf16*>(h1c);
+  e.colpart = static_cast<float*>(colpart1);
+  WIDE_TRY((gemm<128, 128, false, DA>(opd(seg(da2c, hid)), opd(seg(k2b, hid)), M, hid, hid, 0, L,
+                                      e, st)));
+  // dx = da1.W1^T + do.W3^T: d_edge and the node columns.
+  e = Epi{};
+  e.d_edge = d_edge;
+  e.d_edge_f32 = d_edge_f32;
+  e.cz = cz;
+  e.f32 = static_cast<float*>(dxn);
+  WIDE_TRY((gemm<128, 128, false, DX>(opd(seg(da1c, hid), seg(doc, cz, hid)),
+                                      opd(seg(k1b, hid), seg(k3b, cz, hid)), M, hid, hid + cz, 0,
+                                      L, e, st)));
+  const long long nn = (long long)B * L * cz;
+  wide_node_reduce_kernel<<<(unsigned)((nn + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dxn), static_cast<float*>(d_node), B, L, cz);
+  WIDE_TRY(launched());
+  // Weight gradients over the pairs, in K slices, then the slots in order.
+  e = Epi{};
+  e.f32 = static_cast<float*>(wpart1);
+  WIDE_TRY((gemm<128, 128, true, PART>(x, opd(seg(da1c, hid)), hid, hid, M, ks1, L, e, st)));
+  e.f32 = static_cast<float*>(wpart2);
+  WIDE_TRY((gemm<128, 128, true, PART>(opd(seg(h1c, hid)), opd(seg(da2c, hid)), hid, hid, M, ks2,
+                                       L, e, st)));
+  e.f32 = static_cast<float*>(wpart3);
+  WIDE_TRY((gemm<128, 128, true, PART>(opd(seg(rc, hid)), opd(seg(doc, cz)), hid, cz, M, ks3, L,
+                                       e, st)));
+  const int nblk = (M + 127) / 128;
+  WIDE_TRY(reduce(static_cast<const float*>(wpart1), static_cast<float*>(dk1), (M + ks1 - 1) / ks1,
+                  (long long)hid * hid, hid * hid, st));
+  WIDE_TRY(reduce(static_cast<const float*>(wpart2), static_cast<float*>(dk2), (M + ks2 - 1) / ks2,
+                  (long long)hid * hid, hid * hid, st));
+  WIDE_TRY(reduce(static_cast<const float*>(wpart3), static_cast<float*>(dk3), (M + ks3 - 1) / ks3,
+                  (long long)hid * cz, hid * cz, st));
+  WIDE_TRY(reduce(static_cast<const float*>(colpart1), static_cast<float*>(db1), nblk, hid, hid,
+                  st));
+  WIDE_TRY(reduce(static_cast<const float*>(colpart2), static_cast<float*>(db2), nblk, hid, hid,
+                  st));
+  WIDE_TRY(reduce(lp, static_cast<float*>(db3), nln, 3 * cz, cz, st));
+  WIDE_TRY(reduce(lp + cz, static_cast<float*>(dln_s), nln, 3 * cz, cz, st));
+  return reduce(lp + 2 * cz, static_cast<float*>(dln_b), nln, 3 * cz, cz, st);
+}
+
+}  // namespace wide
+
+// Device launches of one call of edge_transition_wide_backward.
+extern "C" int edge_transition_wide_bwd_kernels_per_call() { return 20; }
+
+// K4 at c_z = cz in {128, 256, 512}. Weights: wn [2 hid][cz] (the node rows
+// of k1 transposed, [W1i | W1j]^T), w1t, w2t, w3t as for the forward, k1b
+// [hid][hid], k2b [hid][hid], k3b [hid][cz] the bf16 weights as stored
+// ([in][out]). Scratch, for M = B L L pairs: y [B L][2 hid] f32; h1c, rc,
+// da2c, da1c [M][hid] bf16; m2 [M][hid] bytes; o [M][cz] f32; doc [M][cz]
+// bf16; dxn [M][2 cz] f32; lnpart [ceil(M / 128)][3 cz], colpart1,
+// colpart2 [ceil(M / 128)][hid] f32; wpart1, wpart2 [ceil(M / ks)][hid][hid]
+// and wpart3 [ceil(M / ks3)][hid][cz] f32, ks1..ks3 multiples of 64. Returns
+// the first nonzero cudaError_t of its launches.
+extern "C" int edge_transition_wide_backward(
+    const void* edge, const void* node, const void* mask, const void* g, const void* wn,
+    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3t,
+    const void* b3, const void* ln_s, const void* k1b, const void* k2b, const void* k3b, void* y,
+    void* h1c, void* rc, void* m2, void* o, void* doc, void* da2c, void* da1c, void* dxn,
+    void* lnpart, void* colpart1, void* colpart2, void* wpart1, void* wpart2, void* wpart3,
+    void* d_edge, void* d_node, void* dk1, void* db1, void* dk2, void* db2, void* dk3, void* db3,
+    void* dln_s, void* dln_b, int B, int L, int cz, int ks1, int ks2, int ks3, int d_edge_f32,
+    float eps, void* stream) {
+  return wide::edge_backward(edge, node, mask, g, wn, w1t, b1, w2t, b2, w3t, b3, ln_s, k1b, k2b,
+                             k3b, y, h1c, rc, m2, o, doc, da2c, da1c, dxn, lnpart, colpart1,
+                             colpart2, wpart1, wpart2, wpart3, d_edge, d_node, dk1, db1, dk2, db2,
+                             dk3, db3, dln_s, dln_b, B, L, cz, ks1, ks2, ks3, d_edge_f32, eps,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Kernels launched on the wide paths since the library was loaded.
+extern "C" int edge_transition_bwd_wide_launches() { return wide::g_launches.load(); }

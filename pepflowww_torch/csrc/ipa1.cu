@@ -60,9 +60,22 @@
 //   weights and the three aggregations, recomputing the logits), so no (L,
 //   L) matrix is stored and every L runs.
 
+#include <atomic>
+
 #include "ipa2_tile.cuh"
 
 namespace {
+
+// Launches of each kernel that the runtime accepted (cudaGetLastError 0):
+// [0] the tensor-core kernel, [1] the fp32 one (ipa1_kernel_launches).
+std::atomic<int> g_launches[2];
+
+// cudaGetLastError of the launch just made of kernel `which`, counted when 0.
+int launched(int which) {
+  const int rc = (int)cudaGetLastError();
+  if (rc == 0) g_launches[which].fetch_add(1, std::memory_order_relaxed);
+  return rc;
+}
 
 // ---------------------------------------------------------------- fp32 cores
 namespace scalar {
@@ -308,7 +321,7 @@ int launch(const Args& a, int variant, int dev, cudaStream_t stream) {
   }
   const dim3 grid((a.L + TILE - 1) / TILE, a.H, a.B);
   kernel<<<grid, NT, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launched(1);
 }
 
 }  // namespace scalar
@@ -584,7 +597,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   }
   const dim3 grid((a.L + TQ - 1) / TQ, a.H, B);
   kernel<<<grid, NTH, SMEM_BYTES, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launched(0);
 }
 
 // The variant of a call: the bias as row copies when its rows are whole
@@ -669,6 +682,12 @@ extern "C" int ipa1_forward(const void* q, const void* k, const void* v, const v
   if (test && bf16_inputs) return launch<bf16, 32, 12, 18, 8>(a, 1, dev, s);
   if (test) return launch<float, 32, 12, 18, 8>(a, 2, dev, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches of kernel `which` (0 tensor-core, 1 fp32) that the runtime has
+// accepted in this process: a check of which kernel a call ran.
+extern "C" int ipa1_kernel_launches(int which) {
+  return which == 0 || which == 1 ? g_launches[which].load() : -1;
 }
 
 // Dynamic shared memory a block of the tensor-core kernel takes (bytes).

@@ -21,6 +21,12 @@ calls, so that the host's per-call overhead does not pace the device), the
 kernels it launches a call and the bound of ``pepflowww_torch.bounds``,
 with the card's name and power limit.
 
+``--widths 2,4,8`` times instead K1-K5 (the EdgeTransition forward
+without and with the readout, the distance block forward, both backwards)
+at those multiples of the flagship widths (c_z = F = 64 w, hidden 3 c_z,
+readout 8 + c_z/4 lanes), each at the width sweep's batch (B = 64, 32, 8 at
+w = 2, 4, 8; L = 64; :data:`WIDTH_BATCHES`), with the same lines.
+
 With ``--trees`` each directory (a checkout, or an unpacked ``git archive``,
 holding ``pepflowww_torch/``) is timed in a process of its own that imports
 the package from there and builds its kernels: the trees in the order
@@ -41,6 +47,9 @@ import sys
 
 H, C, PQ, PV, CZ4 = 8, 128, 8, 12, 16
 KERNELS = ("ipa2_bwd", "ipa2", "ipa1")
+#: The width sweep's batch at each width (tools/width_sweep.py's), at L = 64.
+WIDTH_BATCHES = {1: 64, 2: 64, 4: 32, 8: 8}
+WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5")
 
 
 def _randn(*shape, seed, scale=1.0):
@@ -89,6 +98,88 @@ def v1_inputs(B, L, dev, seed):
     return [r(B, H, L, C, k=1).to(bf), r(B, H, L, C, k=2).to(bf), r(B, H, L, C, k=3).to(bf),
             r(B, H, L, 3 * PQ, k=4), r(B, H, L, 3 * PQ, k=5), r(B, H, L, 3 * PV, k=6),
             r(B, H, L, L, k=7).to(bf), r(B, L, L, CZ4, k=8).to(bf), mask]
+
+
+def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
+    """K1-K5 at `width` times the flagship widths on seeded inputs: {name:
+    (kernel call, plain call, (bound ms, bound_by), device launches a call,
+    the registry's name)}. The EdgeTransition's edge, node bias and
+    cotangent bf16 with ~10% of the residues masked, weights N(0, 1/fan_in),
+    the readout the next block's 8 heads and c_z/4 channels; the distance
+    block on the main path's synthetic complexes (a 48-residue pocket and a
+    12-residue peptide) with a N(0, 1) table."""
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import bounds, native
+    from pepflowww_torch.data.collate import device_batch
+    from pepflowww_torch.data.synthetic import make_batch
+    from pepflowww_torch.models import cuda_dist, cuda_edge
+
+    cz, bf = 64 * width, torch.bfloat16
+    hid, n_ro = 3 * cz, 8 + cz // 4
+    r = lambda *s, sc=1.0, k=0: _randn(*s, seed=seed + k, scale=sc).to(dev)
+    p = {"k1": r(hid, hid, sc=hid ** -0.5, k=1), "b1": r(hid, sc=0.1, k=2),
+         "k2": r(hid, hid, sc=hid ** -0.5, k=3), "b2": r(hid, sc=0.1, k=4),
+         "k3": r(hid, cz, sc=hid ** -0.5, k=5), "b3": r(cz, sc=0.1, k=6),
+         "ln_scale": 1 + r(cz, sc=0.1, k=7), "ln_bias": r(cz, sc=0.1, k=8)}
+    ro = (r(cz, 8, sc=cz ** -0.5, k=9), r(8, sc=0.1, k=10), r(cz, cz // 4, sc=cz ** -0.5, k=11),
+          r(cz // 4, sc=0.1, k=12))
+    edge, nb, g = r(B, L, L, cz, k=13).to(bf), r(B, L, cz, k=14).to(bf), r(B, L, L, cz, k=15).to(bf)
+    mask = (torch.rand(B, L, generator=torch.Generator().manual_seed(seed)) > 0.1).float().to(dev)
+    ops, ops_ro = cuda_edge.kernel_operands(p), cuda_edge.kernel_operands(p, ro)
+    b = device_batch(make_batch(np.random.default_rng(seed), batch_size=B, pep_len=12,
+                                rec_len=48, pad_to=L), dev)
+    smask = b["mask_heavyatom"][:, :, 1].float() * (~b["generate_mask"]).float()
+    dargs = (b["pos_heavyatom"] * 0.1, b["mask_heavyatom"].float(), b["aa"], smask)
+    pd = {"table": r(484, 225, k=16), "k1": r(225, cz, sc=0.07, k=17), "b1": r(cz, sc=0.1, k=18),
+          "k2": r(cz, cz, sc=cz ** -0.5, k=19), "b2": r(cz, sc=0.1, k=20)}
+    dops, gd = cuda_dist.kernel_operands(pd), r(B, L, L, cz, k=21).to(bf)
+    per_call = lambda lib, fn, *a: native.function(lib, fn, [ctypes.c_int] * len(a))(*a)
+    return {
+        "K1": (lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, ops=ops),
+               lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, bf),
+               bounds.edge_bound_ms(B, L, cz, hid, cz, n_ro=0),
+               per_call("edge_transition", "edge_transition_wide_kernels_per_call", 0),
+               "edge_transition"),
+        "K2": (lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, readout=ro, ops=ops_ro),
+               lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, bf, ro),
+               bounds.edge_bound_ms(B, L, cz, hid, cz, n_ro=n_ro),
+               per_call("edge_transition", "edge_transition_wide_kernels_per_call", 1),
+               "edge_transition"),
+        "K3": (lambda: cuda_dist.fused_distance_embed(*dargs, pd, ops=dops),
+               lambda: cuda_dist.distance_embed_plain(*dargs, pd, bf),
+               bounds.dist_bound_ms(B, L, f=cz),
+               per_call("distance_embed", "distance_embed_wide_kernels_per_call"),
+               "distance_embed"),
+        "K4": (lambda: cuda_edge.edge_transition_bwd(edge, nb, mask, p, g, ops=ops,
+                                                     d_edge_dtype=bf),
+               lambda: cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, bf),
+               bounds.edge_bwd_bound_ms(B, L, cz, hid, cz),
+               per_call("edge_transition_bwd", "edge_transition_wide_bwd_kernels_per_call"),
+               "edge_transition_bwd"),
+        "K5": (lambda: cuda_dist.distance_embed_bwd(*dargs, pd, gd, ops=dops),
+               lambda: cuda_dist.distance_embed_bwd_plain(*dargs, pd, gd, bf),
+               bounds.dist_bwd_bound_ms(B, L, f=cz),
+               per_call("distance_embed_bwd", "distance_embed_wide_bwd_kernels_per_call"),
+               "distance_embed_bwd")}
+
+
+def time_widths(widths):
+    """[(width, B, kernel, us a call, launches a call, bound us, bound_by)]
+    of K1-K5 at each of `widths`, at the sweep's batch."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for w in widths:
+        B = WIDTH_BATCHES[w]
+        for name, (call, _, (bound, by), per_call, _) in wide_calls(w, B, dev, 40 + w).items():
+            with torch.no_grad():
+                ms = device_ms(call)
+            rows.append((w, B, name, 1e3 * ms, per_call, 1e3 * bound, by))
+        torch.cuda.empty_cache()
+    return rows
 
 
 def device_ms(call, reps: int = 20, warmup: int = 3) -> float:
@@ -158,6 +249,8 @@ def main(argv=None) -> None:
                     help="K8 (ipa2_bwd), K7 (ipa2) or K9 (ipa1)")
     ap.add_argument("--shapes", nargs="+", default=["32x64", "32x128", "32x256"],
                     help="B x L pairs, e.g. 32x128")
+    ap.add_argument("--widths", help="time K1-K5 at these multiples of the flagship widths "
+                                     "instead, e.g. 2,4,8 (batches 64, 32, 8)")
     ap.add_argument("--trees", nargs="+", help="checkouts to time in turns (A, B, B, A)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -170,6 +263,11 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: kernel_times measures the device")
     print(f"card: {card_line()}", flush=True)
+    if args.widths:
+        for w, B, name, us, n, bound, by in time_widths([int(x) for x in args.widths.split(",")]):
+            print(f"w={w} B={B} L=64 {name}: {us:.1f} us a call ({n} launches), bound "
+                  f"{bound:.1f} us ({by}), {100 * bound / us:.1f}% of it", flush=True)
+        return
     if not args.trees:
         runs = [(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                  time_shapes(shapes, args.kernel))]

@@ -15,7 +15,14 @@ only (table, k1, b1, k2, b2): positions, masks and tokens are data.
 the bare forward wrapper has no autograd and raises when asked to record one.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-or raises. Both kernels share one tile (csrc/distance_tile.cuh): blocks walk
+or raises. The kernels take F = 64 (the flagship width) and the JAX
+package's 2x, 4x and 8x widths, F = 128, 256, 512, read from the operands;
+any other F raises (:func:`check_width`). From F = 128 on their
+``*_wide_*`` entry points run the design of csrc/wide_dist.cuh: the
+gaussian rows built once into a bf16 scratch, the MLP and its gradients as
+tiled GEMMs that stream K1 and K2 (csrc/wide_gemm.cuh), the table gradient
+summed a residue, then a token and chunk of residues, at a time. At F = 64
+both kernels share one tile (csrc/distance_tile.cuh): blocks walk
 chunks of the live residues (s_i != 0) in a stable order by token, each run
 of equal aa_i with its 22 coefficient rows in shared memory, and every
 product on wgmma.
@@ -36,12 +43,28 @@ import torch.nn.functional as F
 from pepflowww_torch import native
 
 A, AA2, KP, NF, NAA = 15, 225, 240, 64, 22
+WIDE_F = (128, 256, 512)    # the JAX package's 2x, 4x, 8x widths (csrc/wide_dist.cuh)
+XW = 256                    # the wide kernels' gaussian rows: 225 padded to 256
+WIDE_CHUNK = 64             # residues a chunk of the wide table-gradient sum
 PARAM_NAMES = ("table", "k1", "b1", "k2", "b2")
 # distance_embed_forward: 10 pointers, B, L, stream.
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 # distance_embed_backward: 18 pointers, B, L, grid, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 BWD_PART = AA2 * NF + NF * NF + 2 * NF   # a block's weight partial: dK1 | dK2 | db1 | db2
+# distance_embed_wide_forward: 13 pointers, B, L, F, stream.
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# distance_embed_wide_backward: 29 pointers, B, L, F, nchunk, ks1, ks2, stream.
+_WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 29 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def check_width(f: int, k1_rows: int = AA2) -> None:
+    """Raise unless the kernels take an F-wide MLP on the 225 atom pairs:
+    F = 64, 128, 256 or 512."""
+    if f != NF and f not in WIDE_F:
+        raise ValueError(f"F = {f} is not supported by the distance kernels (64, 128, 256 or 512)")
+    if k1_rows != AA2:
+        raise ValueError(f"k1 has {k1_rows} rows: the distance kernels take the 225 atom pairs")
 
 
 def bwd_schedule(B: int, L: int, sms: int):
@@ -78,32 +101,28 @@ def distance_embed_plain(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfl
 
 def kernel_operands(p: dict) -> dict:
     """The weights as the kernel takes them: fp32 table and biases, bf16
-    k1 zero-padded from 225 to 240 rows, bf16 k2."""
-    k1 = torch.zeros(KP, NF, dtype=torch.bfloat16, device=p["k1"].device)
-    k1[:AA2] = p["k1"].to(torch.bfloat16)
-    return {"table": p["table"].float().contiguous(), "k1": k1,
-            "b1": p["b1"].float().contiguous(), "k2": p["k2"].to(torch.bfloat16).contiguous(),
-            "b2": p["b2"].float().contiguous()}
+    k1 zero-padded from 225 to 240 rows, bf16 k2. From F = 128 on (the wide
+    kernels): k1t, k1 transposed and zero-padded to (F, 256); k1p, k1
+    zero-padded to (256, F); k2t, k2 transposed; k2 as stored; all bf16.
+    Unsupported widths raise (:func:`check_width`)."""
+    bf = torch.bfloat16
+    f = p["k1"].shape[1]
+    check_width(f, p["k1"].shape[0])
+    ops = {"table": p["table"].float().contiguous(), "b1": p["b1"].float().contiguous(),
+           "k2": p["k2"].to(bf).contiguous(), "b2": p["b2"].float().contiguous()}
+    if f == NF:
+        k1 = torch.zeros(KP, NF, dtype=bf, device=p["k1"].device)
+        k1[:AA2] = p["k1"].to(bf)
+        return {**ops, "k1": k1}
+    k1p = torch.zeros(XW, f, dtype=bf, device=p["k1"].device)
+    k1p[:AA2] = p["k1"].to(bf)
+    return {**ops, "k1p": k1p, "k1t": k1p.t().contiguous(),
+            "k2t": p["k2"].to(bf).t().contiguous()}
 
 
-def fused_distance_embed(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16,
-                         ops: Optional[dict] = None):
-    """Distance block forward, without autograd: it raises if grad mode is
-    on and a parameter requires grad (use :class:`DistanceEmbedFn` to
-    train). CPU tensors run :func:`distance_embed_plain`; CUDA tensors run
-    the bf16 kernel (F = 64 only) or raise. ``ops`` may carry
-    :func:`kernel_operands` made once."""
-    native.refuse_autograd("fused_distance_embed", [pos_nm, *p.values()])
-    return _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops)
-
-
-def _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops=None):
-    if pos_nm.device.type == "cpu":
-        return distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the distance kernel computes in bfloat16, not {dtype}")
-    if ops is None:
-        ops = kernel_operands(p)
+def _data(pos_nm, mask_atoms, aa, smask):
+    """The kernels' data inputs, checked: positions, atom masks and the
+    structure mask float32, tokens int32, all contiguous on the card."""
     B, L = aa.shape
     f32 = torch.float32
     pos = pos_nm.to(f32).contiguous()
@@ -114,6 +133,68 @@ def _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops=None):
     native.check_tensor(amask, "mask_atoms", (B, L, A), f32)
     native.check_tensor(aa32, "aa", (B, L), torch.int32)
     native.check_tensor(sm, "smask", (B, L), f32)
+    return pos, amask, aa32, sm
+
+
+def _check_wide_ops(ops: dict, f: int, names) -> None:
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = {"table": ((NAA * NAA, AA2), f32), "k1t": ((f, XW), bf), "k1p": ((XW, f), bf),
+              "b1": ((f,), f32), "k2t": ((f, f), bf), "k2": ((f, f), bf), "b2": ((f,), f32)}
+    for k in names:
+        if k not in ops:
+            raise ValueError(f"the wide distance kernel needs operand {k}: make ops with "
+                             "kernel_operands(p)")
+        native.check_tensor(ops[k], k, *shapes[k])
+
+
+def _forward_wide(pos_nm, mask_atoms, aa, smask, ops, f: int):
+    """K3 at F = 128, 256, 512: csrc/distance_embed.cu's
+    ``distance_embed_wide_forward`` (four device launches), counted as one
+    launch of the kernel."""
+    B, L = aa.shape
+    if B * L * L > 2**31 - 1:
+        raise ValueError(f"B*L*L = {B * L * L} pairs: the kernels index pairs in 32 bits")
+    data = _data(pos_nm, mask_atoms, aa, smask)
+    names = ("table", "k1t", "b1", "k2t", "b2")
+    _check_wide_ops(ops, f, names)
+    dev, bf = data[0].device, torch.bfloat16
+    scratch = [torch.empty(NAA * NAA, AA2, dtype=torch.float32, device=dev),
+               torch.empty(B * L * L, XW, dtype=bf, device=dev),
+               torch.empty(B * L * L, f, dtype=bf, device=dev)]
+    out = torch.empty(B, L, L, f, dtype=bf, device=dev)
+    fn = native.function("distance_embed", "distance_embed_wide_forward", _WIDE_ARGTYPES)
+    ptrs = [t.data_ptr() for t in (*data, *(ops[k] for k in names), *scratch, out)]
+    rc = fn(*ptrs, B, L, f, torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "distance_embed")
+    native.count_launch("distance_embed")
+    return out
+
+
+def fused_distance_embed(pos_nm, mask_atoms, aa, smask, p: dict, dtype=torch.bfloat16,
+                         ops: Optional[dict] = None):
+    """Distance block forward, without autograd: it raises if grad mode is
+    on and a parameter requires grad (use :class:`DistanceEmbedFn` to
+    train). CPU tensors run :func:`distance_embed_plain`; CUDA tensors run
+    the bf16 kernel (F = 64, 128, 256 or 512) or raise. ``ops`` may carry
+    :func:`kernel_operands` made once."""
+    native.refuse_autograd("fused_distance_embed", [pos_nm, *p.values()])
+    return _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops)
+
+
+def _forward(pos_nm, mask_atoms, aa, smask, p, dtype, ops=None):
+    if pos_nm.device.type == "cpu":
+        return distance_embed_plain(pos_nm, mask_atoms, aa, smask, p, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the distance kernel computes in bfloat16, not {dtype}")
+    f = p["k1"].shape[1]
+    check_width(f, p["k1"].shape[0])
+    if ops is None:
+        ops = kernel_operands(p)
+    if f != NF:
+        return _forward_wide(pos_nm, mask_atoms, aa, smask, ops, f)
+    B, L = aa.shape
+    f32 = torch.float32
+    pos, amask, aa32, sm = _data(pos_nm, mask_atoms, aa, smask)
     native.check_tensor(ops["table"], "table", (NAA * NAA, AA2), f32)
     native.check_tensor(ops["k1"], "k1", (KP, NF), torch.bfloat16)
     native.check_tensor(ops["k2"], "k2", (NF, NF), torch.bfloat16)
@@ -179,20 +260,17 @@ def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bf
         return distance_embed_bwd_plain(pos_nm, mask_atoms, aa, smask, p, g, dtype)
     if dtype != torch.bfloat16:
         raise ValueError(f"the distance backward kernel computes in bfloat16, not {dtype}")
+    f = p["k1"].shape[1]
+    check_width(f, p["k1"].shape[0])
     if ops is None:
         ops = kernel_operands(p)
+    if f != NF:
+        return _bwd_wide(pos_nm, mask_atoms, aa, smask, g, ops, f)
     B, L = aa.shape
     f32, bf = torch.float32, torch.bfloat16
     dev = pos_nm.device
-    pos = pos_nm.to(f32).contiguous()
-    amask = mask_atoms.to(f32).contiguous()
-    aa32 = aa.to(torch.int32).contiguous()
-    sm = smask.to(f32).contiguous()
+    pos, amask, aa32, sm = _data(pos_nm, mask_atoms, aa, smask)
     gg = g.to(bf).contiguous()
-    native.check_tensor(pos, "pos_nm", (B, L, A, 3), f32)
-    native.check_tensor(amask, "mask_atoms", (B, L, A), f32)
-    native.check_tensor(aa32, "aa", (B, L), torch.int32)
-    native.check_tensor(sm, "smask", (B, L), f32)
     native.check_tensor(gg, "g", (B, L, L, NF), bf)
     native.check_tensor(ops["table"], "table", (NAA * NAA, AA2), f32)
     native.check_tensor(ops["k1"], "k1", (KP, NF), bf)
@@ -210,6 +288,41 @@ def distance_embed_bwd(pos_nm, mask_atoms, aa, smask, p: dict, g, dtype=torch.bf
     outs = scratch + [grads[k] for k in PARAM_NAMES]
     rc = fn(*[t.data_ptr() for t in ins + outs], B, L, grid,
             torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "distance_embed_bwd")
+    native.count_launch("distance_embed_bwd")
+    return grads
+
+
+def _bwd_wide(pos_nm, mask_atoms, aa, smask, g, ops, f: int):
+    """K5 at F = 128, 256, 512: csrc/distance_embed_bwd.cu's
+    ``distance_embed_wide_backward`` (fifteen device launches), counted as
+    one launch of the kernel."""
+    from pepflowww_torch.models.cuda_edge import wide_kslice
+
+    B, L = aa.shape
+    M, nres = B * L * L, B * L
+    if M > 2**31 - 1:
+        raise ValueError(f"B*L*L = {M} pairs: the kernels index pairs in 32 bits")
+    data = _data(pos_nm, mask_atoms, aa, smask)
+    dev, bf, f32 = data[0].device, torch.bfloat16, torch.float32
+    gg = g.to(bf).contiguous()
+    native.check_tensor(gg, "g", (B, L, L, f), bf)
+    names = ("table", "k1t", "b1", "k2t", "k2", "b2", "k1p")
+    _check_wide_ops(ops, f, names)
+    sms = native.sm_count(dev)
+    ks1, ks2 = wide_kslice(M, XW, f, sms), wide_kslice(M, f, f, sms)
+    nchunk, nblk = -(-nres // WIDE_CHUNK), -(-M // 128)
+    empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
+    scratch = [empty(NAA * NAA, AA2), empty(M, XW, dt=bf), empty(M, f, dt=bf),
+               empty(M, f, dt=bf), empty(M, f, dt=bf), empty(M, XW), empty(nres, NAA, AA2),
+               empty(nchunk, NAA * NAA, AA2), empty(nblk, f), empty(nblk, f),
+               empty(-(-M // ks1), XW, f), empty(-(-M // ks2), f, f)]
+    grads = {"table": empty(NAA * NAA, AA2), "k1": empty(AA2, f), "b1": empty(f),
+             "k2": empty(f, f), "b2": empty(f)}
+    fn = native.function("distance_embed_bwd", "distance_embed_wide_backward", _WIDE_BWD_ARGTYPES)
+    ins = [*data, gg] + [ops[k] for k in names]
+    rc = fn(*[t.data_ptr() for t in ins + scratch + [grads[k] for k in PARAM_NAMES]], B, L, f,
+            nchunk, ks1, ks2, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "distance_embed_bwd")
     native.count_launch("distance_embed_bwd")
     return grads

@@ -27,6 +27,14 @@ parameter gradients, recomputing both hidden layers. :class:`EdgeTransitionFn`
 runs the forward (readout off) and that backward under autograd; the bare
 forward wrappers have no autograd and raise when asked to record one.
 
+The bf16 kernels take c_z = 64 (the flagship width: node bias 64, hidden
+192, at most 32 readout lanes) and the JAX package's 2x, 4x and 8x widths,
+c_z = 128, 256, 512 (node bias c_z, hidden 3 c_z, at most 8 + c_z/4
+readout lanes: the next block's H = 8 heads and c_z/4 pair channels), each
+read from the operands; at the wider ones their ``*_wide_*`` entry points
+run the tiled-GEMM design of csrc/wide_gemm.cuh. Any other width raises
+(:func:`check_widths`). The int8 kernel (K6) takes c_z = 64 only.
+
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
 (csrc/edge_transition.cu, csrc/edge_transition_int8.cu,
 csrc/edge_transition_bwd.cu) or raises.
@@ -43,6 +51,8 @@ import torch.nn.functional as F
 from pepflowww_torch import native
 
 CZ, HID, RO = 64, 192, 32
+WIDE_CZ = (128, 256, 512)   # the JAX package's 2x, 4x, 8x pair widths (csrc/wide_gemm.cuh)
+WIDE_RO_TILE = 64           # the wide readout's lanes are padded to a multiple of this
 PARAM_NAMES = ("k1", "b1", "k2", "b2", "k3", "b3", "ln_scale", "ln_bias")
 # edge_transition_forward: 16 pointers, B, L, n_b, n_pz, eps, stream.
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -50,6 +60,12 @@ _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctype
 _INT8_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_backward: 30 pointers, B, L, grid, n1, n2, n3, d_edge_f32, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_wide_forward: 21 pointers, B, L, cz, n_b, n_pz, ro_pad, eps, stream.
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_wide_backward: 40 pointers, B, L, cz, ks1, ks2, ks3, d_edge_f32, eps, stream.
+_WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 40 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+WIDE_ROWS = 128      # pair rows of a wide GEMM block: one column-sum partial row each
 BWD_TI = 8           # the backward kernel's tile: 8 x 8 pairs (i, j) of one batch row
 BWD_COL_SLOTS = 4    # column partials of d_node a tile writes per column (one a warp)
 VEC = 2 * HID + 3 * CZ   # per-block partial: d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
@@ -191,6 +207,34 @@ def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.
 
 
 # ---------------------------------------------------------------- kernels
+def check_widths(cz: int, cb: int, hid: int, n_ro: Optional[int] = None,
+                 quant_int8: bool = False) -> None:
+    """Raise unless the kernels take these widths: c_z 64 (the flagship
+    kernels) or 128, 256, 512 (the wide ones), a c_z-wide node bias, hidden
+    3 c_z, and with a readout at most 32 lanes at c_z 64 and 8 + c_z/4 from
+    128 on (the next block's heads and down_z channels); the int8 kernel
+    takes c_z 64 only."""
+    if cz != CZ and cz not in WIDE_CZ:
+        raise ValueError(f"c_z = {cz} is not supported by the EdgeTransition kernels (64, 128, "
+                         "256 or 512)")
+    if cb != cz or hid != 3 * cz:
+        raise ValueError(f"node bias {cb} and hidden {hid} wide at c_z = {cz}: the EdgeTransition "
+                         f"kernels take a node bias of c_z and a hidden width of 3 c_z = {3 * cz}")
+    if quant_int8 and cz != CZ:
+        raise ValueError(f"the int8 EdgeTransition kernel takes c_z = 64 only, not {cz}")
+    if n_ro is not None:
+        most = RO if cz == CZ else 8 + cz // 4
+        if n_ro > most:
+            raise ValueError(f"{n_ro} readout lanes at c_z = {cz}: the EdgeTransition kernels "
+                             f"take at most {most}")
+
+
+def _param_widths(p: dict):
+    """(c_z, node bias width, hidden width) of the parameters."""
+    cz, hid = p["k3"].shape[1], p["k1"].shape[1]
+    return cz, (p["k1"].shape[0] - cz) // 2, hid
+
+
 def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool = False) -> dict:
     """The weights as the kernels take them: float32 vectors; the matrices
     K-major, bf16 transposed to [out, in] (w1t, w3t, and without
@@ -199,8 +243,17 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
     bias (32,). With `quant_int8`, in place of w2t, k2 and k3 quantized per
     output column (from float32) and transposed to [out, in] int8, their K
     axis permuted by :data:`INT8_K_PERM` (w2qt, w3qt), with their column
-    scales (w2s, w3s)."""
+    scales (w2s, w3s).
+
+    At c_z 128, 256, 512 the wide kernels also take wn, the node rows of k1
+    and k3 transposed ([W1i | W1j | W3i | W3j]^T, (2 hid + 2 c_z, c_z)), the
+    backward's k1b, k2b, k3b (the bf16 weights as stored, [in, out]), and
+    the readout padded to a multiple of 64 lanes, wrt (lanes, c_z).
+    Unsupported widths raise (:func:`check_widths`)."""
     bf = torch.bfloat16
+    cz, cb, hid = _param_widths(p)
+    n_ro = None if readout is None else readout[0].shape[1] + readout[2].shape[1]
+    check_widths(cz, cb, hid, n_ro, quant_int8)
     ops = {k: p[k].float().contiguous() for k in ("b1", "b2", "b3", "ln_scale", "ln_bias")}
     if quant_int8:
         ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "3")})
@@ -211,20 +264,45 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
                         f"w{k}s": scale.reshape(-1).contiguous()})
     else:
         ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "2", "3")})
+    if cz != CZ:
+        k1, k3 = p["k1"].to(bf), p["k3"].to(bf)
+        ops["wn"] = torch.cat([k1[cz:2 * cz].t(), k1[2 * cz:].t(), k3[cz:2 * cz].t(),
+                               k3[2 * cz:].t()]).contiguous()
+        ops.update({f"k{k}b": p[f"k{k}"].to(bf).contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
-        if kb.shape[0] != CZ or kdz.shape[0] != CZ or n_b + n_pz > RO:
+        if kb.shape[0] != cz or kdz.shape[0] != cz:
             raise ValueError(f"readout widths {tuple(kb.shape)}, {tuple(kdz.shape)} are not "
-                             f"supported by the kernel (64 in, at most {RO} lanes out)")
-        wr = torch.zeros(CZ, RO, dtype=bf, device=kb.device)
+                             f"supported by the kernel ({cz} in)")
+        lanes = RO if cz == CZ else -(-n_ro // WIDE_RO_TILE) * WIDE_RO_TILE
+        wr = torch.zeros(cz, lanes, dtype=bf, device=kb.device)
         wr[:, :n_b] = kb.to(bf)
         wr[:, n_b:n_b + n_pz] = kdz.to(bf)
-        bro = torch.zeros(RO, dtype=torch.float32, device=kb.device)
+        bro = torch.zeros(lanes, dtype=torch.float32, device=kb.device)
         bro[:n_b] = bb.float()
         bro[n_b:n_b + n_pz] = bdz.float()
         ops.update(wrt=wr.t().contiguous(), bro=bro, n_b=n_b, n_pz=n_pz)
     return ops
+
+
+def _wide_operands(cz: int, lanes: int = 0) -> dict:
+    """What the wide kernels read of their operands at c_z = cz: name ->
+    (shape, dtype)."""
+    hid, bf, f32 = 3 * cz, torch.bfloat16, torch.float32
+    return {"b1": ((hid,), f32), "b2": ((hid,), f32), "b3": ((cz,), f32),
+            "ln_scale": ((cz,), f32), "ln_bias": ((cz,), f32),
+            "w1t": ((hid, hid), bf), "w2t": ((hid, hid), bf), "w3t": ((cz, hid), bf),
+            "wn": ((2 * hid + 2 * cz, cz), bf), "k1b": ((hid, hid), bf),
+            "k2b": ((hid, hid), bf), "k3b": ((hid, cz), bf),
+            "wrt": ((lanes, cz), bf), "bro": ((lanes,), f32)}
+
+
+def _check_ops(ops: dict, names, shapes: dict, hint: str) -> None:
+    for k in names:
+        if k not in ops:
+            raise ValueError(f"the kernel needs operand {k}: make ops with {hint} to match")
+        native.check_tensor(ops[k], k, *shapes[k])
 
 
 def fused_edge_transition(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
@@ -234,8 +312,9 @@ def fused_edge_transition(edge, node_bias, node_mask, p: dict, dtype=torch.bfloa
     if grad mode is on and an input requires grad (use
     :class:`EdgeTransitionFn` to train). CPU tensors run
     :func:`edge_transition_plain`; CUDA tensors run the bf16 kernel, which
-    takes only c_z = 64, a 64-wide node bias and hidden width 192, and raises
-    on anything else. ``ops`` may carry :func:`kernel_operands` made once."""
+    takes c_z = 64, 128, 256 or 512 with a c_z-wide node bias and hidden
+    width 3 c_z, and raises on anything else. ``ops`` may carry
+    :func:`kernel_operands` made once."""
     native.refuse_autograd("fused_edge_transition",
                            [edge, node_bias, *p.values(), *(readout if readout is not None else ())])
     return _forward(edge, node_bias, node_mask, p, dtype, readout, ops, eps)
@@ -266,8 +345,12 @@ def fused_edge_transition_int8(edge, node_bias, node_mask, p: dict, dtype=torch.
 def _forward(edge, node_bias, node_mask, p, dtype, readout=None, ops=None, eps=1e-5):
     if edge.device.type == "cpu":
         return edge_transition_plain(edge, node_bias, node_mask, p, dtype, readout, eps)
+    cz = edge.shape[-1]
+    check_widths(cz, node_bias.shape[-1], p["k1"].shape[1])
     if ops is None:
         ops = kernel_operands(p, readout)
+    if cz != CZ:
+        return _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps)
     return _launch("edge_transition", _ARGTYPES, edge, node_bias, node_mask, dtype, readout, ops,
                    eps, ("w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias"),
                    ("wrt", "bro"))
@@ -285,11 +368,7 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     bf, f32 = torch.bfloat16, torch.float32
     native.check_tensor(edge, "edge", (B, L, L, CZ), bf)
     native.check_tensor(node_bias, "node_bias", (B, L, CZ), bf)
-    for k in weights:
-        if k not in ops:
-            raise ValueError(f"the {name} kernel needs operand {k}: make ops with "
-                             "kernel_operands(p, readout, quant_int8=...) to match")
-        native.check_tensor(ops[k], k, *_OPERANDS[k])
+    _check_ops(ops, weights, _OPERANDS, "kernel_operands(p, readout, quant_int8=...)")
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
 
@@ -297,8 +376,7 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     if readout is not None:
         if any(k not in ops for k in readout_weights):
             raise ValueError("readout requested but ops were made without it")
-        for k in readout_weights:
-            native.check_tensor(ops[k], k, *_OPERANDS[k])
+        _check_ops(ops, readout_weights, _OPERANDS, "kernel_operands(p, readout)")
         n_b, n_pz = ops["n_b"], ops["n_pz"]
         b_out = torch.empty(B, n_b, L, L, dtype=bf, device=edge.device)
         pz_out = torch.empty(B, n_pz, L, L, dtype=bf, device=edge.device)
@@ -314,6 +392,50 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
             torch.cuda.current_stream(edge.device).cuda_stream)
     native.check(rc, name)
     native.count_launch(name)
+    if readout is None:
+        return out
+    return out, b_out, pz_out
+
+
+def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps):
+    """K1/K2 at c_z 128, 256, 512: csrc/edge_transition.cu's
+    ``edge_transition_wide_forward`` (six device launches with the readout,
+    five without), counted as one launch of the kernel."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
+    B, L, _, cz = edge.shape
+    if B * L * L > 2**31 - 1:
+        raise ValueError(f"B*L*L = {B * L * L} pairs: the kernels index pairs in 32 bits")
+    hid, bf, f32, dev = 3 * cz, torch.bfloat16, torch.float32, edge.device
+    native.check_tensor(edge, "edge", (B, L, L, cz), bf)
+    native.check_tensor(node_bias, "node_bias", (B, L, cz), bf)
+    lanes = ops["wrt"].shape[0] if readout is not None and "wrt" in ops else 0
+    shapes = _wide_operands(cz, lanes)
+    weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias")
+    _check_ops(ops, weights, shapes, "kernel_operands(p, readout)")
+    mask = node_mask.to(f32).contiguous()
+    native.check_tensor(mask, "node_mask", (B, L), f32)
+    empty = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=dev)
+    out = empty(B, L, L, cz)
+    scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(B * L * L, hid),
+               empty(B * L * L, hid), empty(B * L * L, cz, dt=f32)]
+    if readout is not None:
+        if "wrt" not in ops:
+            raise ValueError("readout requested but ops were made without it")
+        _check_ops(ops, ("wrt", "bro"), shapes, "kernel_operands(p, readout)")
+        n_b, n_pz = ops["n_b"], ops["n_pz"]
+        b_out, pz_out = empty(B, n_b, L, L), empty(B, n_pz, L, L)
+        ro = [ops["wrt"].data_ptr(), ops["bro"].data_ptr()]
+        outs = [out.data_ptr(), b_out.data_ptr(), pz_out.data_ptr()]
+    else:
+        n_b = n_pz = 0
+        ro, outs = [None, None], [out.data_ptr(), None, None]
+    fn = native.function("edge_transition", "edge_transition_wide_forward", _WIDE_ARGTYPES)
+    ins = [edge, node_bias, mask] + [ops[k] for k in weights]
+    rc = fn(*[t.data_ptr() for t in ins], *ro, *[t.data_ptr() for t in scratch], *outs, B, L, cz,
+            n_b, n_pz, lanes, eps, torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "edge_transition")
+    native.count_launch("edge_transition")
     if readout is None:
         return out
     return out, b_out, pz_out
@@ -367,7 +489,8 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     """Gradients of the EdgeTransition (readout off) with respect to edge,
     node_bias and the parameters, for the cotangent `g` of its output.
     CPU tensors run :func:`edge_transition_bwd_plain`; CUDA tensors run the
-    bf16 backward kernel (three launches, counted as one call) or raise.
+    bf16 backward kernel (three launches at c_z 64, twenty from 128 on,
+    counted as one call) or raise.
     Returns (d_edge in `d_edge_dtype` (bfloat16 or float32; float32 by
     default), d_node_bias float32, {name: float32 grad}). Two calls on the
     same inputs give bit-identical results: cross-block sums go through
@@ -381,6 +504,8 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     B, L = edge.shape[:2]
     if B * L * L > 2**31 - 1:
         raise ValueError(f"B*L*L = {B * L * L} pairs: the backward kernel indexes pairs in 32 bits")
+    cz = edge.shape[-1]
+    check_widths(cz, node_bias.shape[-1], p["k1"].shape[1])
     if ops is None:
         ops = kernel_operands(p)
     bf, f32 = torch.bfloat16, torch.float32
@@ -392,16 +517,14 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     nb = node_bias.to(bf).contiguous()
     gg = g.to(bf).contiguous()
     mask = node_mask.to(f32).contiguous()
+    if cz != CZ:
+        return _bwd_wide(e, nb, mask, gg, ops, d_edge_dtype, eps)
     native.check_tensor(e, "edge", (B, L, L, CZ), bf)
     native.check_tensor(nb, "node_bias", (B, L, CZ), bf)
     native.check_tensor(gg, "g", (B, L, L, CZ), bf)
     native.check_tensor(mask, "node_mask", (B, L), f32)
     weights = ("w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale")
-    for k in weights:
-        if k not in ops:
-            raise ValueError(f"the backward kernel needs operand {k}: make ops with "
-                             "kernel_operands(p)")
-        native.check_tensor(ops[k], k, *_OPERANDS[k])
+    _check_ops(ops, weights, _OPERANDS, "kernel_operands(p)")
 
     grid, (n1, n2, n3), ntiles, nbi = bwd_schedule(B, L, native.sm_count(dev))
     empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
@@ -424,6 +547,62 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     native.check(rc, "edge_transition_bwd")
     native.count_launch("edge_transition_bwd")
     return d_edge, d_node, grads
+
+
+def _bwd_wide(e, nb, mask, gg, ops, d_edge_dtype, eps):
+    """K4 at c_z 128, 256, 512: csrc/edge_transition_bwd.cu's
+    ``edge_transition_wide_backward`` (twenty device launches), counted as
+    one launch of the kernel."""
+    B, L, _, cz = e.shape
+    hid, M, bf, f32, dev = 3 * cz, B * L * L, torch.bfloat16, torch.float32, e.device
+    for name, t, shape in (("edge", e, (B, L, L, cz)), ("node_bias", nb, (B, L, cz)),
+                           ("g", gg, (B, L, L, cz))):
+        native.check_tensor(t, name, shape, bf)
+    native.check_tensor(mask, "node_mask", (B, L), f32)
+    weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "k1b", "k2b", "k3b")
+    _check_ops(ops, weights, _wide_operands(cz), "kernel_operands(p)")
+    ks = wide_bwd_schedule(M, cz, native.sm_count(dev))
+    nblk = -(-M // WIDE_ROWS)
+    empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
+    scratch = [empty(B * L, 2 * hid), empty(M, hid, dt=bf), empty(M, hid, dt=bf),
+               empty(M, hid, dt=torch.uint8), empty(M, cz), empty(M, cz, dt=bf),
+               empty(M, hid, dt=bf), empty(M, hid, dt=bf), empty(M, 2 * cz), empty(nblk, 3 * cz),
+               empty(nblk, hid), empty(nblk, hid), empty(-(-M // ks[0]), hid, hid),
+               empty(-(-M // ks[1]), hid, hid), empty(-(-M // ks[2]), hid, cz)]
+    d_edge = empty(B, L, L, cz, dt=d_edge_dtype)
+    d_node = empty(B, L, cz)
+    grads = {"k1": empty(hid, hid), "b1": empty(hid), "k2": empty(hid, hid), "b2": empty(hid),
+             "k3": empty(hid, cz), "b3": empty(cz), "ln_scale": empty(cz), "ln_bias": empty(cz)}
+    fn = native.function("edge_transition_bwd", "edge_transition_wide_backward",
+                         _WIDE_BWD_ARGTYPES)
+    ins = [e, nb, mask, gg] + [ops[k] for k in weights]
+    outs = scratch + [d_edge, d_node] + [grads[k] for k in PARAM_NAMES]
+    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, cz, *ks, int(d_edge_dtype == f32), eps,
+            torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "edge_transition_bwd")
+    native.count_launch("edge_transition_bwd")
+    return d_edge, d_node, grads
+
+
+def wide_kslice(K: int, rows: int, cols: int, sms: int, rows_tile: int = 128) -> int:
+    """Pairs a K slice of a wide weight-gradient GEMM (rows x cols summed
+    over K pairs) takes: enough slices that about two blocks an SM run
+    (rows/128 x cols/128 tiles a slice), at most 64, each a multiple of 64
+    pairs (the GEMM's K tile). The fp32 partial slots, rows x cols each,
+    then number at most about 2 x sms / tiles: ~17 MB at every width on a
+    132-SM card."""
+    tiles = -(-rows // rows_tile) * -(-cols // 128)
+    slices = max(1, min(64, -(-2 * sms // tiles), -(-K // 64)))
+    per = -(-K // slices)
+    return -(-per // 64) * 64
+
+
+def wide_bwd_schedule(M: int, cz: int, sms: int):
+    """(ks1, ks2, ks3): the K slices of the wide backward's dW1 (3 c_z x 3
+    c_z), dW2 (3 c_z x 3 c_z) and dW3 (3 c_z x c_z) over M pairs."""
+    hid = 3 * cz
+    return (wide_kslice(M, hid, hid, sms), wide_kslice(M, hid, hid, sms),
+            wide_kslice(M, hid, cz, sms))
 
 
 def bwd_schedule(B: int, L: int, sms: int):
