@@ -178,35 +178,46 @@ Phases, each on its own lines:
    native peptide (12 residues, 2 samples, 100 steps) returns 2 PDBs with
    12 residues in chain A, a garbage pocket returns 400 with an error.
    Then in-process, the production profile with seeded weights: the warm
-   ladder of bucket 64 (sizes 1 … 64, each group K2 500 times and K3 once,
-   nothing else), size 1 again warm; the port's load test
-   (``serve_loadtest``, 8 clients x 2 requests x 8 samples, 100 steps,
-   bucket 64) with 0 errors and launches equal to 500 K2 and 1 K3 a group
-   run, every response's PDBs checked as the server sends them; 8 requests
-   at bucket 32 and 8 at 128 sent together (every row once, each response
-   its own complex); one request of 100 samples (one group padded to 128,
-   two 64-row chunks: K2 1000, K3 2, 100 PDBs). Then a burst of 4 clients
-   x 2 requests x 8 samples in the int8 profile (K6 500 and K3 1 a group)
-   and the fused-IPA profile (K7 600, K2 500, K3 1). Last, the kernels at
+   ladder of bucket 64 (sizes 1 … 64, 100 steps, each group K2 500 times
+   and K3 once, nothing else), size 1 again warm; the requests that follow
+   run SERVE_STEPS = 50 Euler steps (cut from 100 to keep the script in its
+   time): the port's load test (``serve_loadtest``, 8 clients x 2 requests
+   x 8 samples, bucket 64) with 0 errors and launches equal to 250 K2 and 1
+   K3 a group run, every response's PDBs checked as the server sends them;
+   8 requests at bucket 32 and 8 at 128 sent together (every row once, each
+   response its own complex); one request of 100 samples (one group padded
+   to 128, two 64-row chunks: K2 500, K3 2, 100 PDBs). Then a burst of 4
+   clients x 2 requests x 8 samples in the int8 profile (K6 250 and K3 1 a
+   group) and the fused-IPA profile (K7 300, K2 250, K3 1). Last, the kernels at
    the server's shapes against their plain versions: K2 and K3 at B = 1,
    2, 4 and 16 in the buckets 32, 64 and 128 (on those buckets'
    complexes), K6 and K7 at B = 8, 16 and 32 in bucket 64. Printed:
    seconds a ladder size, peptides/s and latencies beside the main phase's
    figure, the merged group sizes, K2's and K3's device time a call at
    B = 1, 2, 4 in bucket 64.
-13. widths: the production profile at the JAX package's 2x, 4x and 8x
-   widths (c_z = F = 128, 256, 512, ``tools/width_sweep.py``'s
-   configuration, B = 64, 32, 8 at L = 64). For each width, K1-K5 through
-   their wrappers against their plain versions (K1/K2 within EDGE_TOL, K3
-   within DIST_TOL, K4 and K5 each gradient within BWD_REL of its norm and
+13. widths: the production, fused-IPA and int8 serving profiles at the JAX
+   package's 2x, 4x and 8x widths (c_z = F = 128, 256, 512, the IPA's C =
+   256, 512, 1024 and CZ4 = 32, 64, 128; ``tools/width_sweep.py``'s
+   configuration, B = 64, 32, 8 at L = 64). For each width, K1-K8 through
+   their wrappers against their plain versions (K1/K2 and K6 within
+   EDGE_TOL, K6 with no pair row beyond it; K3 within DIST_TOL; K7 within
+   IPA_TOL in the sampler's and training's layouts; K4, K5 and K8, also at
+   L = 128 and half the batch, each gradient within BWD_REL of its norm and
    bit-identical across two calls), the device kernels of one call (the
-   library's count, by design 5, 6, 4, 20 and 15), each one's device time beside
-   its bound; then the 6-block model of that width with seeded weights
-   through the normal entry points: a 20-step sampler run (K2 100 times, K3
-   once, nothing else) and a training step (K1 5, K4 5, K3 1, K5 1) with
-   finite outputs and gradients, and the width sweep's row
+   library's count, by design 5, 6, 4, 20, 15, 9, 5 and 12), each one's
+   device time beside its bound; then the 6-block model of that width with
+   seeded weights through the normal entry points: a 20-step sampler run
+   (K2 100 times, K3 once, nothing else) and a training step (K1 5, K4 5,
+   K3 1, K5 1) with finite outputs and gradients, and the width sweep's row
    (``width_sweep.run_width``: train ms/step, samples/s, MFU, sampler
-   peptides/s at 100 steps) beside the card's name and power limit.
+   peptides/s at 100 steps) beside the card's name and power limit; then
+   the sample CLI with YAMLs written from configs/learn_angle_tpu.yaml at
+   that width (chiprun_out/learn_angle_tpu_w<w>_*.yaml): the fused-IPA
+   profile's (K7 120, K2 100, K3 1) and the int8 profile's (K6 100, K3 1),
+   B PDBs each; the train CLI with the fused-IPA YAML for two steps (each
+   K7 6, K8 6, K1 5, K4 5, K3 1, K5 1); and one fused-IPA training step at
+   L = 128 and a quarter of the batch (K8's L > 64 path): exact launches,
+   finite losses, gradients and outputs.
 
 The kernels' JSON line gives each kernel's launches on its path's run: the
 EdgeTransition forward with the readout (K2) and the distance forward
@@ -232,7 +243,10 @@ in the pp phase's ranks (none: ``--pp`` builds the plain profile). K1-K5
 ``edge_transition_bwd``, ``distance_embed_bwd``) also give ``widths``: by
 width, the launches of the widths phase's model runs (K2 and K3 the
 sampler's, K1, K4 and K5 the training step's) and the kernel's error,
-times and bound at that width.
+times and bound at that width; so do K6 (``edge_transition_int8``, the int8
+sample CLI's launches), K7 (``ipa2``, the fused-IPA sample CLI's) and K8
+(``ipa2_bwd``, the two-step fused-IPA train CLI's; ``ipa2_bwd_long``, the
+L = 128 step's, timed at L = 128 and half the width's batch).
 
 Prints the kernels' JSON line and the card's line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -487,9 +501,11 @@ def phase_setup():
     # kernels; no spills. The GEMM's dynamic shared memory: three stages of its A and B
     # tiles, rows padded by 16 bytes.
     modes = ("relu", "relu+pair mask", "fp32", "residual", "dA", "dA2 (distance)", "dx",
-             "readout", "split-K partial")
+             "readout", "split-K partial", "fp32 relu", "int8 dequant relu", "int8 dequant",
+             "fp32 accumulate", "batched (b, h)")
     for lib, tag in (("edge_transition", "K1/K2"), ("edge_transition_bwd", "K4"),
-                     ("distance_embed", "K3"), ("distance_embed_bwd", "K5")):
+                     ("distance_embed", "K3"), ("distance_embed_bwd", "K5"),
+                     ("edge_transition_int8", "K6"), ("ipa2_wide", "K7/K8")):
         entries = [(re.search(r"(wide_\w+?_kernel)(?:ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E)?", entry),
                     use, spill) for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
                    if "wide_" in entry]
@@ -504,6 +520,37 @@ def phase_setup():
             say("setup", f"{lib} {tag} wide {m[1]}{extra}: {use}; {spill}")
             check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
                                    "loads"), f"{lib} {tag} wide {m[1]} spills ({spill})")
+    # K7/K8 at 2x-8x (csrc/ipa2_wide.cu): the point, row, pair, gradient-row,
+    # column, finishing and cotangent-copy kernels around the GEMMs; no spills.
+    lib = "ipa2_wide"
+    entries = [(re.search(r"(ipaw_\w+?_kernel)(?:ILb(\d)E)?", entry), use, spill)
+               for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
+               if "ipaw_" in entry]
+    names = sorted(m[1] + (f"<{m[2]}>" if m[2] else "") for m, _, _ in entries if m)
+    want = sorted(["ipaw_points_kernel", "ipaw_row_kernel<0>", "ipaw_row_kernel<1>",
+                   "ipaw_pair_kernel<0>", "ipaw_pair_kernel<1>", "ipaw_grad_row_kernel",
+                   "ipaw_col_kernel", "ipaw_finish_kernel", "ipaw_bf16_kernel"])
+    check(names == want, f"{lib}: ptxas -v reported {names}, expected {want}")
+    smem = native.function(lib, "ipa2_wide_smem_bytes", [ctypes.c_int] * 3)
+    for m, use, spill in entries:
+        extra = {"ipaw_pair_kernel": f"; {smem(int(m[2] or 0), 64, 32)} bytes of dynamic shared "
+                                     f"memory a block at L=64, CZ4=32",
+                 "ipaw_col_kernel": f"; {smem(2, 0, 0)} bytes of dynamic shared memory a "
+                                    f"block"}.get(m[1], "")
+        say("setup", f"{lib} K7/K8 {m[0]}: {use}; {spill}{extra}")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"{lib} K7/K8 {m[0]} spills ({spill})")
+    per_call = native.function(lib, "ipa2_wide_kernels_per_call", [ctypes.c_int])
+    check((per_call(0), per_call(1)) == (5, 12), f"{lib}: not 5 launches a forward call and 12 "
+                                                 "a backward one")
+    i8_call = native.function("edge_transition_int8", "edge_transition_int8_wide_kernels_per_call",
+                              [ctypes.c_int])
+    check((i8_call(0), i8_call(1)) == (8, 9), "edge_transition_int8: not 8 launches a wide call "
+                                              "and 9 with the readout")
+    longest = native.function(lib, "ipa2_wide_max_length", [])()
+    say("setup", f"{lib} K7 launches a call: {per_call(0)}, K8: {per_call(1)}, L up to "
+                 f"{longest}; edge_transition_int8 K6 wide: {i8_call(0)}, {i8_call(1)} with the "
+                 f"readout")
     return card
 
 
@@ -848,17 +895,17 @@ def _ipa1_inputs(B, L, widths, dtype, dev, seed):
             r(B, H, L, L, k=7).to(dtype), r(B, L, L, CZ4, k=8).to(dtype), mask]
 
 
-def _ipa_inputs(B, L, dev, seed, layout):
-    """Inputs of the fused IPA at the production widths (H 8, C 128, Pq 8,
-    Pv 12, CZ4 16) as the module passes them: the points as permuted views
-    of the projections; with layout "sampler" the pair bias (B, H, L, L) and
-    the pair readout as a view of the EdgeTransition epilogue's
-    (B, CZ4, L, L), with "train" the bias as a view of linear_b's
-    (B, L, L, H) and the readout down_z's (B, L, L, CZ4). bf16 where the
-    model feeds bf16; random rotations, translations of ~5 A."""
+def _ipa_inputs(B, L, dev, seed, layout, width=1):
+    """Inputs of the fused IPA at `width` times the production widths (H 8,
+    C 128 w, Pq 8, Pv 12, CZ4 16 w) as the module passes them: the points
+    as permuted views of the projections; with layout "sampler" the pair
+    bias (B, H, L, L) and the pair readout as a view of the EdgeTransition
+    epilogue's (B, CZ4, L, L), with "train" the bias as a view of
+    linear_b's (B, L, L, H) and the readout down_z's (B, L, L, CZ4). bf16
+    where the model feeds bf16; random rotations, translations of ~5 A."""
     import torch
 
-    H, C, Pq, Pv, CZ4 = 8, 128, 8, 12, 16
+    H, C, Pq, Pv, CZ4 = 8, 128 * width, 8, 12, 16 * width
     bf = torch.bfloat16
     r = lambda *s, sc=1.0, k=0: _randn(s, dev, seed + k) * sc
     R = torch.linalg.qr(_randn((B, L, 3, 3), dev, seed + 1))[0]
@@ -2668,6 +2715,7 @@ def phase_eval(card: str):
 # The serve phase's complexes, (peptide, pocket): the load test's (bucket 64)
 # and the two-bucket burst's (buckets 32 and 128).
 SERVE_COMPLEX = (12, 48)
+SERVE_STEPS = 50   # the in-process requests' Euler steps (the ladder warms at the server's 100)
 SERVE_BUCKETS = {32: (8, 20), 128: (12, 110)}
 
 
@@ -2844,7 +2892,7 @@ def _serve_burst(tag: str, state, clients: int, requests: int, samples: int) -> 
     with _serving(state) as port:
         res = serve_loadtest.main(["--port", str(port), "--clients", str(clients), "--requests",
                                    str(requests), "--num_samples", str(samples), "--num_steps",
-                                   "100", "--pep_len", str(SERVE_COMPLEX[0]), "--rec_len",
+                                   str(SERVE_STEPS), "--pep_len", str(SERVE_COMPLEX[0]), "--rec_len",
                                    str(SERVE_COMPLEX[1]), "--timeout", "300"])
     check(res["requests"] == clients * requests and res["errors"] == 0
           and res["peptides"] == clients * requests * samples,
@@ -2872,6 +2920,7 @@ def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: 
     dev = torch.device("cuda", 0)
     zero = dict.fromkeys(native.SOURCES, 0)
     prod_chunk = {"edge_transition": 500, "distance_embed": 1}
+    req_chunk = {"edge_transition": 5 * SERVE_STEPS, "distance_embed": 1}
     totals: dict = {}
 
     def pdbs(pep, rec, seed):
@@ -2912,8 +2961,8 @@ def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: 
         # 2 requests a client (the JAX tool's 4 halved) keep the script in its time.
         res = _serve_burst("serve load", state, 8, 2, 8)
         wall = time.perf_counter() - t0
-        merged = _serve_launch_check("serve load", counted.groups, prod_chunk, totals)
-    say("serve", f"load test (production, 8 clients x 2 requests x 8 samples, 100 steps, "
+        merged = _serve_launch_check("serve load", counted.groups, req_chunk, totals)
+    say("serve", f"load test (production, 8 clients x 2 requests x 8 samples, {SERVE_STEPS} steps, "
                  f"peptide {SERVE_COMPLEX[0]} + pocket {SERVE_COMPLEX[1]}, bucket 64): "
                  f"{json.dumps(res)}; {wall:.2f} s with its first request; groups (rows, the "
                  f"first request's first) {merged}; main phase's production B=64 L=64 "
@@ -2922,13 +2971,13 @@ def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: 
     # 4. Two buckets at once.
     burst = {b: pdbs(*SERVE_BUCKETS[b], seed=20 + b) for b in SERVE_BUCKETS}
     reqs = [(b, {"pocket_pdb": burst[b][1], "peptide_pdb": burst[b][0], "num_samples": 2,
-                 "num_steps": 100}) for _ in range(8) for b in SERVE_BUCKETS]
+                 "num_steps": SERVE_STEPS}) for _ in range(8) for b in SERVE_BUCKETS]
     with _serving(state) as port:
         with _counted_sampler() as counted:
             native.reset_launch_counts()
             with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
                 outs = list(ex.map(lambda r: _serve_post(port, r[1]), reqs))
-            _serve_launch_check("serve two buckets", counted.groups, prod_chunk, totals)
+            _serve_launch_check("serve two buckets", counted.groups, req_chunk, totals)
         groups = [g[:3] for g in counted.groups]
         for (b, _), (code, out) in zip(reqs, outs):
             check(code == 200 and len(out["pdbs"]) == 2, f"serve two buckets: {code}")
@@ -2946,23 +2995,23 @@ def phase_serve(card: str, prod, int8, ipa, yamls: dict, main_pps: float, k_ms: 
             t0 = time.perf_counter()
             code, out = _serve_post(port, {
                 "pocket_pdb": pdbs(*SERVE_COMPLEX, seed=0)[1], "peptide_len": SERVE_COMPLEX[0],
-                "num_samples": 100, "num_steps": 100})
+                "num_samples": 100, "num_steps": SERVE_STEPS})
             sec = time.perf_counter() - t0
         check(code == 200 and len(out["pdbs"]) == 100
               and all(_pdb_residues(p)[1] == SERVE_COMPLEX[0] for p in out["pdbs"]),
               f"serve over cap: {code}, or PDBs without {SERVE_COMPLEX[0]} residues in chain A")
         check([g[:3] for g in counted.groups] == [(64, 100, 128)],
               f"serve over cap: {counted.groups}")
-        _serve_launch_check("serve over cap", counted.groups, prod_chunk, totals)
-        check(native.LAUNCHES["edge_transition"] == 1000 and native.LAUNCHES["distance_embed"] == 2,
-              "serve over cap: not two 64-row chunks")
+        _serve_launch_check("serve over cap", counted.groups, req_chunk, totals)
+        check(native.LAUNCHES["edge_transition"] == 10 * SERVE_STEPS
+              and native.LAUNCHES["distance_embed"] == 2, "serve over cap: not two 64-row chunks")
         say("serve", f"num_samples 100: one group of 100 rows padded to 128, two 64-row chunks "
-                     f"(K2 1000, K3 2), 100 PDBs in {sec:.2f} s")
+                     f"(K2 {10 * SERVE_STEPS}, K3 2), 100 PDBs in {sec:.2f} s")
 
     # 6. The int8 and fused-IPA profiles.
     for name, cfg, per_chunk in (
-            ("int8", int8, {"edge_transition_int8": 500, "distance_embed": 1}),
-            ("fused IPA", ipa, {"ipa2": 600, **prod_chunk})):
+            ("int8", int8, {"edge_transition_int8": 5 * SERVE_STEPS, "distance_embed": 1}),
+            ("fused IPA", ipa, {"ipa2": 6 * SERVE_STEPS, **req_chunk})):
         with _counted_sampler() as counted:
             other = serve.start(serve._parser().parse_args(["--config", yamls[name]]),
                                 model=production_model(dev, cfg))
@@ -3048,41 +3097,69 @@ def _serve_kernels(card: str, dev, k_ms: dict):
 
 
 # The widths phase: the width sweep's widths (c_z = F = 64 w) at its
-# batches (kernel_times.WIDTH_BATCHES: B = 64, 32, 8 at L = 64). K1, K2 and
-# K3 are held to their plain versions with EDGE_TOL and DIST_TOL as at 1x
-# (bf16 outputs: a hidden activation that rounds to the other bf16
+# batches (kernel_times.WIDTH_BATCHES: B = 64, 32, 8 at L = 64). K1, K2, K3
+# and K6 are held to their plain versions with EDGE_TOL and DIST_TOL as at
+# 1x (bf16 outputs: a hidden activation that rounds to the other bf16
 # neighbour in one of the two moves an output by about one bf16 step of
 # the hidden layer's scale; the wider sums change the rounding points'
-# values, not their number); K4 and K5 with BWD_REL and bit-identical
-# across two calls.
+# values, not their number; for K6 an int8 level that flips at a rounding
+# tie moves its pair row by about as much, 2.3e-2 in the CPU tests at c_z
+# 512); K7 with IPA_TOL in both pair layouts; K4, K5 and K8 (also at L =
+# 128, half the batch) with BWD_REL and bit-identical across two calls.
 WIDTHS = (2, 4, 8)
 WIDE_STEPS = 20          # the sweep's sampler: 20 Euler steps (scaled to 100 for its rate)
 WIDE_NAMES = {"K1": "edge_transition_k1", "K2": "edge_transition", "K3": "distance_embed",
-              "K4": "edge_transition_bwd", "K5": "distance_embed_bwd"}
+              "K4": "edge_transition_bwd", "K5": "distance_embed_bwd",
+              "K6": "edge_transition_int8", "K7": "ipa2", "K8": "ipa2_bwd",
+              "K8 L=128": "ipa2_bwd_long"}
+IPA_GRADS = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
 
 
 def _widths_kernels(card: str, w: int) -> dict:
-    """K1-K5 at width `w` against their plain versions, the device kernels
+    """K1-K8 at width `w` against their plain versions, the device kernels
     of one call (the library's count of its launches), and their device
     times."""
     import torch
 
-    from pepflowww_torch import native
     from pepflowww_torch.kernel_times import WIDTH_BATCHES, device_ms, wide_calls
-    from pepflowww_torch.models import cuda_dist, cuda_edge
+    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 
     dev = torch.device("cuda", 0)
     B = WIDTH_BATCHES[w]
     rows = {}
-    for name, (call, plain, (bound, by), per_call, counter) in wide_calls(w, B, dev, 40 + w).items():
-        tag = f"{name} w={w} B={B} L=64"
-        got = _launch_once(counter, call, tag)
-        if name in ("K1", "K2", "K3"):
-            want = plain()
-            got, want = (got, want) if name == "K2" else ((got,), (want,))
+    calls = wide_calls(w, B, dev, 40 + w)
+    for name, (call, plain, (bound, by), per_call, counter, launched) in calls.items():
+        b, L = (max(1, B // 2), 128) if name == "K8 L=128" else (B, 64)
+        tag = f"{name.split()[0]} w={w} B={b} L={L}"
+        with torch.no_grad():
+            got = _launch_once(counter, call, tag)
+        if name in ("K1", "K2", "K3", "K6"):
+            with torch.no_grad():
+                want = plain()
+            got, want = (got, want) if name in ("K2", "K6") else ((got,), (want,))
             tol = DIST_TOL if name == "K3" else EDGE_TOL
-            err = max(compare(f"{tag} [{n}]", a, b, tol, phase="widths")
-                      for n, a, b in zip(("out", "b", "pz"), got, want))
+            err = max(compare(f"{tag} [{n}]", x, y, tol, phase="widths")
+                      for n, x, y in zip(("out", "b", "pz"), got, want))
+            if name == "K6":
+                # Pair rows whose output leaves EDGE_TOL anywhere: none allowed.
+                x, y = got[0].float(), want[0].float()
+                excess = ((x - y).abs() - EDGE_TOL[1] * y.abs()).amax(-1)
+                beyond = int((excess > EDGE_TOL[0]).sum())
+                say("widths", f"{tag}: {beyond} of {excess.numel()} pair rows beyond EDGE_TOL")
+                check(beyond == 0, f"{tag}: {beyond} pair rows beyond EDGE_TOL")
+        elif name == "K7":
+            with torch.no_grad():
+                want = plain()
+            err = max(compare(f"{tag} sampler layout [{n}]", x, y, IPA_TOL, phase="widths")
+                      for n, x, y in zip(("o", "optl", "norm", "opair"), got, want))
+            args = _ipa_inputs(B, L, dev, 60 + w, "train", width=w)
+            with torch.no_grad():
+                got = _launch_once(counter, lambda: cuda_ipa.fused_ipa2(*args), tag)
+                want = cuda_ipa.ipa2_plain(*args)
+            err = max([err] + [compare(f"{tag} train layout [{n}]", x, y, IPA_TOL, phase="widths")
+                               for n, x, y in zip(("o", "optl", "norm", "opair"), got, want)])
+        elif name.startswith("K8"):
+            err = compare_grads(tag, IPA_GRADS, got, plain(), call(), phase="widths")
         elif name == "K4":
             flat = lambda r: (r[0], r[1], *(r[2][k] for k in cuda_edge.PARAM_NAMES))
             err = compare_grads(tag, ("d_edge", "d_node") + cuda_edge.PARAM_NAMES, flat(got),
@@ -3094,9 +3171,9 @@ def _widths_kernels(card: str, w: int) -> dict:
         # The library's own count of the kernels it launched (each launch
         # accepted: cudaGetLastError 0); a profiler trace of these calls has
         # lost one of two launches of one name on the H100.
-        launched = native.function(counter, f"{counter}_wide_launches", [])
         before = launched()
-        call()
+        with torch.no_grad():
+            call()
         torch.cuda.synchronize()
         check(launched() - before == per_call, f"{tag}: {launched() - before} device kernels "
                                                f"a call, {per_call} by design")
@@ -3107,6 +3184,7 @@ def _widths_kernels(card: str, w: int) -> dict:
                       f"plain {1e3 * p_ms:.1f} us, bound {1e3 * bound:.1f} us by {by} "
                       f"({100 * bound / k_ms:.1f}% of bound) on {card}")
         rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+    del calls
     torch.cuda.empty_cache()
     return rows
 
@@ -3169,11 +3247,112 @@ def _widths_model(card: str, w: int, zero: dict) -> dict:
     torch.cuda.empty_cache()
     return {"K1": trained["edge_transition"], "K2": sampled["edge_transition"],
             "K3": sampled["distance_embed"], "K4": trained["edge_transition_bwd"],
-            "K5": trained["distance_embed_bwd"]}
+            "K5": trained["distance_embed_bwd"], **_widths_profiles(card, w, zero)}
+
+
+def write_width_config(w: int, **profile) -> str:
+    """configs/learn_angle_tpu.yaml at `w` times its widths (the JAX width
+    sweep's: c_s, c_hidden and the node embedding 128 w, c_z and the edge
+    embedding 64 w, 8 sequence-transformer heads) with the `profile` keys
+    (use_pallas_ipa, quant_int8), written to chiprun_out/; it must load as
+    ``bench.width_config(w, **profile)``."""
+    from pepflowww_torch.bench import width_config
+    from pepflowww_torch.config import load_config
+
+    name = "_".join(["learn_angle_tpu", f"w{w}", *sorted(k for k, v in profile.items() if v)])
+    path = write_config(name, encoder={"node_embed_size": 128 * w, "edge_embed_size": 64 * w},
+                        c_s=128 * w, c_z=64 * w, c_hidden=128 * w, seq_tfmr_num_heads=8, **profile)
+    want = width_config(w, **profile)
+    check(load_config(path) == want, f"{path} loads as {load_config(path)}, not {want}")
+    return path
+
+
+def _widths_profiles(card: str, w: int, zero: dict) -> dict:
+    """The fused-IPA and int8 serving profiles at width `w` through the
+    sample and train CLIs (in this process, so that the launches are
+    counted): the fused-IPA sampler (20 steps: K7 120, K2 100, K3 1), two
+    fused-IPA training steps (each K7 6, K8 6, K1 5, K4 5, K3 1, K5 1), the
+    int8 sampler (K6 100, K3 1), each with exactly those launches, finite
+    outputs and B PDBs; and one fused-IPA training step at L = 128 and a
+    quarter of the batch (K8's L > 64 path) with finite gradients. Returns
+    the launches of K6, K7 and K8 (L = 64 and 128)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pepflowww_torch import native, sample
+    from pepflowww_torch.bench import width_config
+    from pepflowww_torch.kernel_times import WIDTH_BATCHES
+    from pepflowww_torch.models.flow import draw_noise
+    from pepflowww_torch.profile_sampler import main_path_batch, production_model
+    from pepflowww_torch.training.train_step import loss_and_total
+    from pepflowww_torch.width_sweep import LOSS_WEIGHTS
+
+    dev, B = torch.device("cuda", 0), WIDTH_BATCHES[w]
+    ipa_yaml = write_width_config(w, use_pallas_ipa=True)
+    int8_yaml = write_width_config(w, quant_int8=True)
+    step = {"ipa2": 6, "ipa2_bwd": 6, "edge_transition": 5, "edge_transition_bwd": 5,
+            "distance_embed": 1, "distance_embed_bwd": 1}
+    sampled = {}
+    for tag, yaml_path, want in (
+            ("fused IPA", ipa_yaml, {**zero, "ipa2": 6 * WIDE_STEPS,
+                                     "edge_transition": 5 * WIDE_STEPS, "distance_embed": 1}),
+            ("int8", int8_yaml, {**zero, "edge_transition_int8": 5 * WIDE_STEPS,
+                                 "distance_embed": 1})):
+        out_dir = os.path.join(OUT_DIR, f"widths_{tag.replace(' ', '_')}_w{w}")
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sample.main(["--config", yaml_path, "--synthetic", "--num_steps", str(WIDE_STEPS),
+                           "--num_samples", str(B), "--max_complexes", "1", "--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sampled[tag] = launches = dict(native.LAUNCHES)
+        pdbs = [f for _, _, fs in os.walk(out_dir) for f in fs if f.endswith(".pdb")]
+        finite = all(np.isfinite(r[k]) for r in res["rows"] for k in r if k not in ("id", "sample"))
+        run = res["runs"][0]
+        say("widths", f"w={w} {tag} sample CLI, B={B} L={run['L']} {WIDE_STEPS} steps: "
+                      f"{run['peptides_per_s']:.2f} peptides/s on {card} ({wall:.1f} s with the "
+                      f"model's build); {len(pdbs)} PDBs, {len(res['rows'])} finite metric rows; "
+                      f"launches {launches}")
+        check(launches == want, f"widths w={w} {tag} sampler: launched {launches}, expected {want}")
+        check(len(pdbs) == B and len(res["rows"]) == B and finite,
+              f"widths w={w} {tag} sampler: {len(pdbs)} PDBs, rows finite {finite}")
+        shutil.rmtree(out_dir)   # the PDBs were checked; keeps chiprun_out/ small
+    logdir = os.path.join(OUT_DIR, f"widths_train_w{w}")
+    _train_cli(f"widths w={w} train CLI fused IPA", ipa_yaml,
+               ["--synthetic", "--max_iters", "2", "--batch_size", str(B), "--val_freq", "1000",
+                "--log_freq", "1", "--logdir", logdir],
+               {**zero, **{k: 2 * v for k, v in step.items()}})
+    shutil.rmtree(logdir)
+
+    # K8's L > 64 path: one step at L = 128.
+    Bl = max(1, B // 4)
+    model = production_model(dev, width_config(w, use_pallas_ipa=True)).train()
+    batch, _ = main_path_batch(dev, Bl, seed=7, complex_=(12, 116, 128))
+    noise = draw_noise(Bl, 128, torch.Generator(device=dev).manual_seed(8), dev)
+    for rep in range(2):   # the first builds the kernels' operands
+        model.zero_grad(set_to_none=True)
+        native.reset_launch_counts()
+        total, _ = loss_and_total(model, batch, dict(LOSS_WEIGHTS), noise=noise)
+        total.backward()
+        torch.cuda.synchronize()
+    long = dict(native.LAUNCHES)
+    say("widths", f"w={w} fused-IPA training step B={Bl} L=128: loss {float(total):.4f}, "
+                  f"launches {long}")
+    check(long == {**zero, **step}, f"widths w={w}: the L=128 step launched {long}")
+    missing = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(bool(torch.isfinite(total)) and not missing,
+          f"widths w={w}: the L=128 step's loss or gradients are not finite: {missing}")
+    del model
+    torch.cuda.empty_cache()
+    return {"K6": sampled["int8"]["edge_transition_int8"], "K7": sampled["fused IPA"]["ipa2"],
+            "K8": 2 * step["ipa2_bwd"], "K8 L=128": long["ipa2_bwd"]}
 
 
 def phase_widths(card: str) -> dict:
-    """K1-K5 and the flagship architecture at the JAX package's 2x, 4x and
+    """K1-K8 and the flagship architecture at the JAX package's 2x, 4x and
     8x widths: {kernel entry name: {width: measurements and launches}}."""
     from pepflowww_torch import native
 
@@ -3195,14 +3374,15 @@ def phase_widths(card: str) -> dict:
     return out
 
 
-def write_config(name: str, **ipa) -> str:
+def write_config(name: str, encoder=None, **ipa) -> str:
     """configs/learn_angle_tpu.yaml with the `ipa` keys set under
-    model.encoder.ipa, written to chiprun_out/<name>.yaml
-    (``profile_sampler.py --config`` reads it)."""
+    model.encoder.ipa and the `encoder` keys under model.encoder, written
+    to chiprun_out/<name>.yaml (``profile_sampler.py --config`` reads it)."""
     import yaml
 
     with open(os.path.join(ROOT, "configs", "learn_angle_tpu.yaml")) as f:
         raw = yaml.safe_load(f)
+    raw["model"]["encoder"].update(encoder or {})
     raw["model"]["encoder"]["ipa"].update(ipa)
     path = os.path.join(OUT_DIR, f"{name}.yaml")
     with open(path, "w") as f:

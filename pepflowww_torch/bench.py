@@ -153,13 +153,16 @@ def train_flops(model, b: dict, loss_weights: dict) -> float:
     return float(fc.get_total_flops())
 
 
-def width_config(width: int, num_blocks: int = 6, use_kernels: bool = True):
+def width_config(width: int, num_blocks: int = 6, use_kernels: bool = True,
+                 use_pallas_ipa: bool = False, quant_int8: bool = False):
     """The flagship architecture at `width` times its channel widths, the
     JAX package's ``tools/width_sweep.py`` configuration in the port's
     types: c_s, c_hidden and the node embedding 128 w, c_z and the edge
     embedding 64 w; 8 heads, 8 query and 12 value points at every width, 8
     sequence-transformer heads above 1x (4 at 1x); bf16 and, with
-    `use_kernels`, the hand-written kernels (the production profile)."""
+    `use_kernels`, the hand-written kernels (the production profile), with
+    `use_pallas_ipa` also the fused IPA interior (the fused-IPA profile),
+    with `quant_int8` the int8 EdgeTransition (the int8 serving profile)."""
     from pepflowww_torch.models.flow import FlowModelConfig
     from pepflowww_torch.models.trunk import IPAConfig
 
@@ -168,7 +171,8 @@ def width_config(width: int, num_blocks: int = 6, use_kernels: bool = True):
         ipa=IPAConfig(c_s=128 * width, c_z=64 * width, c_hidden=128 * width, no_heads=8,
                       no_qk_points=8, no_v_points=12,
                       seq_tfmr_num_heads=8 if width > 1 else 4, seq_tfmr_num_layers=2,
-                      num_blocks=num_blocks, dtype="bfloat16", use_pallas=use_kernels))
+                      num_blocks=num_blocks, dtype="bfloat16", use_pallas=use_kernels,
+                      use_pallas_ipa=use_pallas_ipa, quant_int8=quant_int8))
 
 
 def device_info(dev) -> dict:

@@ -202,19 +202,27 @@ TABLE = (
 
 
 def _wide_rows(w: int, B: int):
-    """K1-K5 at `w` times the flagship widths (c_z = F = 64 w, hidden 3 c_z,
-    readout 8 + c_z/4 lanes) at batch B, L = 64."""
+    """K1-K8 at `w` times the flagship widths (c_z = F = 64 w, hidden 3 c_z,
+    readout 8 + c_z/4 lanes; the IPA's C = 128 w, CZ4 = 16 w) at batch B, L =
+    64, and K8 also at L = 128 and half the batch."""
     cz, shape = 64 * w, f"B={B} L=64 ({w}x, width sweep)"
     edge = dict(B=B, L=64, cz=cz, hid=3 * cz, cb=cz)
+    ipa = dict(C=128 * w, cz4=16 * w)
     return (("K1", "EdgeTransition forward, readout off", shape, edge_bound_ms, {**edge, "n_ro": 0}),
             ("K2", "EdgeTransition forward with readout", shape, edge_bound_ms,
              {**edge, "n_ro": 8 + cz // 4}),
             ("K3", "distance embedding forward", shape, dist_bound_ms, dict(B=B, L=64, f=cz)),
             ("K4", "EdgeTransition backward", shape, edge_bwd_bound_ms, edge),
-            ("K5", "distance embedding backward", shape, dist_bwd_bound_ms, dict(B=B, L=64, f=cz)))
+            ("K5", "distance embedding backward", shape, dist_bwd_bound_ms, dict(B=B, L=64, f=cz)),
+            ("K6", "int8 EdgeTransition with readout", shape, edge_int8_bound_ms,
+             {**edge, "n_ro": 8 + cz // 4}),
+            ("K7", "IPA v2 interior forward", shape, ipa2_bound_ms, dict(B=B, L=64, **ipa)),
+            ("K8", "IPA v2 interior backward", shape, ipa2_bwd_bound_ms, dict(B=B, L=64, **ipa)),
+            ("K8", "IPA v2 interior backward", f"B={B // 2} L=128 ({w}x, L > 64)",
+             ipa2_bwd_bound_ms, dict(B=B // 2, L=128, **ipa)))
 
 
-#: K1-K5 at the JAX package's 2x, 4x and 8x widths, at the width sweep's
+#: K1-K8 at the JAX package's 2x, 4x and 8x widths, at the width sweep's
 #: batches (tools/width_sweep.py: 64, 32 and 8).
 TABLE += sum((_wide_rows(w, B) for w, B in ((2, 64), (4, 32), (8, 8))), ())
 

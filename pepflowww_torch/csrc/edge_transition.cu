@@ -88,42 +88,6 @@ extern "C" int edge_transition_forward(
 
 namespace wide {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
-// One warp a pair row: LayerNorm of o (float32 statistics), the pair mask,
-// bf16.
-template <int NQ>
-__global__ void __launch_bounds__(256)
-wide_ln_fwd_kernel(const float* __restrict__ o, const float* __restrict__ ln_s,
-                   const float* __restrict__ ln_b, const float* __restrict__ mask,
-                   bf16* __restrict__ out, int M, int L, float eps) {
-  constexpr int CZ = NQ * 32;
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (r >= M) return;
-  const float* row = o + (long long)r * CZ;
-  float v[NQ], s = 0.f;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    v[q] = row[lane + 32 * q];
-    s += v[q];
-  }
-  const float mu = warp_sum(s) / CZ;
-  float ss = 0.f;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) ss += (v[q] - mu) * (v[q] - mu);
-  const float inv = rsqrtf(warp_sum(ss) / CZ + eps);
-  const float m = mask[src_row(NODE_I, r, L)] * mask[src_row(NODE_J, r, L)];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int c = lane + 32 * q;
-    out[(long long)r * CZ + c] = __float2bfloat16(((v[q] - mu) * inv * ln_s[c] + ln_b[c]) * m);
-  }
-}
-
 static int edge_forward(const void* edge, const void* node, const void* mask, const void* wn,
                         const void* w1t, const void* b1, const void* w2t, const void* b2,
                         const void* w3t, const void* b3, const void* ln_s, const void* ln_b,
@@ -166,16 +130,7 @@ static int edge_forward(const void* edge, const void* node, const void* mask, co
   WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(h2, hid), seg(edge, cz, hid)),
                                        opd(seg(w3t, hid), seg(w3t, hid, hid)), M, cz, hid + cz,
                                        0, L, e, st)));
-  const int blocks = (int)((total * 32 + 255) / 256);
-  const float* of = static_cast<const float*>(o);
-  const float* s = static_cast<const float*>(ln_s);
-  const float* bb = static_cast<const float*>(ln_b);
-  const float* mk = static_cast<const float*>(mask);
-  bf16* ob = static_cast<bf16*>(out);
-  if (cz == 128) wide_ln_fwd_kernel<4><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  else if (cz == 256) wide_ln_fwd_kernel<8><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  else wide_ln_fwd_kernel<16><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  WIDE_TRY(launched());
+  WIDE_TRY(ln_forward(o, ln_s, ln_b, mask, out, M, L, cz, eps, st));
   if (b_out == nullptr) return 0;
   e = Epi{};
   e.bias = static_cast<const float*>(bro);

@@ -897,12 +897,6 @@ extern "C" int edge_transition_backward(
 
 namespace wide {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
 constexpr int LN_WARPS = 4, LN_ROWS = 32;   // rows of a warp; a block's rows: 128
 
 // LayerNorm backward, one warp a pair row: do = bf16((dy - mean(dy) - y

@@ -21,11 +21,15 @@ calls, so that the host's per-call overhead does not pace the device), the
 kernels it launches a call and the bound of ``pepflowww_torch.bounds``,
 with the card's name and power limit.
 
-``--widths 2,4,8`` times instead K1-K5 (the EdgeTransition forward
-without and with the readout, the distance block forward, both backwards)
-at those multiples of the flagship widths (c_z = F = 64 w, hidden 3 c_z,
-readout 8 + c_z/4 lanes), each at the width sweep's batch (B = 64, 32, 8 at
-w = 2, 4, 8; L = 64; :data:`WIDTH_BATCHES`), with the same lines.
+``--widths 2,4,8`` times instead K1-K8 (the EdgeTransition forward
+without and with the readout, the distance block forward, both backwards,
+the int8 EdgeTransition with the readout, the fused IPA forward in the
+sampler's layouts and its backward in training's) at those multiples of
+the flagship widths (c_z = F = 64 w, hidden 3 c_z, readout 8 + c_z/4
+lanes; the IPA's C = 128 w, CZ4 = 16 w), each at the width sweep's batch
+(B = 64, 32, 8 at w = 2, 4, 8; L = 64; :data:`WIDTH_BATCHES`), and K8 also
+at L = 128 and half that batch (the training step's longer bucket), with
+the same lines.
 
 With ``--trees`` each directory (a checkout, or an unpacked ``git archive``,
 holding ``pepflowww_torch/``) is timed in a process of its own that imports
@@ -49,7 +53,7 @@ H, C, PQ, PV, CZ4 = 8, 128, 8, 12, 16
 KERNELS = ("ipa2_bwd", "ipa2", "ipa1")
 #: The width sweep's batch at each width (tools/width_sweep.py's), at L = 64.
 WIDTH_BATCHES = {1: 64, 2: 64, 4: 32, 8: 8}
-WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5")
+WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K8 L=128")
 
 
 def _randn(*shape, seed, scale=1.0):
@@ -58,12 +62,14 @@ def _randn(*shape, seed, scale=1.0):
     return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)) * scale
 
 
-def train_inputs(B, L, dev, seed):
+def train_inputs(B, L, dev, seed, width=1):
     """The backward's inputs as the training step passes them (bf16 where
     the model feeds bf16, random rotations, ~15% of the keys masked) and
-    the cotangents of the forward's four outputs."""
+    the cotangents of the forward's four outputs, at `width` times the
+    flagship C and CZ4."""
     import torch
 
+    C, CZ4 = 128 * width, 16 * width
     r = lambda *s, sc=1.0, k=0: _randn(*s, seed=seed + k, scale=sc).to(dev)
     bf = torch.bfloat16
     R = torch.linalg.qr(r(B, L, 3, 3, k=1))[0]
@@ -78,12 +84,12 @@ def train_inputs(B, L, dev, seed):
     return args, cots
 
 
-def sampler_inputs(B, L, dev, seed):
+def sampler_inputs(B, L, dev, seed, width=1):
     """K7's inputs in the sampler's layouts: the pair bias (B, H, L, L), the
     pair readout a view of the EdgeTransition epilogue's (B, CZ4, L, L)."""
-    args, _ = train_inputs(B, L, dev, seed)
+    args, _ = train_inputs(B, L, dev, seed, width)
     r = lambda *s, k: _randn(*s, seed=seed + k).to(dev).bfloat16()
-    args[6], args[7] = r(B, H, L, L, k=4), r(B, CZ4, L, L, k=5).permute(0, 2, 3, 1)
+    args[6], args[7] = r(B, H, L, L, k=4), r(B, CZ4 * width, L, L, k=5).permute(0, 2, 3, 1)
     return args
 
 
@@ -101,20 +107,23 @@ def v1_inputs(B, L, dev, seed):
 
 
 def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
-    """K1-K5 at `width` times the flagship widths on seeded inputs: {name:
+    """K1-K8 at `width` times the flagship widths on seeded inputs: {name:
     (kernel call, plain call, (bound ms, bound_by), device launches a call,
-    the registry's name)}. The EdgeTransition's edge, node bias and
-    cotangent bf16 with ~10% of the residues masked, weights N(0, 1/fan_in),
-    the readout the next block's 8 heads and c_z/4 channels; the distance
-    block on the main path's synthetic complexes (a 48-residue pocket and a
-    12-residue peptide) with a N(0, 1) table."""
+    the registry's name, the library's count of the device kernels it has
+    launched)}. The EdgeTransition's edge, node bias and cotangent bf16 with
+    ~10% of the residues masked, weights N(0, 1/fan_in), the readout the
+    next block's 8 heads and c_z/4 channels (K6 the same, with the
+    readout); the distance block on the main path's synthetic complexes (a
+    48-residue pocket and a 12-residue peptide) with a N(0, 1) table; the
+    IPA's inputs of :func:`sampler_inputs` (K7) and :func:`train_inputs`
+    (K8, also at L = 128 and B / 2: "K8 L=128")."""
     import numpy as np
     import torch
 
     from pepflowww_torch import bounds, native
     from pepflowww_torch.data.collate import device_batch
     from pepflowww_torch.data.synthetic import make_batch
-    from pepflowww_torch.models import cuda_dist, cuda_edge
+    from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 
     cz, bf = 64 * width, torch.bfloat16
     hid, n_ro = 3 * cz, 8 + cz // 4
@@ -135,8 +144,16 @@ def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
     pd = {"table": r(484, 225, k=16), "k1": r(225, cz, sc=0.07, k=17), "b1": r(cz, sc=0.1, k=18),
           "k2": r(cz, cz, sc=cz ** -0.5, k=19), "b2": r(cz, sc=0.1, k=20)}
     dops, gd = cuda_dist.kernel_operands(pd), r(B, L, L, cz, k=21).to(bf)
+    ops_i8 = cuda_edge.kernel_operands(p, ro, quant_int8=True)
+    fwd = sampler_inputs(B, L, dev, seed + 30, width)
+    B2 = max(1, B // 2)
+    bwd = ((B, train_inputs(B, L, dev, seed + 31, width)),
+           (B2, train_inputs(B2, 128, dev, seed + 32, width)))
+    ipa = dict(C=128 * width, cz4=16 * width)
     per_call = lambda lib, fn, *a: native.function(lib, fn, [ctypes.c_int] * len(a))(*a)
-    return {
+    k8 = lambda args, cots: lambda: cuda_ipa.ipa2_bwd(*args, *cots)
+    k8p = lambda args, cots: lambda: cuda_ipa.ipa2_bwd_plain(*args, *cots)
+    calls = {
         "K1": (lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, ops=ops),
                lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, bf),
                bounds.edge_bound_ms(B, L, cz, hid, cz, n_ro=0),
@@ -162,22 +179,45 @@ def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
                lambda: cuda_dist.distance_embed_bwd_plain(*dargs, pd, gd, bf),
                bounds.dist_bwd_bound_ms(B, L, f=cz),
                per_call("distance_embed_bwd", "distance_embed_wide_bwd_kernels_per_call"),
-               "distance_embed_bwd")}
+               "distance_embed_bwd"),
+        "K6": (lambda: cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=ro,
+                                                            ops=ops_i8),
+               lambda: cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, bf, ro),
+               bounds.edge_int8_bound_ms(B, L, cz, hid, cz, n_ro=n_ro),
+               per_call("edge_transition_int8", "edge_transition_int8_wide_kernels_per_call", 1),
+               "edge_transition_int8"),
+        "K7": (lambda: cuda_ipa.fused_ipa2(*fwd), lambda: cuda_ipa.ipa2_plain(*fwd),
+               bounds.ipa2_bound_ms(B, L, **ipa),
+               per_call("ipa2_wide", "ipa2_wide_kernels_per_call", 0), "ipa2")}
+    for n, (b, (args, cots)) in zip(("K8", "K8 L=128"), bwd):
+        calls[n] = (k8(args, cots), k8p(args, cots),
+                    bounds.ipa2_bwd_bound_ms(b, args[0].shape[1], **ipa),
+                    per_call("ipa2_wide", "ipa2_wide_kernels_per_call", 1), "ipa2_bwd")
+
+    def launched(name):
+        """The count of device kernels launched by the library behind `name`."""
+        if name.startswith("ipa2"):
+            return native.function("ipa2_wide", "ipa2_wide_launches", [])
+        return native.function(name, f"{name}_wide_launches", [])
+
+    return {n: (*c, launched(c[4])) for n, c in calls.items()}
 
 
 def time_widths(widths):
-    """[(width, B, kernel, us a call, launches a call, bound us, bound_by)]
-    of K1-K5 at each of `widths`, at the sweep's batch."""
+    """[(width, B, L, kernel, us a call, launches a call, bound us,
+    bound_by)] of K1-K8 at each of `widths`, at the sweep's batch (K8 also
+    at L = 128, half the batch)."""
     import torch
 
     dev = torch.device("cuda", 0)
     rows = []
     for w in widths:
         B = WIDTH_BATCHES[w]
-        for name, (call, _, (bound, by), per_call, _) in wide_calls(w, B, dev, 40 + w).items():
+        for name, (call, _, (bound, by), per_call, *_) in wide_calls(w, B, dev, 40 + w).items():
             with torch.no_grad():
                 ms = device_ms(call)
-            rows.append((w, B, name, 1e3 * ms, per_call, 1e3 * bound, by))
+            b, L = (max(1, B // 2), 128) if name == "K8 L=128" else (B, 64)
+            rows.append((w, b, L, name.split()[0], 1e3 * ms, per_call, 1e3 * bound, by))
         torch.cuda.empty_cache()
     return rows
 
@@ -264,8 +304,9 @@ def main(argv=None) -> None:
         sys.exit("CUDA is not available: kernel_times measures the device")
     print(f"card: {card_line()}", flush=True)
     if args.widths:
-        for w, B, name, us, n, bound, by in time_widths([int(x) for x in args.widths.split(",")]):
-            print(f"w={w} B={B} L=64 {name}: {us:.1f} us a call ({n} launches), bound "
+        for w, B, L, name, us, n, bound, by in time_widths([int(x) for x in
+                                                            args.widths.split(",")]):
+            print(f"w={w} B={B} L={L} {name}: {us:.1f} us a call ({n} launches), bound "
                   f"{bound:.1f} us ({by}), {100 * bound / us:.1f}% of it", flush=True)
         return
     if not args.trees:

@@ -19,7 +19,10 @@ forward-only, as in the JAX package. Its kernel (K6) shares the bf16
 kernel's tile loop (csrc/edge_transition.cuh) and quantizes the hidden rows
 in registers, feeding them to the int8 products in the order they lie
 there; so the int8 weights it reads have their K axis permuted by
-:data:`INT8_K_PERM`.
+:data:`INT8_K_PERM`. From c_z 128 on it is the wide design's sequence of
+launches (csrc/edge_transition_int8.cu ``edge_transition_int8_wide_forward``:
+the hidden rows in fp32 scratch, a row kernel to quantize them, the int8
+products on csrc/wide_gemm.cuh's GEMM), whose int8 weights are unpermuted.
 
 The backward (:func:`edge_transition_bwd`) takes the same inputs and the
 output's cotangent ``g`` and returns d_edge, d_node_bias and the eight
@@ -33,7 +36,7 @@ c_z = 128, 256, 512 (node bias c_z, hidden 3 c_z, at most 8 + c_z/4
 readout lanes: the next block's H = 8 heads and c_z/4 pair channels), each
 read from the operands; at the wider ones their ``*_wide_*`` entry points
 run the tiled-GEMM design of csrc/wide_gemm.cuh. Any other width raises
-(:func:`check_widths`). The int8 kernel (K6) takes c_z = 64 only.
+(:func:`check_widths`). The int8 kernel (K6) takes the same widths.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
 (csrc/edge_transition.cu, csrc/edge_transition_int8.cu,
@@ -62,6 +65,9 @@ _INT8_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float, 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_wide_forward: 21 pointers, B, L, cz, n_b, n_pz, ro_pad, eps, stream.
 _WIDE_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# edge_transition_int8_wide_forward: 25 pointers, B, L, cz, n_b, n_pz, ro_pad, eps, stream.
+_INT8_WIDE_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
 # edge_transition_wide_backward: 40 pointers, B, L, cz, ks1, ks2, ks3, d_edge_f32, eps, stream.
 _WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 40 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                     ctypes.c_void_p]
@@ -173,10 +179,12 @@ INT8_K_PERM = _int8_k_perm()
 
 
 def _int_product(q, wq):
-    """q . wq of int8 values as a float32 matmul of the integers: exact,
-    since |sum| <= 192 * 127 * 127 < 2^24 (float32 products in full float32,
-    no TF32)."""
-    return q.float() @ wq.float()
+    """q . wq of int8 values, the int32 sum rounded to float32 as the
+    kernels' (and the JAX kernel's) conversion rounds it: a float64 matmul
+    of the integers is exact at every hidden width (|sum| <= 1536 * 127 *
+    127 < 2^53; a float32 one would be exact only below 2^24, which the 8x
+    hidden width of 1536 passes at 24.8 M)."""
+    return (q.double() @ wq.double()).float()
 
 
 def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.bfloat16,
@@ -213,15 +221,13 @@ def check_widths(cz: int, cb: int, hid: int, n_ro: Optional[int] = None,
     kernels) or 128, 256, 512 (the wide ones), a c_z-wide node bias, hidden
     3 c_z, and with a readout at most 32 lanes at c_z 64 and 8 + c_z/4 from
     128 on (the next block's heads and down_z channels); the int8 kernel
-    takes c_z 64 only."""
+    (`quant_int8`) takes the same widths."""
     if cz != CZ and cz not in WIDE_CZ:
         raise ValueError(f"c_z = {cz} is not supported by the EdgeTransition kernels (64, 128, "
                          "256 or 512)")
     if cb != cz or hid != 3 * cz:
         raise ValueError(f"node bias {cb} and hidden {hid} wide at c_z = {cz}: the EdgeTransition "
                          f"kernels take a node bias of c_z and a hidden width of 3 c_z = {3 * cz}")
-    if quant_int8 and cz != CZ:
-        raise ValueError(f"the int8 EdgeTransition kernel takes c_z = 64 only, not {cz}")
     if n_ro is not None:
         most = RO if cz == CZ else 8 + cz // 4
         if n_ro > most:
@@ -247,9 +253,10 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
 
     At c_z 128, 256, 512 the wide kernels also take wn, the node rows of k1
     and k3 transposed ([W1i | W1j | W3i | W3j]^T, (2 hid + 2 c_z, c_z)), the
-    backward's k1b, k2b, k3b (the bf16 weights as stored, [in, out]), and
-    the readout padded to a multiple of 64 lanes, wrt (lanes, c_z).
-    Unsupported widths raise (:func:`check_widths`)."""
+    backward's k1b, k2b, k3b (the bf16 weights as stored, [in, out]; not
+    with `quant_int8`, which is forward-only), and the readout padded to a
+    multiple of 64 lanes, wrt (lanes, c_z); the int8 weights w2qt, w3qt are
+    not permuted there. Unsupported widths raise (:func:`check_widths`)."""
     bf = torch.bfloat16
     cz, cb, hid = _param_widths(p)
     n_ro = None if readout is None else readout[0].shape[1] + readout[2].shape[1]
@@ -259,16 +266,16 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "3")})
         for k in ("2", "3"):
             q, scale = quant_cols(p[f"k{k}"])
-            perm = INT8_K_PERM.to(q.device)
-            ops.update({f"w{k}qt": q.t()[:, perm].contiguous(),
-                        f"w{k}s": scale.reshape(-1).contiguous()})
+            qt = q.t()[:, INT8_K_PERM.to(q.device)] if cz == CZ else q.t()
+            ops.update({f"w{k}qt": qt.contiguous(), f"w{k}s": scale.reshape(-1).contiguous()})
     else:
         ops.update({f"w{k}t": p[f"k{k}"].to(bf).t().contiguous() for k in ("1", "2", "3")})
     if cz != CZ:
         k1, k3 = p["k1"].to(bf), p["k3"].to(bf)
         ops["wn"] = torch.cat([k1[cz:2 * cz].t(), k1[2 * cz:].t(), k3[cz:2 * cz].t(),
                                k3[2 * cz:].t()]).contiguous()
-        ops.update({f"k{k}b": p[f"k{k}"].to(bf).contiguous() for k in ("1", "2", "3")})
+        if not quant_int8:
+            ops.update({f"k{k}b": p[f"k{k}"].to(bf).contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
@@ -295,7 +302,9 @@ def _wide_operands(cz: int, lanes: int = 0) -> dict:
             "w1t": ((hid, hid), bf), "w2t": ((hid, hid), bf), "w3t": ((cz, hid), bf),
             "wn": ((2 * hid + 2 * cz, cz), bf), "k1b": ((hid, hid), bf),
             "k2b": ((hid, hid), bf), "k3b": ((hid, cz), bf),
-            "wrt": ((lanes, cz), bf), "bro": ((lanes,), f32)}
+            "wrt": ((lanes, cz), bf), "bro": ((lanes,), f32),
+            "w2qt": ((hid, hid), torch.int8), "w2s": ((hid,), f32),
+            "w3qt": ((cz, hid), torch.int8), "w3s": ((cz,), f32)}
 
 
 def _check_ops(ops: dict, names, shapes: dict, hint: str) -> None:
@@ -334,8 +343,12 @@ def fused_edge_transition_int8(edge, node_bias, node_mask, p: dict, dtype=torch.
                            hint=INT8_HINT)
     if edge.device.type == "cpu":
         return edge_transition_int8_plain(edge, node_bias, node_mask, p, dtype, readout, eps)
+    cz = edge.shape[-1]
+    check_widths(cz, node_bias.shape[-1], p["k1"].shape[1], quant_int8=True)
     if ops is None:
         ops = kernel_operands(p, readout, quant_int8=True)
+    if cz != CZ:
+        return _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps, quant_int8=True)
     return _launch("edge_transition_int8", _INT8_ARGTYPES, edge, node_bias, node_mask, dtype,
                    readout, ops, eps,
                    ("w1t", "b1", "w2qt", "w2s", "b2", "w3t", "w3qt", "w3s", "b3", "ln_scale",
@@ -397,10 +410,12 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
     return out, b_out, pz_out
 
 
-def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps):
+def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps, quant_int8=False):
     """K1/K2 at c_z 128, 256, 512: csrc/edge_transition.cu's
     ``edge_transition_wide_forward`` (six device launches with the readout,
-    five without), counted as one launch of the kernel."""
+    five without), counted as one launch of the kernel; with `quant_int8`,
+    K6: csrc/edge_transition_int8.cu's ``edge_transition_int8_wide_forward``
+    (nine device launches with the readout, eight without)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
     B, L, _, cz = edge.shape
@@ -411,14 +426,27 @@ def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps):
     native.check_tensor(node_bias, "node_bias", (B, L, cz), bf)
     lanes = ops["wrt"].shape[0] if readout is not None and "wrt" in ops else 0
     shapes = _wide_operands(cz, lanes)
-    weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias")
-    _check_ops(ops, weights, shapes, "kernel_operands(p, readout)")
+    if quant_int8:
+        name, entry, argtypes = ("edge_transition_int8", "edge_transition_int8_wide_forward",
+                                 _INT8_WIDE_ARGTYPES)
+        weights = ("wn", "w1t", "b1", "w2qt", "w2s", "b2", "w3t", "w3qt", "w3s", "b3", "ln_scale",
+                   "ln_bias")
+    else:
+        name, entry, argtypes = ("edge_transition", "edge_transition_wide_forward",
+                                 _WIDE_ARGTYPES)
+        weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias")
+    _check_ops(ops, weights, shapes, f"kernel_operands(p, readout, quant_int8={quant_int8})")
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
     empty = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=dev)
     out = empty(B, L, L, cz)
-    scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(B * L * L, hid),
-               empty(B * L * L, hid), empty(B * L * L, cz, dt=f32)]
+    M = B * L * L
+    if quant_int8:   # y, h (fp32 hidden rows), q (int8), row scales, o
+        scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(M, hid, dt=f32),
+                   empty(M, hid, dt=torch.int8), empty(M, dt=f32), empty(M, cz, dt=f32)]
+    else:
+        scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(M, hid), empty(M, hid),
+                   empty(M, cz, dt=f32)]
     if readout is not None:
         if "wrt" not in ops:
             raise ValueError("readout requested but ops were made without it")
@@ -430,12 +458,12 @@ def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps):
     else:
         n_b = n_pz = 0
         ro, outs = [None, None], [out.data_ptr(), None, None]
-    fn = native.function("edge_transition", "edge_transition_wide_forward", _WIDE_ARGTYPES)
+    fn = native.function(name, entry, argtypes)
     ins = [edge, node_bias, mask] + [ops[k] for k in weights]
     rc = fn(*[t.data_ptr() for t in ins], *ro, *[t.data_ptr() for t in scratch], *outs, B, L, cz,
             n_b, n_pz, lanes, eps, torch.cuda.current_stream(dev).cuda_stream)
-    native.check(rc, "edge_transition")
-    native.count_launch("edge_transition")
+    native.check(rc, name)
+    native.count_launch(name)
     if readout is None:
         return out
     return out, b_out, pz_out

@@ -32,8 +32,12 @@ runs the forward and that backward under autograd; the bare forward wrapper
 has no autograd and raises when asked to record one.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
-(csrc/ipa2.cu, csrc/ipa2_bwd.cu: bf16 inputs, C 128, Pq 8, Pv 12, CZ4 16)
-or raises.
+or raises: bf16 inputs, H 8, Pq 8, Pv 12, and C 128 with CZ4 16 (the
+flagship widths: csrc/ipa2.cu, csrc/ipa2_bwd.cu) or the JAX package's 2x,
+4x and 8x widths, C 256, 512 or 1024 with CZ4 32, 64 or 128
+(csrc/ipa2_wide.cu: batched GEMMs of csrc/wide_gemm.cuh around row, pair
+and column kernels, the (B, H, L, L) attention in device memory between
+them; L up to :data:`WIDE_MAX_L`).
 """
 
 from __future__ import annotations
@@ -45,7 +49,12 @@ import torch
 
 from pepflowww_torch import native
 
-C_K, PQ_K, PV_K, CZ4_K = 128, 8, 12, 16   # the widths the kernels take
+C_K, PQ_K, PV_K, CZ4_K = 128, 8, 12, 16   # the widths the 1x kernels take
+H_K = 8
+WIDE_C = (256, 512, 1024)     # the wide kernels' C (the JAX package's 2x, 4x, 8x) ...
+WIDE_CZ4 = (32, 64, 128)      # ... and pair channels
+WIDE_MAX_L = 4096             # the wide kernels' longest L (ipa2_wide_max_length)
+WIDE_POINT_RECORD = 88        # floats of a (b, h, l) global-point record
 # The backward (csrc/ipa2_bwd.cu) runs two kernels for L <= TILE, with only
 # the heads' (B, H, L, 12) frame-gradient partials as scratch; otherwise three
 # kernels over TILE-row tiles with O(L) scratch: the query rows' statistics,
@@ -60,6 +69,12 @@ _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + \
 # strides, B, L, H, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.POINTER(ctypes.c_longlong)] + \
     [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+# ipa2_wide_forward: 10 inputs, 3 scratch, 4 outputs, strides, B, L, C, cz4, eps, stream.
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.POINTER(ctypes.c_longlong)] + \
+    [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# ipa2_wide_backward: 14 inputs, 12 scratch, 9 outputs, strides, B, L, C, cz4, eps, stream.
+_WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 35 + [ctypes.POINTER(ctypes.c_longlong)] + \
+    [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _dims(q, qp, kvp):
@@ -191,26 +206,46 @@ def ipa2_bwd_plain(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm,
 
 
 # ---------------------------------------------------------------- kernels
+def check_widths(H: int, C: int, Pq: int, Pv: int, cz4: int) -> bool:
+    """Raise unless the kernels take these widths; True for the wide
+    kernels' (C 256, 512, 1024 with CZ4 32, 64, 128), False for the 1x
+    ones' (C 128, CZ4 16), both at H 8, Pq 8, Pv 12."""
+    wide = C in WIDE_C and cz4 in WIDE_CZ4
+    if (H, Pq, Pv) != (H_K, PQ_K, PV_K) or not (wide or (C, cz4) == (C_K, CZ4_K)):
+        raise ValueError(f"the IPA kernels take H={H_K}, Pq={PQ_K}, Pv={PV_K} with C={C_K}, "
+                         f"CZ4={CZ4_K} or C in {WIDE_C}, CZ4 in {WIDE_CZ4}; got H={H}, C={C}, "
+                         f"Pq={Pq}, Pv={Pv}, CZ4={cz4}")
+    return wide
+
+
 def _check_widths(q, qp, kvp, pz):
+    """(H, C, CZ4, wide) of the inputs, or raise."""
     H, C, Pq, Pv = _dims(q, qp, kvp)
-    if (C, Pq, Pv, pz.shape[-1]) != (C_K, PQ_K, PV_K, CZ4_K) or q.shape[-1] != H * C:
-        raise ValueError(f"the IPA kernels take C={C_K}, Pq={PQ_K}, Pv={PV_K}, CZ4={CZ4_K}; "
-                         f"got C={C}, Pq={Pq}, Pv={Pv}, CZ4={pz.shape[-1]}")
-    return H
+    if q.shape[-1] != H * C:
+        raise ValueError(f"q is {q.shape[-1]} wide, not a multiple of H={H}")
+    wide = check_widths(H, C, Pq, Pv, pz.shape[-1])
+    if wide and q.shape[1] > WIDE_MAX_L:
+        raise ValueError(f"L = {q.shape[1]}: the wide IPA kernels take L <= {WIDE_MAX_L}")
+    return H, C, pz.shape[-1], wide
 
 
-def _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw):
-    """Check what the kernels read; returns (H, inputs, strides)."""
-    H = _check_widths(q, qp, kvp, pz)
+def _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, pz_rows=False):
+    """Check what the kernels read; returns (H, C, CZ4, wide, inputs,
+    strides). With `pz_rows` (the 1x backward) pz comes as each pair's
+    channels in a row (:func:`_pairs_by_rows`); the wide kernels read any
+    layout through its strides."""
+    H, C, cz4, wide = _check_widths(q, qp, kvp, pz)
+    if pz_rows and not wide:
+        pz = _pairs_by_rows(pz)
     B, L = q.shape[:2]
     bf, f32 = torch.bfloat16, torch.float32
-    native.check_tensor(q, "q", (B, L, H * C_K), bf)
-    native.check_tensor(kv, "kv", (B, L, 2 * H * C_K), bf)
+    native.check_tensor(q, "q", (B, L, H * C), bf)
+    native.check_tensor(kv, "kv", (B, L, 2 * H * C), bf)
     # The kernels read these four through their strides: views pass as they are.
     native.check_tensor(qp, "qp", (B, H, 3, L, PQ_K), bf, contiguous=False)
     native.check_tensor(kvp, "kvp", (B, H, 3, L, PQ_K + PV_K), bf, contiguous=False)
     native.check_tensor(bias, "bias", (B, H, L, L), bf, contiguous=False)
-    native.check_tensor(pz, "pz", (B, L, L, CZ4_K), bf, contiguous=False)
+    native.check_tensor(pz, "pz", (B, L, L, cz4), bf, contiguous=False)
     r9, t = r9.to(f32).contiguous(), t.to(f32).contiguous()
     maskb, sw = maskb.to(f32).contiguous(), sw.to(f32).contiguous()
     native.check_tensor(r9, "r9", (B, L, 9), f32)
@@ -218,7 +253,30 @@ def _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw):
     native.check_tensor(maskb, "maskb", (B, 1, L), f32)
     native.check_tensor(sw, "sw", (1, H), f32)
     strides = _LAYOUT(*qp.stride(), *kvp.stride(), *bias.stride(), *pz.stride())
-    return H, [q, kv, qp, kvp, r9, t, bias, pz, maskb, sw], strides
+    return H, C, cz4, wide, [q, kv, qp, kvp, r9, t, bias, pz, maskb, sw], strides
+
+
+def wide_scratch(B: int, L: int, C: int, backward: bool) -> dict:
+    """The wide kernels' scratch at these sizes (H 8): name -> (shape,
+    dtype), in the entry points' order. Lp = L rounded up to 8 is the row
+    length of the (B, H, L, L) matrices: the GEMMs read their bf16 copies in
+    16-byte chunks and write fp32 pairs."""
+    H, Lp, f32, bf = H_K, -(-L // 8) * 8, torch.float32, torch.bfloat16
+    bhl = (B * H * L,)
+    out = {"P": ((B * H * L, WIDE_POINT_RECORD), f32), "S": ((B * H * L, Lp), f32)}
+    if backward:
+        out.update(G=((B * H * L, Lp), f32), gob=((B, L, H * C), bf))
+    out["ac"] = ((B * H, Lp, Lp), bf)
+    if backward:
+        out.update(gsc=((B * H, Lp, Lp), bf), gsct=((B * H, Lp, Lp), bf),
+                   GO=((B * H * L, 3 * PV_K), f32), RTq=((B * H * L, 12), f32),
+                   RTk=((B * H * L, 12), f32), SWq=(bhl, f32), SWk=(bhl, f32))
+    return out
+
+
+def _wide_scratch(B, L, C, backward, dev):
+    return [torch.empty(*shape, dtype=dt, device=dev)
+            for shape, dt in wide_scratch(B, L, C, backward).values()]
 
 
 def _pairs_by_rows(pz):
@@ -243,14 +301,19 @@ def fused_ipa2(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, eps: float = 1e-8):
 def _forward(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, eps=1e-8):
     if q.device.type == "cpu":
         return ipa2_plain(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, eps)
-    H, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw)
+    H, C, cz4, wide, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw)
     B, L = q.shape[:2]
     empty = lambda *s: torch.empty(*s, dtype=torch.float32, device=q.device)
-    outs = [empty(B, L, H * C_K), empty(B, L, 3 * H * PV_K), empty(B, L, H * PV_K),
-            empty(B, L, H * CZ4_K)]
-    fn = native.function("ipa2", "ipa2_forward", _ARGTYPES)
-    rc = fn(*[x.data_ptr() for x in ins + outs], strides, B, L, H, eps,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    outs = [empty(B, L, H * C), empty(B, L, 3 * H * PV_K), empty(B, L, H * PV_K),
+            empty(B, L, H * cz4)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if wide:   # K7 at 2x-8x: csrc/ipa2_wide.cu's five launches, counted as one call
+        fn = native.function("ipa2_wide", "ipa2_wide_forward", _WIDE_ARGTYPES)
+        scratch = _wide_scratch(B, L, C, False, q.device)
+        rc = fn(*[x.data_ptr() for x in ins + scratch + outs], strides, B, L, C, cz4, eps, stream)
+    else:
+        fn = native.function("ipa2", "ipa2_forward", _ARGTYPES)
+        rc = fn(*[x.data_ptr() for x in ins + outs], strides, B, L, H, eps, stream)
     native.check(rc, "ipa2")
     native.count_launch("ipa2")
     return tuple(outs)
@@ -261,34 +324,44 @@ def ipa2_bwd(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm, gopai
     """Gradients of the IPA interior for the cotangents of its four outputs:
     (gq, gkv, gqp, gkvp, gr9, gt, gbias, gpz, gsw (B, H)), float32, in the
     inputs' shapes. CPU tensors run :func:`ipa2_bwd_plain`; CUDA tensors run
-    the backward kernels or raise: two for L <= TILE, else three, none with
-    (B, H, L, L) scratch. Two calls on the same inputs give bit-identical
+    the backward kernels or raise: at the 1x widths two for L <= TILE, else
+    three, none with (B, H, L, L) scratch; at the wide widths twelve
+    (csrc/ipa2_wide.cu). Two calls on the same inputs give bit-identical
     results: sums across blocks are per-block partials added in a fixed
     order, not atomics."""
     if q.device.type == "cpu":
         return ipa2_bwd_plain(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw, go, goptl, gnorm,
                               gopair, eps)
-    L = q.shape[1]
-    H, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, _pairs_by_rows(pz), maskb, sw)
-    B = q.shape[0]
+    B, L = q.shape[:2]
+    H, C, cz4, wide, ins, strides = _kernel_inputs(q, kv, qp, kvp, r9, t, bias, pz, maskb, sw,
+                                                   pz_rows=True)
     f32, dev = torch.float32, q.device
     cots = [x.to(f32).contiguous() for x in (go, goptl, gnorm, gopair)]
     for x, name, w in zip(cots, ("go", "goptl", "gnorm", "gopair"),
-                          (H * C_K, 3 * H * PV_K, H * PV_K, H * CZ4_K)):
+                          (H * C, 3 * H * PV_K, H * PV_K, H * cz4)):
         native.check_tensor(x, name, (B, L, w), f32)
     empty = lambda *s: torch.empty(*s, dtype=f32, device=dev)
+    outs = [empty(B, L, H * C), empty(B, L, 2 * H * C), empty(B, H, 3, L, PQ_K),
+            empty(B, H, 3, L, PQ_K + PV_K), empty(B, L, 9), empty(B, L, 3), empty(B, H, L, L),
+            empty(B, L, L, cz4), empty(B, H)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if wide:   # K8 at 2x-8x: csrc/ipa2_wide.cu's twelve launches, counted as one call
+        fn = native.function("ipa2_wide", "ipa2_wide_backward", _WIDE_BWD_ARGTYPES)
+        scratch = _wide_scratch(B, L, C, True, dev)
+        rc = fn(*[x.data_ptr() for x in ins + cots + scratch + outs], strides, B, L, C, cz4, eps,
+                stream)
+        native.check(rc, "ipa2_bwd")
+        native.count_launch("ipa2_bwd")
+        return tuple(outs)
     if L <= TILE:
         scratch = [None] * 2 + [empty(B, H, L, 12)] + [None] * 4
     else:
         n_t = (L + TILE - 1) // TILE
         scratch = [empty(B, H, L, 4), empty(B, H, L, 40), empty(B, H, L, 12),
                    empty(B, H, L, 12), empty(B, H, n_t), empty(B, H, n_t), empty(B, H, n_t * TILE, 64)]
-    outs = [empty(B, L, H * C_K), empty(B, L, 2 * H * C_K), empty(B, H, 3, L, PQ_K),
-            empty(B, H, 3, L, PQ_K + PV_K), empty(B, L, 9), empty(B, L, 3), empty(B, H, L, L),
-            empty(B, L, L, CZ4_K), empty(B, H)]
     fn = native.function("ipa2_bwd", "ipa2_backward", _BWD_ARGTYPES)
     ptrs = [None if x is None else x.data_ptr() for x in ins + cots + scratch + outs]
-    rc = fn(*ptrs, strides, B, L, H, eps, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, strides, B, L, H, eps, stream)
     native.check(rc, "ipa2_bwd")
     native.count_launch("ipa2_bwd")
     return tuple(outs)

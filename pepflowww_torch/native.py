@@ -28,7 +28,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("edge_transition", "distance_embed", "edge_transition_bwd", "distance_embed_bwd",
-           "ipa2", "ipa2_bwd", "edge_transition_int8", "ipa1")
+           "ipa2", "ipa2_bwd", "edge_transition_int8", "ipa1", "ipa2_wide")
 # No --use_fast_math: K6's quantization scale 127/amax is an IEEE division, as in the JAX kernel.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -13,11 +13,12 @@ pair of products of bf16-rounded operands: each is held to its plain
 version within 1e-2 of the plain gradient's norm (a rounding that flips
 between the two moves one term by one bf16 step; a wrong index or a lost
 partial moves the whole sum), and two calls must agree bit for bit.
-The fused IPA forward (K7) has fp32 outputs: each within 2e-2 + 1e-3 of
+The fused IPA forward (K7; at 1x and, csrc/ipa2_wide.cu, at the JAX
+package's 2x, 4x and 8x widths) has fp32 outputs: each within 2e-2 + 1e-3 of
 |plain| (one bf16 rounding of an attention weight that flips between kernel
 and plain version moves the scalar output by at most 2^-9 |v|; the point
 sums run in fp32 in another order); its backward (K8) is held like the
-other backward kernels. The int8 EdgeTransition (K6) is held to its plain
+other backward kernels. The int8 EdgeTransition (K6, at c_z 64 and 128-512) is held to its plain
 version at 6e-2 + 2e-2 |plain| (K2's bound: the kernel sums h1 on the
 concatenated row, in another order than the plain version's factorized
 form, so a row quantization may round the other way, which moves one int8
@@ -184,13 +185,13 @@ def test_kernels_reject_what_they_do_not_take(dev):
     assert native.LAUNCHES == before
 
 
-def ipa_inputs(dev, B, L, seed=0, module_layout=False):
-    """Inputs of the fused IPA at the production widths (H 8, C 128, Pq 8,
-    Pv 12, CZ4 16), bf16 where the model feeds bf16. With `module_layout`
-    the points, the pair bias and the pair readout are permuted views, as
-    the module passes them (the readout in the EdgeTransition epilogue's
-    (B, CZ4, L, L) layout)."""
-    H, C, Pq, Pv, CZ4 = 8, 128, 8, 12, 16
+def ipa_inputs(dev, B, L, seed=0, module_layout=False, width=1):
+    """Inputs of the fused IPA at `width` times the production widths (H 8,
+    C 128 w, Pq 8, Pv 12, CZ4 16 w), bf16 where the model feeds bf16. With
+    `module_layout` the points, the pair bias and the pair readout are
+    permuted views, as the module passes them (the readout in the
+    EdgeTransition epilogue's (B, CZ4, L, L) layout)."""
+    H, C, Pq, Pv, CZ4 = 8, 128 * width, 8, 12, 16 * width
     rng = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)).to(dev)
     R = torch.from_numpy(np.linalg.qr(rng.normal(size=(B, L, 3, 3)))[0].astype(np.float32)).to(dev)
@@ -301,6 +302,57 @@ def test_int8_edge_kernel_matches_plain(dev, L, with_readout):
     torch.cuda.synchronize()
     assert native.LAUNCHES["edge_transition_int8"] == before["edge_transition_int8"] + 1
     assert native.LAUNCHES["edge_transition"] == before["edge_transition"]
+    want = cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro)
+    for name, a, b in zip(("out", "b", "pz"), got if ro else (got,), want if ro else (want,)):
+        _within(a, b, 6e-2, 2e-2, name)
+
+
+# The JAX package's 2x, 4x and 8x widths (csrc/ipa2_wide.cu; C 256-1024):
+# a ragged L, both layouts, L = 1 and the L = 128 bucket; the forward and
+# backward held as at 1x, one launch a call each, two backward calls bit
+# for bit.
+@pytest.mark.parametrize("width,L,module_layout", [(2, 37, True), (4, 64, False), (8, 1, True),
+                                                   (2, 128, False), (8, 100, True)])
+def test_wide_ipa2_kernels_match_plain(dev, width, L, module_layout):
+    args = ipa_inputs(dev, 2, L, seed=L + width, module_layout=module_layout, width=width)
+    before = dict(native.LAUNCHES)
+    got = cuda_ipa.fused_ipa2(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa2"] == before["ipa2"] + 1
+    want = cuda_ipa.ipa2_plain(*args)
+    for name, a, b in zip(("o", "optl", "norm", "opair"), got, want):
+        _within(a, b, 2e-2, 1e-3, name)
+    rng = np.random.default_rng(L)
+    cots = [torch.from_numpy(rng.normal(size=o.shape).astype(np.float32)).to(dev) for o in want]
+    got = cuda_ipa.ipa2_bwd(*args, *cots)
+    again = cuda_ipa.ipa2_bwd(*args, *cots)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ipa2_bwd"] == before["ipa2_bwd"] + 2
+    want = cuda_ipa.ipa2_bwd_plain(*args, *cots)
+    names = ("gq", "gkv", "gqp", "gkvp", "gr9", "gt", "gbias", "gpz", "gsw")
+    for name, a, b, c in zip(names, got, want, again):
+        _close_in_norm(a, b, name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+
+
+@pytest.mark.parametrize("cz,L", [(128, 37), (256, 24), (512, 16)])
+@pytest.mark.parametrize("with_readout", [False, True])
+def test_wide_int8_edge_kernel_matches_plain(dev, cz, L, with_readout):
+    """K6 at c_z 128, 256, 512 (csrc/edge_transition_int8.cu's wide entry)
+    against its plain version at K6's bound; one launch a call."""
+    rng = np.random.default_rng(cz + L)
+    t = lambda *s, sc=1.0: torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)).to(dev)
+    hid = 3 * cz
+    p = {"k1": t(hid, hid, sc=hid ** -0.5), "b1": t(hid, sc=0.1), "k2": t(hid, hid, sc=hid ** -0.5),
+         "b2": t(hid, sc=0.1), "k3": t(hid, cz, sc=hid ** -0.5), "b3": t(cz, sc=0.1),
+         "ln_scale": 1 + t(cz, sc=0.1), "ln_bias": t(cz, sc=0.1)}
+    ro = (t(cz, 8, sc=0.1), t(8), t(cz, cz // 4, sc=0.1), t(cz // 4)) if with_readout else None
+    edge, nb = t(2, L, L, cz).bfloat16(), t(2, L, cz).bfloat16()
+    mask = torch.from_numpy((rng.random((2, L)) > 0.1).astype(np.float32)).to(dev)
+    before = dict(native.LAUNCHES)
+    got = cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=ro)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["edge_transition_int8"] == before["edge_transition_int8"] + 1
     want = cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro)
     for name, a, b in zip(("out", "b", "pz"), got if ro else (got,), want if ro else (want,)):
         _within(a, b, 6e-2, 2e-2, name)

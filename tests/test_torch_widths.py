@@ -18,7 +18,9 @@
   against JAX's (its XLA branch) with the JAX step's own draws injected, at
   tests/test_torch_model.py's and tests/test_torch_train.py's tolerances.
 - The width checks: c_z = 96, a hidden width other than 3 c_z, more readout
-  lanes than 8 + c_z/4, F = 96, and the int8 kernel above c_z = 64 raise.
+  lanes than 8 + c_z/4, F = 96, the int8 kernel at c_z = 96, and the fused
+  IPA at C 192, CZ4 24 or Pv 10 raise; the int8 kernel's wide operands are
+  the JAX wrapper's per-column quantization, unpermuted.
 
 The wide kernels' own schedule is emulated in tests/test_torch_widths_tiles.py.
 """
@@ -35,6 +37,7 @@ from pepflowww_tpu.models.flow import FlowModel as JaxFlowModel
 from pepflowww_tpu.models.flow import FlowModelConfig as JaxFlowModelConfig
 from pepflowww_tpu.models.pallas_dist import distance_embed_bwd as jax_dist_bwd
 from pepflowww_tpu.models.pallas_dist import fused_distance_embed as jax_dist
+from pepflowww_tpu.models.pallas_edge import _quant_cols
 from pepflowww_tpu.models.pallas_edge import fused_edge_transition as jax_edge
 from pepflowww_tpu.models.pallas_edge_bwd import edge_transition_bwd as jax_edge_bwd
 from pepflowww_tpu.models.trunk import IPAConfig as JaxIPAConfig
@@ -46,7 +49,7 @@ from pepflowww_torch.bench import width_config
 from pepflowww_torch.convert import state_dict_from_flax
 from pepflowww_torch.data.collate import device_batch
 from pepflowww_torch.data.synthetic import make_batch
-from pepflowww_torch.models import cuda_dist, cuda_edge
+from pepflowww_torch.models import cuda_dist, cuda_edge, cuda_ipa
 from pepflowww_torch.models.flow import build_model
 from pepflowww_torch.training.train_step import loss_and_total
 
@@ -244,8 +247,17 @@ def test_unsupported_widths_raise():
     assert cuda_edge.kernel_operands(edge_params(128, 384), ro(32))["wrt"].shape == (64, 128)
     with pytest.raises(ValueError, match="readout lanes"):
         cuda_edge.kernel_operands(edge_params(128, 384), ro(33))
-    with pytest.raises(ValueError, match="int8"):
-        cuda_edge.kernel_operands(edge_params(128, 384), quant_int8=True)
+    with pytest.raises(ValueError, match="c_z = 96"):
+        cuda_edge.kernel_operands(edge_params(96, 288), quant_int8=True)
+    rng = np.random.default_rng(5)
+    p = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+         for k, v in edge_params(128, 384).items()}
+    ops = cuda_edge.kernel_operands(p, quant_int8=True)
+    for k in ("2", "3"):
+        jq, js = _quant_cols(jnp.asarray(p[f"k{k}"].numpy()))
+        np.testing.assert_array_equal(ops[f"w{k}qt"].t().numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ops[f"w{k}s"].numpy(), np.asarray(js).reshape(-1))
+    assert "wn" in ops and "w2t" not in ops and "k2b" not in ops
     for cz, hid in ((96, 288), (128, 256)):
         with pytest.raises(ValueError):
             cuda_edge.check_widths(cz, cz, hid)
@@ -255,3 +267,10 @@ def test_unsupported_widths_raise():
         cuda_dist.kernel_operands(dp(96))
     ops = cuda_dist.kernel_operands(dp(128))
     assert ops["k1t"].shape == (128, 256) and ops["k1p"].shape == (256, 128)
+    # The fused IPA: H 8, Pq 8, Pv 12 with (C, CZ4) = (128, 16) or C in 256,
+    # 512, 1024 with CZ4 in 32, 64, 128.
+    for C, cz4, pv in ((192, 24, 12), (256, 24, 12), (192, 32, 12), (256, 32, 10), (128, 32, 12)):
+        with pytest.raises(ValueError, match="IPA kernels take"):
+            cuda_ipa.check_widths(8, C, 8, pv, cz4)
+    assert [cuda_ipa.check_widths(8, C, 8, 12, C // 8) for C in (128, 256, 512, 1024)] == \
+        [False, True, True, True]
