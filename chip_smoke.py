@@ -198,13 +198,18 @@ Phases, each on its own lines:
 13. widths: the production, fused-IPA and int8 serving profiles at the JAX
    package's 2x, 4x and 8x widths (c_z = F = 128, 256, 512, the IPA's C =
    256, 512, 1024 and CZ4 = 32, 64, 128; ``tools/width_sweep.py``'s
-   configuration, B = 64, 32, 8 at L = 64). For each width, K1-K8 through
+   configuration, B = 64, 32, 8 at L = 64). The setup phase checks the
+   wide EdgeTransition forwards' tile kernel (csrc/edge_wide.cuh, twelve
+   instances: c_z 128, 256, 512 for K1/K2 and for K6, readout off and on):
+   its registers, no spills, its dynamic shared memory, and 2 device kernels
+   a call. For each width, K1-K8 through
    their wrappers against their plain versions (K1/K2 and K6 within
-   EDGE_TOL, K6 with no pair row beyond it; K3 within DIST_TOL; K7 within
+   EDGE_TOL, K6 with no pair row beyond it, and two calls of each of K1,
+   K2 and K6 bit for bit; K3 within DIST_TOL; K7 within
    IPA_TOL in the sampler's and training's layouts; K4, K5 and K8, also at
    L = 128 and half the batch, each gradient within BWD_REL of its norm and
    bit-identical across two calls), the device kernels of one call (the
-   library's count, by design 5, 6, 4, 20, 15, 9, 5 and 12), each one's
+   library's count, by design 2, 2, 4, 20, 15, 2, 5 and 12), each one's
    device time beside its bound; then the 6-block model of that width with
    seeded weights through the normal entry points: a 20-step sampler run
    (K2 100 times, K3 once, nothing else) and a training step (K1 5, K4 5,
@@ -500,15 +505,15 @@ def phase_setup():
     # library: the tiled GEMM's instances (tile, operand layout, epilogue) and the row
     # kernels; no spills. The GEMM's dynamic shared memory: three stages of its A and B
     # tiles, rows padded by 16 bytes.
-    modes = ("relu", "relu+pair mask", "fp32", "residual", "dA", "dA2 (distance)", "dx",
-             "readout", "split-K partial", "fp32 relu", "int8 dequant relu", "int8 dequant",
-             "fp32 accumulate", "batched (b, h)")
+    modes = {0: "relu", 1: "relu+pair mask", 2: "fp32", 3: "residual", 4: "dA",
+             5: "dA2 (distance)", 6: "dx", 8: "split-K partial", 13: "batched (b, h)"}
     for lib, tag in (("edge_transition", "K1/K2"), ("edge_transition_bwd", "K4"),
                      ("distance_embed", "K3"), ("distance_embed_bwd", "K5"),
                      ("edge_transition_int8", "K6"), ("ipa2_wide", "K7/K8")):
+        log = native.BUILD_LOG.get(lib, "")
         entries = [(re.search(r"(wide_\w+?_kernel)(?:ILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E)?", entry),
-                    use, spill) for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, ""))
-                   if "wide_" in entry]
+                    use, spill) for entry, use, spill in ptxas_entries(log)
+                   if "wide_" in entry and "edge_wide_kernel" not in entry]
         check(any(m and m[2] for m, _, _ in entries), f"{lib}: ptxas -v reported no wide GEMM")
         for m, use, spill in entries:
             extra = ""
@@ -543,15 +548,39 @@ def phase_setup():
     per_call = native.function(lib, "ipa2_wide_kernels_per_call", [ctypes.c_int])
     check((per_call(0), per_call(1)) == (5, 12), f"{lib}: not 5 launches a forward call and 12 "
                                                  "a backward one")
-    i8_call = native.function("edge_transition_int8", "edge_transition_int8_wide_kernels_per_call",
-                              [ctypes.c_int])
-    check((i8_call(0), i8_call(1)) == (8, 9), "edge_transition_int8: not 8 launches a wide call "
-                                              "and 9 with the readout")
     longest = native.function(lib, "ipa2_wide_max_length", [])()
-    say("setup", f"{lib} K7 launches a call: {per_call(0)}, K8: {per_call(1)}, L up to "
-                 f"{longest}; edge_transition_int8 K6 wide: {i8_call(0)}, {i8_call(1)} with the "
-                 f"readout")
+    say("setup", f"{lib} K7 launches a call: {per_call(0)}, K8: {per_call(1)}, L up to {longest}")
+    wide_edge_setup()
     return card
+
+
+def wide_edge_setup():
+    """The wide EdgeTransition forwards' tile kernel (csrc/edge_wide.cuh,
+    K1/K2 and K6 at c_z 128, 256, 512, readout off and on): each of its
+    twelve instances' registers, spills (none allowed) and dynamic shared
+    memory, and the two device kernels a call (the node pre-pass and the
+    tile kernel) of both entry points."""
+    from pepflowww_torch import native
+
+    for lib, tag in (("edge_transition", "K1/K2"), ("edge_transition_int8", "K6")):
+        found = []
+        for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, "")):
+            m = re.search(r"edge_wide_kernelILi(\d+)ELb(\d)ELb(\d)E", entry)
+            if not m:
+                continue
+            cz, ro = int(m[1]), m[3] == "1"
+            found.append((cz, ro))
+            smem = native.function(lib, f"{lib}_wide_smem_bytes", [ctypes.c_int])(cz)
+            say("setup", f"{lib} {tag} tile kernel c_z={cz}{' (readout)' if ro else ''}: {use}; "
+                         f"{spill}; {smem} bytes of dynamic shared memory a block")
+            check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                                   "loads"), f"{lib} {tag} tile kernel c_z={cz} spills ({spill})")
+        check(sorted(found) == [(cz, ro) for cz in (128, 256, 512) for ro in (False, True)],
+              f"{lib}: ptxas -v reported tile kernels {sorted(found)}")
+        per_call = native.function(lib, f"{lib}_wide_kernels_per_call", [ctypes.c_int])
+        check((per_call(0), per_call(1)) == (2, 2),
+              f"{lib}: not 2 device kernels a wide call, readout off and on")
+        say("setup", f"{lib} {tag} wide: 2 device kernels a call (node pre-pass, tile kernel)")
 
 
 def ptxas_entries(log: str):
@@ -3147,6 +3176,14 @@ def _widths_kernels(card: str, w: int) -> dict:
                 beyond = int((excess > EDGE_TOL[0]).sum())
                 say("widths", f"{tag}: {beyond} of {excess.numel()} pair rows beyond EDGE_TOL")
                 check(beyond == 0, f"{tag}: {beyond} pair rows beyond EDGE_TOL")
+            if name != "K3":
+                # The tile kernel (csrc/edge_wide.cuh) adds in a fixed order: the same bits.
+                with torch.no_grad():
+                    again = call()
+                again = again if name in ("K2", "K6") else (again,)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                say("widths", f"{tag}: two calls bit for bit: {same}")
+                check(same, f"{tag}: two calls differ")
         elif name == "K7":
             with torch.no_grad():
                 want = plain()

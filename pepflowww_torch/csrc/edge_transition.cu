@@ -32,7 +32,6 @@
 // + C.W3's (32) + the bf16 A operand h (48) at the peak of layer 2.
 
 #include "edge_transition.cuh"
-#include "wide_gemm.cuh"
 
 namespace {
 
@@ -72,99 +71,74 @@ extern "C" int edge_transition_forward(
 
 // ---------------------------------------------------------------- 2x, 4x, 8x
 // K1 and K2 at c_z = 128, 256, 512 (hidden 3 c_z, readout lanes up to
-// 8 + c_z / 4): the same function as the kernel above, as six launches of
-// csrc/wide_gemm.cuh's tiled GEMM and one row kernel, since the weights no
-// longer fit a block (W2 alone is 295 KB at 128, 4.7 MB at 512):
-//   Y  = node.[W1i | W1j | W3i | W3j]                    (residues, fp32)
-//   h1 = bf16(relu(e.W1e + Y1_i + Y1_j + b1))            (pairs, scratch)
-//   h2 = bf16(relu(h1.W2 + b2))
-//   o  = [h2 | e].[W3 ; W3e] + Y3_i + Y3_j + b3          (fp32 scratch)
-//   out = bf16(LayerNorm(o) s_i s_j)                      (wide_ln_fwd_kernel)
-//   K2: [b | pz] = bf16(out.Wr + br), written transposed (B, n, L, L)
-// The node products run once a residue, as the bound counts them. What
-// bounds it: the tensor cores (bounds.py: 140 us at c_z 128, B=64, L=64);
-// the hidden rows' round trips through device memory (4 x 2 x 3 c_z bytes
-// a pair) are the price of the simple design, left to a later change.
+// 8 + c_z / 4): the same function as the kernel above, where neither the
+// weights nor a tile's hidden rows fit a block (W2 alone is 295 KB at 128,
+// 4.7 MB at 512): the node pre-pass and one tile kernel on the Hopper tile
+// core, csrc/edge_wide.cuh (h1 in shared memory at 128 and 256, one bf16
+// round trip of it at 512; h2 a chunk of 128 columns at a time, never
+// whole).
 
-namespace wide {
+#include "edge_wide.cuh"
 
-static int edge_forward(const void* edge, const void* node, const void* mask, const void* wn,
-                        const void* w1t, const void* b1, const void* w2t, const void* b2,
-                        const void* w3t, const void* b3, const void* ln_s, const void* ln_b,
-                        const void* wrt, const void* bro, void* y, void* h1, void* h2, void* o,
-                        void* out, void* b_out, void* pz_out, int B, int L, int cz, int n_b,
-                        int n_pz, int ro_pad, float eps, cudaStream_t st) {
-  const long long total = (long long)B * L * L;
-  if (total > INT_MAX) return (int)cudaErrorInvalidValue;   // pair rows are 32-bit
-  if (cz != 128 && cz != 256 && cz != 512) return (int)cudaErrorInvalidValue;
-  if (total == 0) return 0;
-  const int M = (int)total, hid = 3 * cz, ny = 2 * hid + 2 * cz;
-  float* Y = static_cast<float*>(y);
-  Epi e{};
-  e.f32 = Y;
-  e.ld_f32 = ny;
-  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(node, cz)), opd(seg(wn, cz)), B * L, ny, cz, 0, L,
-                                       e, st)));
-  e = Epi{};
-  e.out = static_cast<bf16*>(h1);
-  e.ld_out = hid;
-  e.bias = static_cast<const float*>(b1);
-  e.yi = Y;
-  e.yj = Y + hid;
-  e.ld_y = ny;
-  WIDE_TRY((gemm<128, 128, false, RELU>(opd(seg(edge, cz)), opd(seg(w1t, hid)), M, hid, cz, 0, L,
-                                        e, st)));
-  e = Epi{};
-  e.out = static_cast<bf16*>(h2);
-  e.ld_out = hid;
-  e.bias = static_cast<const float*>(b2);
-  WIDE_TRY((gemm<128, 128, false, RELU>(opd(seg(h1, hid)), opd(seg(w2t, hid)), M, hid, hid, 0, L,
-                                        e, st)));
-  e = Epi{};
-  e.f32 = static_cast<float*>(o);
-  e.ld_f32 = cz;
-  e.bias = static_cast<const float*>(b3);
-  e.yi = Y + 2 * hid;
-  e.yj = Y + 2 * hid + cz;
-  e.ld_y = ny;
-  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(h2, hid), seg(edge, cz, hid)),
-                                       opd(seg(w3t, hid), seg(w3t, hid, hid)), M, cz, hid + cz,
-                                       0, L, e, st)));
-  WIDE_TRY(ln_forward(o, ln_s, ln_b, mask, out, M, L, cz, eps, st));
-  if (b_out == nullptr) return 0;
-  e = Epi{};
-  e.bias = static_cast<const float*>(bro);
-  e.b_out = static_cast<bf16*>(b_out);
-  e.pz_out = static_cast<bf16*>(pz_out);
-  e.n_b = n_b;
-  e.n_pz = n_pz;
-  return gemm<128, 64, false, READOUT>(opd(seg(out, cz)), opd(seg(wrt, cz)), M, ro_pad, cz, 0, L,
-                                       e, st);
+// Device launches of one call of edge_transition_wide_forward (readout on
+// or off): the node pre-pass and the tile kernel.
+extern "C" int edge_transition_wide_kernels_per_call(int) { return 2; }
+
+// Dynamic shared memory of the tile kernel at c_z = cz, bytes.
+extern "C" int edge_transition_wide_smem_bytes(int cz) { return ewide::smem_bytes<false>(cz); }
+
+// Bytes of the scratch a call at c_z = cz, B, L needs beside y: 512: h1's
+// panel images, one 64-row slot a block of the persistent grid; 0 below.
+extern "C" int edge_transition_wide_scratch_bytes(int cz, int B, int L) {
+  return ewide::scratch_bytes<false>(cz, B, L);
 }
-
-}  // namespace wide
-
-// Device launches of one call of edge_transition_wide_forward: 6 with the
-// readout (K2), 5 without (K1).
-extern "C" int edge_transition_wide_kernels_per_call(int readout) { return readout ? 6 : 5; }
 
 // K1/K2 at c_z = cz in {128, 256, 512}: wn [2 hid + 2 cz][cz] are the node
-// rows of k1 and k3 transposed ([W1i | W1j | W3i | W3j]^T, bf16), w1t
-// [hid][hid], w2t [hid][hid], w3t [cz][hid] as for the 1x kernel; wrt
-// [ro_pad][cz] and bro [ro_pad] the readout padded with zeros to a multiple
-// of 64 lanes (null without it). Scratch: y [B L][2 hid + 2 cz] f32, h1 and
-// h2 [B L L][hid] bf16, o [B L L][cz] f32. Returns the first nonzero
-// cudaError_t of its launches.
+// rows of k1 and k3 transposed ([W1i | W1j | W3i | W3j]^T, bf16); wb the
+// stages of the e, h1 and h2 products and wrb those of the readout (null
+// without it), as cuda_edge.kernel_operands packs them; bro [ro_pad] the
+// readout's bias padded with zeros; wb_bytes, wrb_bytes the lengths of wb
+// and wrb. Scratch: y [B L][8 cz] f32 and the scratch of
+// edge_transition_wide_scratch_bytes (may be null when that is 0). Returns
+// cudaErrorInvalidValue where wb or wrb is not as long as the schedule
+// reads, else the first nonzero cudaError_t of its two launches.
 extern "C" int edge_transition_wide_forward(
-    const void* edge, const void* node, const void* mask, const void* wn, const void* w1t,
-    const void* b1, const void* w2t, const void* b2, const void* w3t, const void* b3,
-    const void* ln_s, const void* ln_b, const void* wrt, const void* bro, void* y, void* h1,
-    void* h2, void* o, void* out, void* b_out, void* pz_out, int B, int L, int cz, int n_b,
-    int n_pz, int ro_pad, float eps, void* stream) {
-  return wide::edge_forward(edge, node, mask, wn, w1t, b1, w2t, b2, w3t, b3, ln_s, ln_b, wrt, bro,
-                            y, h1, h2, o, out, b_out, pz_out, B, L, cz, n_b, n_pz, ro_pad, eps,
-                            static_cast<cudaStream_t>(stream));
+    const void* edge, const void* node, const void* mask, const void* wn, const void* wb,
+    const void* wrb, const void* b1, const void* b2, const void* b3, const void* ln_s,
+    const void* ln_b, const void* bro, void* y, void* scratch, void* out, void* b_out,
+    void* pz_out, int B, int L, int cz, int n_b, int n_pz, int ro_pad, long long wb_bytes,
+    long long wrb_bytes, float eps, void* stream) {
+  ewide::Args a{};
+  a.edge = static_cast<const bf16*>(edge);
+  a.mask = static_cast<const float*>(mask);
+  a.y = static_cast<const float*>(y);
+  a.wb = static_cast<const unsigned char*>(wb);
+  a.wrb = static_cast<const unsigned char*>(wrb);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
+  a.b3 = static_cast<const float*>(b3);
+  a.ln_s = static_cast<const float*>(ln_s);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.bro = static_cast<const float*>(bro);
+  a.scratch = scratch;
+  a.out = static_cast<bf16*>(out);
+  a.b_out = static_cast<bf16*>(b_out);
+  a.pz_out = static_cast<bf16*>(pz_out);
+  a.n_b = n_b;
+  a.n_pz = n_pz;
+  a.eps = eps;
+  return ewide::forward<false>(a, node, wn, B, L, cz, ro_pad, wb_bytes, wrb_bytes,
+                               static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EDGE_WIDE_STAMPS
+// The diagnostic build's stage sums (edge_wide.cuh): [blocks][N_STAMPS] int64
+// into host memory at `dst`.
+extern "C" int edge_wide_read_stamps(void* dst, int blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, ewide::g_stamps,
+                                   sizeof(long long) * ewide::N_STAMPS * blocks);
+}
+#endif
 
 // Kernels launched on the wide paths since the library was loaded.
 extern "C" int edge_transition_wide_launches() { return wide::g_launches.load(); }

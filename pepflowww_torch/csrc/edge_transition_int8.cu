@@ -46,7 +46,6 @@
 // q1's fragments (24).
 
 #include "edge_transition.cuh"
-#include "wide_gemm.cuh"
 
 namespace {
 
@@ -93,160 +92,84 @@ extern "C" int edge_transition_int8_forward(
 // ---------------------------------------------------------------- 2x, 4x, 8x
 // K6 at c_z = 128, 256, 512 (hidden 3 c_z = 384, 768, 1536; readout lanes up
 // to 8 + c_z / 4): the same function as the kernel above, at the JAX
-// kernel's rounding points, as launches of csrc/wide_gemm.cuh's tiled GEMM
-// and two row kernels, since neither the weights nor a tile's hidden rows
-// fit a block from 2x on (W2q alone is 147 KB at 128, 2.4 MB at 512):
-//   Y  = node.[W1i | W1j | W3i | W3j]                (residues, fp32)
-//   h1 = relu(e.W1e + Y1_i + Y1_j + b1)               (pairs, fp32 scratch)
-//   q1, s1 = quant_rows(h1)                            (wide_quant_kernel)
-//   h2 = relu(float(q1.W2q) s1 w2s + b2)               (int8 GEMM, fp32 scratch)
-//   q2, s2 = quant_rows(h2)
-//   o  = float(q2.W3q) s2 w3s                           (int8 GEMM, fp32 scratch)
-//   o  = ((o + e.W3e) + Y3_i + Y3_j) + b3               (bf16 GEMM onto o)
-//   out = bf16(LayerNorm(o) s_i s_j)                    (wide_ln_fwd_kernel)
-//   readout: [b | pz] = bf16(out.Wr + br), transposed (B, n, L, L)
-// A row's quantization needs its amax over all 3 c_z columns, which the
-// GEMM's 128-column tiles split across blocks: so h1 and h2 go to device
-// memory in fp32 and a row kernel (one warp a row) takes the amax, the scale
-// 127/amax (an IEEE division: no fast math) and the round-half-even int8
-// values. The int32 sums reach 1536 x 127 x 127 < 2^31 at 8x; their
-// conversion to fp32 rounds to nearest, as the JAX kernel's astype does.
-// What bounds it: the tensor cores (bounds.edge_int8_bound_ms: 90.6 us at
-// c_z 128, B=64, L=64 on the int8 and bf16 units); the fp32 hidden rows'
-// round trips (2 x 2 x 4 x 3 c_z bytes a pair) are the price of the simple
-// design, left to a later change.
+// kernel's rounding points, where neither the weights nor a tile's hidden
+// rows fit a block (W2q alone is 147 KB at 128, 2.4 MB at 512): the node
+// pre-pass and one tile kernel on the Hopper tile core, csrc/edge_wide.cuh.
+// A row's quantization needs its amax over all 3 c_z columns, which a tile
+// produces a chunk at a time: at 128 h1 and then h2 are staged in fp32 in
+// shared memory (neither hidden row leaves the chip); at 256 and 512 h1's
+// chunk products run twice (the first pass for the amax, the second, bit
+// for bit the same, quantizes into q1 in shared memory) and h2 is staged in
+// a 64-row slot a block of a global scratch (one round trip); then q2. The int32
+// sums reach 1536 x 127 x 127 < 2^31 at 8x; their conversion to fp32
+// rounds to nearest, as the JAX kernel's astype does.
 
-namespace wide {
+#include "edge_wide.cuh"
 
-// One warp a row of x [M][32 NQ] fp32: amax, inv = amax > 0 ? 127 / amax :
-// 0, q = round-half-even(x inv) as int8, scale amax / 127.
-template <int NQ>
-__global__ void __launch_bounds__(256)
-wide_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                  int M) {
-  constexpr int N = NQ * 32;
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (r >= M) return;
-  const float* row = x + (long long)r * N;
-  float v[NQ], amax = 0.f;
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) {
-    v[k] = row[lane + 32 * k];
-    amax = fmaxf(amax, fabsf(v[k]));
-  }
-#pragma unroll
-  for (int m = 16; m; m >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
-  const float inv = amax > 0.f ? 127.f / amax : 0.f;
-  int8_t* out = q + (long long)r * N;
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) out[lane + 32 * k] = (int8_t)__float2int_rn(v[k] * inv);
-  if (lane == 0) scale[r] = amax / 127.f;
+// Device launches of one call of edge_transition_int8_wide_forward (readout
+// on or off): the node pre-pass and the tile kernel.
+extern "C" int edge_transition_int8_wide_kernels_per_call(int) { return 2; }
+
+// Dynamic shared memory of the tile kernel at c_z = cz, bytes.
+extern "C" int edge_transition_int8_wide_smem_bytes(int cz) {
+  return ewide::smem_bytes<true>(cz);
 }
 
-static int quant(const float* x, int8_t* q, float* scale, int M, int n, cudaStream_t st) {
-  const int blocks = (int)(((long long)M * 32 + 255) / 256);
-  if (n == 384) wide_quant_kernel<12><<<blocks, 256, 0, st>>>(x, q, scale, M);
-  else if (n == 768) wide_quant_kernel<24><<<blocks, 256, 0, st>>>(x, q, scale, M);
-  else wide_quant_kernel<48><<<blocks, 256, 0, st>>>(x, q, scale, M);
-  return launched();
+// Bytes of the scratch a call at c_z = cz, B, L needs beside y: 256, 512:
+// h2 in fp32, one 64-row slot a block of the persistent grid; 0 at 128.
+extern "C" int edge_transition_int8_wide_scratch_bytes(int cz, int B, int L) {
+  return ewide::scratch_bytes<true>(cz, B, L);
 }
 
-static int edge_int8_forward(const void* edge, const void* node, const void* mask,
-                             const void* wn, const void* w1t, const void* b1, const void* w2qt,
-                             const void* w2s, const void* b2, const void* w3t, const void* w3qt,
-                             const void* w3s, const void* b3, const void* ln_s,
-                             const void* ln_b, const void* wrt, const void* bro, void* y,
-                             void* h, void* q, void* rs, void* o, void* out, void* b_out,
-                             void* pz_out, int B, int L, int cz, int n_b, int n_pz, int ro_pad,
-                             float eps, cudaStream_t st) {
-  const long long total = (long long)B * L * L;
-  if (total > INT_MAX) return (int)cudaErrorInvalidValue;   // pair rows are 32-bit
-  if (cz != 128 && cz != 256 && cz != 512) return (int)cudaErrorInvalidValue;
-  if (total == 0) return 0;
-  const int M = (int)total, hid = 3 * cz, ny = 2 * hid + 2 * cz;
-  float* Y = static_cast<float*>(y);
-  float* hf = static_cast<float*>(h);
-  float* of = static_cast<float*>(o);
-  int8_t* qi = static_cast<int8_t*>(q);
-  float* s = static_cast<float*>(rs);
-  Epi e{};
-  e.f32 = Y;
-  e.ld_f32 = ny;
-  WIDE_TRY((gemm<128, 128, false, F32>(opd(seg(node, cz)), opd(seg(wn, cz)), B * L, ny, cz, 0, L,
-                                       e, st)));
-  e = Epi{};
-  e.f32 = hf;
-  e.ld_f32 = hid;
-  e.bias = static_cast<const float*>(b1);
-  e.yi = Y;
-  e.yj = Y + hid;
-  e.ld_y = ny;
-  WIDE_TRY((gemm<128, 128, false, F32_RELU>(opd(seg(edge, cz)), opd(seg(w1t, hid)), M, hid, cz, 0,
-                                            L, e, st)));
-  WIDE_TRY(quant(hf, qi, s, M, hid, st));
-  // The int8 operands as pairs of bytes: rows of hid / 2 pairs, K = hid / 2.
-  e = Epi{};
-  e.f32 = hf;
-  e.ld_f32 = hid;
-  e.bias = static_cast<const float*>(b2);
-  e.rscale = s;
-  e.cscale = static_cast<const float*>(w2s);
-  WIDE_TRY((gemm<128, 128, false, DEQ_RELU>(opd(seg(qi, hid / 2)), opd(seg(w2qt, hid / 2)), M, hid,
-                                            hid / 2, 0, L, e, st)));
-  WIDE_TRY(quant(hf, qi, s, M, hid, st));
-  e = Epi{};
-  e.f32 = of;
-  e.ld_f32 = cz;
-  e.rscale = s;
-  e.cscale = static_cast<const float*>(w3s);
-  WIDE_TRY((gemm<128, 128, false, DEQ>(opd(seg(qi, hid / 2)), opd(seg(w3qt, hid / 2)), M, cz,
-                                       hid / 2, 0, L, e, st)));
-  e = Epi{};
-  e.f32 = of;
-  e.ld_f32 = cz;
-  e.bias = static_cast<const float*>(b3);
-  e.yi = Y + 2 * hid;
-  e.yj = Y + 2 * hid + cz;
-  e.ld_y = ny;
-  WIDE_TRY((gemm<128, 128, false, F32_ADD>(opd(seg(edge, cz)), opd(seg(w3t, hid)), M, cz, cz, 0,
-                                           L, e, st)));
-  WIDE_TRY(ln_forward(o, ln_s, ln_b, mask, out, M, L, cz, eps, st));
-  if (b_out == nullptr) return 0;
-  e = Epi{};
-  e.bias = static_cast<const float*>(bro);
-  e.b_out = static_cast<bf16*>(b_out);
-  e.pz_out = static_cast<bf16*>(pz_out);
-  e.n_b = n_b;
-  e.n_pz = n_pz;
-  return gemm<128, 64, false, READOUT>(opd(seg(out, cz)), opd(seg(wrt, cz)), M, ro_pad, cz, 0, L,
-                                       e, st);
-}
-
-}  // namespace wide
-
-// Device launches of one call of edge_transition_int8_wide_forward: 9 with
-// the readout, 8 without.
-extern "C" int edge_transition_int8_wide_kernels_per_call(int readout) { return readout ? 9 : 8; }
-
-// K6 at c_z = cz in {128, 256, 512}: wn, w1t, w3t as for the bf16 wide
-// kernel (edge_transition_wide_forward); w2qt [hid][hid] and w3qt [cz][hid]
-// the int8 k2 and k3 quantized per output column and transposed to
-// [out][in] (no permutation), with their column scales w2s [hid], w3s [cz];
-// wrt [ro_pad][cz] and bro [ro_pad] the readout padded with zeros to a
-// multiple of 64 lanes (null without it). Scratch: y [B L][2 hid + 2 cz]
-// f32, h [B L L][hid] f32, q [B L L][hid] int8, rs [B L L] f32, o [B L L][cz]
-// f32. Returns the first nonzero cudaError_t of its launches.
+// K6 at c_z = cz in {128, 256, 512}: wn as for the bf16 wide kernel
+// (edge_transition_wide_forward); wb the stages of the e products (bf16),
+// q1.W2q and q2.W3q (k2, k3 quantized per output column, int8), wrb those of
+// the readout (null without it), as cuda_edge.kernel_operands(...,
+// quant_int8=True) packs them; w2s [hid], w3s [cz] the column scales; bro
+// [ro_pad] the readout's bias padded with zeros; wb_bytes, wrb_bytes the
+// lengths of wb and wrb. Scratch: y [B L][8 cz] f32 and the scratch of
+// edge_transition_int8_wide_scratch_bytes (may be null when that is 0).
+// Returns cudaErrorInvalidValue where wb or wrb is not as long as the
+// schedule reads, else the first nonzero cudaError_t of its two launches.
 extern "C" int edge_transition_int8_wide_forward(
-    const void* edge, const void* node, const void* mask, const void* wn, const void* w1t,
-    const void* b1, const void* w2qt, const void* w2s, const void* b2, const void* w3t,
-    const void* w3qt, const void* w3s, const void* b3, const void* ln_s, const void* ln_b,
-    const void* wrt, const void* bro, void* y, void* h, void* q, void* rs, void* o, void* out,
-    void* b_out, void* pz_out, int B, int L, int cz, int n_b, int n_pz, int ro_pad, float eps,
-    void* stream) {
-  return wide::edge_int8_forward(edge, node, mask, wn, w1t, b1, w2qt, w2s, b2, w3t, w3qt, w3s, b3,
-                                 ln_s, ln_b, wrt, bro, y, h, q, rs, o, out, b_out, pz_out, B, L,
-                                 cz, n_b, n_pz, ro_pad, eps, static_cast<cudaStream_t>(stream));
+    const void* edge, const void* node, const void* mask, const void* wn, const void* wb,
+    const void* wrb, const void* b1, const void* w2s, const void* b2, const void* w3s,
+    const void* b3, const void* ln_s, const void* ln_b, const void* bro, void* y, void* scratch,
+    void* out, void* b_out, void* pz_out, int B, int L, int cz, int n_b, int n_pz, int ro_pad,
+    long long wb_bytes, long long wrb_bytes, float eps, void* stream) {
+  ewide::Args a{};
+  a.edge = static_cast<const bf16*>(edge);
+  a.mask = static_cast<const float*>(mask);
+  a.y = static_cast<const float*>(y);
+  a.wb = static_cast<const unsigned char*>(wb);
+  a.wrb = static_cast<const unsigned char*>(wrb);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
+  a.b3 = static_cast<const float*>(b3);
+  a.w2s = static_cast<const float*>(w2s);
+  a.w3s = static_cast<const float*>(w3s);
+  a.ln_s = static_cast<const float*>(ln_s);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.bro = static_cast<const float*>(bro);
+  a.scratch = scratch;
+  a.out = static_cast<bf16*>(out);
+  a.b_out = static_cast<bf16*>(b_out);
+  a.pz_out = static_cast<bf16*>(pz_out);
+  a.n_b = n_b;
+  a.n_pz = n_pz;
+  a.eps = eps;
+  return ewide::forward<true>(a, node, wn, B, L, cz, ro_pad, wb_bytes, wrb_bytes,
+                               static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EDGE_WIDE_STAMPS
+// The diagnostic build's stage sums (edge_wide.cuh): [blocks][N_STAMPS] int64
+// into host memory at `dst`.
+extern "C" int edge_wide_read_stamps(void* dst, int blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, ewide::g_stamps,
+                                   sizeof(long long) * ewide::N_STAMPS * blocks);
+}
+#endif
 
 // Kernels launched on the wide path since the library was loaded.
 extern "C" int edge_transition_int8_wide_launches() { return wide::g_launches.load(); }

@@ -1,9 +1,9 @@
 // Width-general building blocks of the production profile's kernels at the
 // JAX package's 2x, 4x and 8x widths (c_z = 128, 256, 512), for Hopper,
-// sm_90a: K1/K2 (edge_transition.cu), K4 (edge_transition_bwd.cu), K3
-// (distance_embed.cu), K5 (distance_embed_bwd.cu), K6
-// (edge_transition_int8.cu) and K7/K8 (ipa2_wide.cu) call them through
-// their *_wide_* entry points; the 1x kernels keep their own designs.
+// sm_90a: K4 (edge_transition_bwd.cu), K3 (distance_embed.cu), K5
+// (distance_embed_bwd.cu) and K7/K8 (ipa2_wide.cu) call them through their
+// *_wide_* entry points, and K1/K2 and K6 (edge_wide.cuh) their node
+// pre-pass; the 1x kernels keep their own designs.
 //
 // Why a second design. At 1x every weight of a kernel sits in one block's
 // shared memory next to its activation tile. From 2x on it cannot: W2 of the
@@ -21,12 +21,7 @@
 // BM x BN x 64, warps of 64 x 32 (eight a block; four of 64 x 64 ran 1.3-1.4x
 // slower on the H100), three stages of cp.async (16 bytes a thread,
 // zero-filled past the edges), ldmatrix (.trans for TT) from rows padded by
-// 16 bytes (conflict-free), mma.sync m16n8k16 bf16 -> fp32. The int8
-// epilogues (DEQ, DEQ_RELU; NT only) run the same loop on int8 operands
-// seen as pairs of bytes: K counts pairs, a K tile is 128 int8 deep, and
-// m16n8k32 s8 x s8 -> s32 takes the fragments ldmatrix gives (its A and B
-// fragments hold the bytes the bf16 m16n8k16 fragments hold), with int32
-// accumulators converted to fp32 (round to nearest) in the epilogue.
+// 16 bytes (conflict-free), mma.sync m16n8k16 bf16 -> fp32.
 // BATCH runs one (b, h) pair of a (B, H) batch a blockIdx.y, its operands
 // and output offset by strides (the IPA's heads: ipa2_wide.cu).
 // Every operand is an Opd: up to four column segments, each from its own
@@ -38,11 +33,11 @@
 // each chunk finds its own segment).
 //
 // The epilogue (MODE) takes each pair of adjacent accumulator columns: bias,
-// per-residue terms, ReLU, masks, bf16 rounding, the transposed readout
-// writes, the split-K partial slot. Modes DA and DA2D also sum their
-// (unrounded) values down the block's columns in a fixed order (lanes,
-// then warps) into one partial row a block; wide_reduce_kernel adds partial
-// rows or split-K slots in a fixed order. No atomics anywhere: two calls on
+// per-residue terms, ReLU, masks, bf16 rounding, the split-K partial slot.
+// Modes DA and DA2D also sum their (unrounded) values down the block's
+// columns in a fixed order (lanes, then warps) into one partial row a
+// block; wide_reduce_kernel adds partial rows or split-K slots in a fixed
+// order. No atomics anywhere: two calls on
 // the same inputs give the same bits.
 
 #pragma once
@@ -53,7 +48,6 @@
 #include <atomic>
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -83,12 +77,9 @@ static inline int launched() {
 }
 
 enum Gather { ROW = 0, NODE_I = 1, NODE_J = 2 };
-enum Mode { RELU = 0, RELU_PAIRMASK = 1, F32 = 2, RC = 3, DA = 4, DA2D = 5, DX = 6,
-            READOUT = 7, PART = 8, F32_RELU = 9, DEQ_RELU = 10, DEQ = 11, F32_ADD = 12,
+// The numbers name the instances in ptxas's output (chip_smoke.py reads them).
+enum Mode { RELU = 0, RELU_PAIRMASK = 1, F32 = 2, RC = 3, DA = 4, DA2D = 5, DX = 6, PART = 8,
             BATCH = 13 };
-
-// Epilogues of int8 x int8 -> int32 products (the operands int8, K in pairs).
-__host__ __device__ constexpr bool int8_mode(int mode) { return mode == DEQ_RELU || mode == DEQ; }
 
 // A column segment of an operand: columns [start, next start) come from p,
 // row-major with leading dimension ld, its rows picked by gather.
@@ -192,11 +183,6 @@ struct Epi {
   void* d_edge;             // DX: columns < cz, fp32 (d_edge_f32) or bf16 [M][cz]
   int d_edge_f32;
   int cz;
-  bf16* b_out;              // READOUT: (B, n_b, L, L) and (B, n_pz, L, L)
-  bf16* pz_out;
-  int n_b, n_pz;
-  const float* rscale;      // DEQ, DEQ_RELU: per-row activation scale [M] ...
-  const float* cscale;      // ... and per-column weight scale [N]
   // BATCH: block row blockIdx.y = b H + h reads A at b a_b + h a_h and B at
   // b b_b + h b_h (elements), and writes alpha C to f32 + b o_b + h o_h,
   // rows ld_f32 apart.
@@ -227,16 +213,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_u32(p)));
 }
 
-// D += A.B on int8 fragments: m16n8k32, s8 x s8 -> s32.
-__device__ __forceinline__ void mma_m16n8k32_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
-      " {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
@@ -245,7 +221,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // even); returns what the column sums take (DA, DA2D), else zeros.
 template <int MODE>
 __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, float v0,
-                                           float v1, int LL, int M, int N) {
+                                           float v1, int M, int N) {
   if (MODE == PART) {
     *reinterpret_cast<float2*>(e.f32 + ((long long)blockIdx.z * M + r) * N + c) =
         make_float2(v0, v1);
@@ -285,16 +261,6 @@ __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, 
     return make_float2(d0, d1);
   }
   float a0 = v0, a1 = v1;
-  if (MODE == DEQ || MODE == DEQ_RELU) {   // (acc s_row) s_col
-    const float s = e.rscale[r];
-    a0 = a0 * s * e.cscale[c];
-    a1 = a1 * s * e.cscale[c + 1];
-  }
-  if (MODE == F32_ADD) {   // onto the fp32 output already there
-    const float2 o = *reinterpret_cast<const float2*>(e.f32 + (long long)r * e.ld_f32 + c);
-    a0 = o.x + a0;
-    a1 = o.y + a1;
-  }
   if (e.yi) {
     const float* yi = e.yi + (long long)nr.x * e.ld_y + c;
     const float* yj = e.yj + (long long)nr.y * e.ld_y + c;
@@ -310,11 +276,8 @@ __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, 
   } else if (MODE == RELU_PAIRMASK) {
     const float s = e.pmask[nr.x] * e.pmask[nr.y];
     store2(e.out + (long long)r * e.ld_out + c, fmaxf(a0, 0.f) * s, fmaxf(a1, 0.f) * s);
-  } else if (MODE == F32 || MODE == DEQ || MODE == F32_ADD) {
+  } else if (MODE == F32) {
     *reinterpret_cast<float2*>(e.f32 + (long long)r * e.ld_f32 + c) = make_float2(a0, a1);
-  } else if (MODE == F32_RELU || MODE == DEQ_RELU) {
-    *reinterpret_cast<float2*>(e.f32 + (long long)r * e.ld_f32 + c) =
-        make_float2(fmaxf(a0, 0.f), fmaxf(a1, 0.f));
   } else if (MODE == RC) {
     const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(opd_at(e.x, r, nr, c));
     store2(e.out + (long long)r * e.ld_out + c, fmaxf(a0, 0.f) + __low2float(x),
@@ -330,17 +293,6 @@ __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, 
     const float d1 = a1 > 0.f ? __high2float(g) * s : 0.f;
     store2(e.out + (long long)r * e.ld_out + c, d0, d1);
     return make_float2(d0, d1);
-  } else if (MODE == READOUT) {
-    const int b = r / LL, ij = r - b * LL;
-    const float v[2] = {a0, a1};
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int cc = c + t;
-      if (cc < e.n_b)
-        e.b_out[((long long)b * e.n_b + cc) * LL + ij] = __float2bfloat16(v[t]);
-      else if (cc < e.n_b + e.n_pz)
-        e.pz_out[((long long)b * e.n_pz + cc - e.n_b) * LL + ij] = __float2bfloat16(v[t]);
-    }
   }
   return make_float2(0.f, 0.f);
 }
@@ -353,9 +305,6 @@ wide_gemm_kernel(const __grid_constant__ Opd A, const __grid_constant__ Opd Bo, 
                  int K, int kslice, const __grid_constant__ Rows rw,
                  const __grid_constant__ Epi e) {
   using C = Cfg<BM, BN, TT>;
-  constexpr bool I8 = int8_mode(MODE);
-  static_assert(!(I8 && TT), "the int8 products are NT");
-  typedef typename std::conditional<I8, int, float>::type Acc;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -375,7 +324,7 @@ wide_gemm_kernel(const __grid_constant__ Opd A, const __grid_constant__ Opd Bo, 
   const int kbeg = blockIdx.z * kslice, kend = min(K, kbeg + kslice);
   const int nk = (kend - kbeg + BK - 1) / BK;
 
-  Acc acc[4][4][4];
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -461,10 +410,7 @@ wide_gemm_kernel(const __grid_constant__ Opd A, const __grid_constant__ Opd Bo, 
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          if constexpr (I8) mma_m16n8k32_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-          else mma_m16n8k16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-        }
+        for (int ni = 0; ni < 4; ++ni) mma_m16n8k16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   };
 
@@ -503,8 +449,8 @@ wide_gemm_kernel(const __grid_constant__ Opd A, const __grid_constant__ Opd Bo, 
       for (int ni = 0; ni < 4; ++ni) {
         const int c = n0 + wn * 32 + ni * 8 + 2 * q;
         if (c < N) {
-          const float2 s = epilogue<MODE>(e, r, nr, c, (float)acc[mi][ni][2 * h],
-                                          (float)acc[mi][ni][2 * h + 1], rw.L * rw.L, M, N);
+          const float2 s = epilogue<MODE>(e, r, nr, c, acc[mi][ni][2 * h],
+                                          acc[mi][ni][2 * h + 1], M, N);
           cs[ni][0] += s.x;
           cs[ni][1] += s.y;
         }
@@ -598,52 +544,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
   return v;
-}
-
-// One warp a pair row: LayerNorm of o (float32 statistics), the pair mask,
-// bf16.
-template <int NQ>
-__global__ void __launch_bounds__(256)
-wide_ln_fwd_kernel(const float* __restrict__ o, const float* __restrict__ ln_s,
-                   const float* __restrict__ ln_b, const float* __restrict__ mask,
-                   bf16* __restrict__ out, int M, int L, float eps) {
-  constexpr int CZ = NQ * 32;
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (r >= M) return;
-  const float* row = o + (long long)r * CZ;
-  float v[NQ], s = 0.f;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    v[q] = row[lane + 32 * q];
-    s += v[q];
-  }
-  const float mu = warp_sum(s) / CZ;
-  float ss = 0.f;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) ss += (v[q] - mu) * (v[q] - mu);
-  const float inv = rsqrtf(warp_sum(ss) / CZ + eps);
-  const float m = mask[src_row(NODE_I, r, L)] * mask[src_row(NODE_J, r, L)];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int c = lane + 32 * q;
-    out[(long long)r * CZ + c] = __float2bfloat16(((v[q] - mu) * inv * ln_s[c] + ln_b[c]) * m);
-  }
-}
-
-// LayerNorm of the fp32 rows o [M][cz] (cz = 128, 256, 512), the pair mask,
-// bf16 into out: one warp a row.
-static inline int ln_forward(const void* o, const void* ln_s, const void* ln_b, const void* mask,
-                             void* out, int M, int L, int cz, float eps, cudaStream_t st) {
-  const int blocks = (int)(((long long)M * 32 + 255) / 256);
-  const float* of = static_cast<const float*>(o);
-  const float* s = static_cast<const float*>(ln_s);
-  const float* bb = static_cast<const float*>(ln_b);
-  const float* mk = static_cast<const float*>(mask);
-  bf16* ob = static_cast<bf16*>(out);
-  if (cz == 128) wide_ln_fwd_kernel<4><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  else if (cz == 256) wide_ln_fwd_kernel<8><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  else wide_ln_fwd_kernel<16><<<blocks, 256, 0, st>>>(of, s, bb, mk, ob, M, L, eps);
-  return launched();
 }
 
 inline Seg seg(const void* p, int ld, int start = 0, int gather = ROW) {

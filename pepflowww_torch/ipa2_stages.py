@@ -27,12 +27,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
-import subprocess
 
 import torch
 
 from pepflowww_torch import native
+from pepflowww_torch.kernel_times import max_sm_mhz
 from pepflowww_torch.models import cuda_ipa
 
 H, C, PQ, PV, CZ4 = 8, 128, 8, 12, 16
@@ -53,15 +52,7 @@ KEY_STAGES = ("setup", "query tile loads", "logits, a", "g_a product, point term
 def stamped(source, name, argtypes):
     """`name` of a fresh diagnostic build of csrc/<source>.cu, taking
     `argtypes` and then the stamps and the stream."""
-    os.makedirs(native.BUILD_DIR, exist_ok=True)
-    out = os.path.join(native.BUILD_DIR, f"lib{source}_stamps.so")
-    res = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-DIPA2_STAMPS", "-o", out,
-                          os.path.join(native.CSRC_DIR, f"{source}.cu")],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{source}.cu -DIPA2_STAMPS:\n"
-                           f"{res.stdout}{res.stderr}")
-    fn = getattr(ctypes.CDLL(out), name)
+    fn = getattr(ctypes.CDLL(native.build_stamped((source,), "IPA2_STAMPS")[source]), name)
     fn.argtypes = argtypes[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -116,7 +107,7 @@ def main(argv=None):
     if args.backward:
         name, stages = "ipa2_bwd", BWD_STAGES
         fn = stamped("ipa2_bwd", "ipa2_backward_stamps", cuda_ipa._BWD_ARGTYPES)
-        _, ins, strides = cuda_ipa._kernel_inputs(*train_inputs(B, L, dev))
+        *_, ins, strides = cuda_ipa._kernel_inputs(*train_inputs(B, L, dev), pz_rows=True)
         g = torch.Generator().manual_seed(1)
         ins += [torch.randn(B, L, w, generator=g).to(dev)
                 for w in (H * C, 3 * H * PV, H * PV, H * CZ4)]
@@ -135,7 +126,7 @@ def main(argv=None):
     else:
         name, stages = "ipa2", STAGES
         fn = stamped("ipa2", "ipa2_forward_stamps", cuda_ipa._ARGTYPES)
-        _, ins, strides = cuda_ipa._kernel_inputs(*sampler_inputs(B, L, dev))
+        *_, ins, strides = cuda_ipa._kernel_inputs(*sampler_inputs(B, L, dev))
         outs = [torch.empty(B, L, w, device=dev) for w in (H * C, 3 * H * PV, H * PV, H * CZ4)]
         ptrs = [x.data_ptr() for x in ins + outs]
     st = torch.zeros(B * H, len(stages) + 1, dtype=torch.int64, device=dev)
@@ -161,9 +152,7 @@ def long_stages(fn, ptrs, strides, B, L, n_t, stream):
     for _ in range(3):   # the last of three calls
         native.check(fn(*ptrs, strides, B, L, H, 1e-8, st.data_ptr(), stream), "ipa2_bwd stamps")
     torch.cuda.synchronize()
-    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True)
-    mhz = float(res.stdout.strip().splitlines()[0])
+    mhz = max_sm_mhz()
     s = st.double().cpu()
     for label, block, names in (("query", s[:B * H * n_t * nq].reshape(-1, nq), QUERY_STAGES),
                                 ("key", s[B * H * n_t * nq:].reshape(-1, nk), KEY_STAGES)):

@@ -35,7 +35,9 @@ With ``--trees`` each directory (a checkout, or an unpacked ``git archive``,
 holding ``pepflowww_torch/``) is timed in a process of its own that imports
 the package from there and builds its kernels: the trees in the order
 given, then in reverse (A, B, B, A), so that two versions are compared
-within one call on one card.
+within one call on one card. With ``--widths`` too, each tree's K1-K8 at
+those widths, then, per width and kernel, each tree's mean over its two
+runs and the ratio of each tree's to the first's.
 
 Runs on CUDA only: it measures the device.
 """
@@ -106,6 +108,28 @@ def v1_inputs(B, L, dev, seed):
             r(B, H, L, L, k=7).to(bf), r(B, L, L, CZ4, k=8).to(bf), mask]
 
 
+def edge_inputs(width: int, B: int, dev, seed: int, L: int = 64):
+    """The EdgeTransition's seeded inputs at `width` times the flagship
+    widths: (p, readout, edge, node bias, cotangent, node mask): edge, node
+    bias and cotangent bf16, ~10% of the residues masked, weights
+    N(0, 1/fan_in), the readout the next block's 8 heads and c_z/4
+    channels."""
+    import torch
+
+    cz, bf = 64 * width, torch.bfloat16
+    hid = 3 * cz
+    r = lambda *s, sc=1.0, k=0: _randn(*s, seed=seed + k, scale=sc).to(dev)
+    p = {"k1": r(hid, hid, sc=hid ** -0.5, k=1), "b1": r(hid, sc=0.1, k=2),
+         "k2": r(hid, hid, sc=hid ** -0.5, k=3), "b2": r(hid, sc=0.1, k=4),
+         "k3": r(hid, cz, sc=hid ** -0.5, k=5), "b3": r(cz, sc=0.1, k=6),
+         "ln_scale": 1 + r(cz, sc=0.1, k=7), "ln_bias": r(cz, sc=0.1, k=8)}
+    ro = (r(cz, 8, sc=cz ** -0.5, k=9), r(8, sc=0.1, k=10), r(cz, cz // 4, sc=cz ** -0.5, k=11),
+          r(cz // 4, sc=0.1, k=12))
+    edge, nb, g = r(B, L, L, cz, k=13).to(bf), r(B, L, cz, k=14).to(bf), r(B, L, L, cz, k=15).to(bf)
+    mask = (torch.rand(B, L, generator=torch.Generator().manual_seed(seed)) > 0.1).float().to(dev)
+    return p, ro, edge, nb, g, mask
+
+
 def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
     """K1-K8 at `width` times the flagship widths on seeded inputs: {name:
     (kernel call, plain call, (bound ms, bound_by), device launches a call,
@@ -128,14 +152,7 @@ def wide_calls(width: int, B: int, dev, seed: int, L: int = 64) -> dict:
     cz, bf = 64 * width, torch.bfloat16
     hid, n_ro = 3 * cz, 8 + cz // 4
     r = lambda *s, sc=1.0, k=0: _randn(*s, seed=seed + k, scale=sc).to(dev)
-    p = {"k1": r(hid, hid, sc=hid ** -0.5, k=1), "b1": r(hid, sc=0.1, k=2),
-         "k2": r(hid, hid, sc=hid ** -0.5, k=3), "b2": r(hid, sc=0.1, k=4),
-         "k3": r(hid, cz, sc=hid ** -0.5, k=5), "b3": r(cz, sc=0.1, k=6),
-         "ln_scale": 1 + r(cz, sc=0.1, k=7), "ln_bias": r(cz, sc=0.1, k=8)}
-    ro = (r(cz, 8, sc=cz ** -0.5, k=9), r(8, sc=0.1, k=10), r(cz, cz // 4, sc=cz ** -0.5, k=11),
-          r(cz // 4, sc=0.1, k=12))
-    edge, nb, g = r(B, L, L, cz, k=13).to(bf), r(B, L, cz, k=14).to(bf), r(B, L, L, cz, k=15).to(bf)
-    mask = (torch.rand(B, L, generator=torch.Generator().manual_seed(seed)) > 0.1).float().to(dev)
+    p, ro, edge, nb, g, mask = edge_inputs(width, B, dev, seed, L)
     ops, ops_ro = cuda_edge.kernel_operands(p), cuda_edge.kernel_operands(p, ro)
     b = device_batch(make_batch(np.random.default_rng(seed), batch_size=B, pep_len=12,
                                 rec_len=48, pad_to=L), dev)
@@ -277,10 +294,64 @@ def time_shapes(shapes, kernel="ipa2_bwd"):
     return rows
 
 
+def tree_turns(trees, script: str, child_argv) -> list:
+    """[(tree, rows)] of the trees in turns (A, B, B, A): a process a run
+    that puts the tree first on sys.path and runs `script` (this checkout's
+    file, so that every tree is driven the same way) with ``--child`` and
+    `child_argv`; rows are the JSON of its last line of output."""
+    runs = []
+    for tree in list(trees) + list(trees)[::-1]:
+        root = os.path.abspath(tree)
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "sys.argv = [sys.argv[0]] + sys.argv[2:]; "
+                f"exec(open({os.path.abspath(script)!r}).read())")
+        res = subprocess.run([sys.executable, "-c", code, root, "--child", *child_argv],
+                             capture_output=True, text=True, cwd=root)
+        if res.returncode != 0:
+            sys.exit(f"{tree}: the run failed:\n{res.stdout}{res.stderr}")
+        runs.append((root, json.loads(res.stdout.strip().splitlines()[-1])))
+    return runs
+
+
+def print_turn_means(runs, label, value, fmt) -> None:
+    """For each label(row) of tree_turns' runs, in the order first seen, a
+    line "turns <label>: <tree> <fmt(mean)> (<ratio>x), ...": each tree's
+    mean of value(row) over its runs and its ratio to the first tree's."""
+    means = {}
+    for root, rows in runs:
+        for r in rows:
+            means.setdefault(label(r), {}).setdefault(root, []).append(value(r))
+    for lab, by_tree in means.items():
+        first, parts = None, []
+        for root, v in by_tree.items():
+            mean = sum(v) / len(v)
+            first = mean if first is None else first
+            parts.append(f"{os.path.basename(root) or root} {fmt(mean)} ({mean / first:.3f}x)")
+        print(f"turns {lab}: " + ", ".join(parts), flush=True)
+
+
+def print_width_turns(runs) -> None:
+    """Each tree's rows of time_widths in the order run, then per width and
+    kernel each tree's mean of its runs and its ratio to the first tree's."""
+    for root, rows in runs:
+        for w, B, L, name, us, n, bound, by in rows:
+            print(f"{root}: w={w} B={B} L={L} {name}: {us:.1f} us a call ({n} launches), bound "
+                  f"{bound:.1f} us ({by}), {100 * bound / us:.1f}% of it", flush=True)
+    print_turn_means(runs, lambda r: f"w={r[0]} B={r[1]} L={r[2]} {r[3]}", lambda r: r[4],
+                     lambda m: f"{m:.1f} us")
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "nvidia-smi failed"
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (MHz), by which stage cycles become time."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0])
 
 
 def main(argv=None) -> None:
@@ -289,21 +360,23 @@ def main(argv=None) -> None:
                     help="K8 (ipa2_bwd), K7 (ipa2) or K9 (ipa1)")
     ap.add_argument("--shapes", nargs="+", default=["32x64", "32x128", "32x256"],
                     help="B x L pairs, e.g. 32x128")
-    ap.add_argument("--widths", help="time K1-K5 at these multiples of the flagship widths "
+    ap.add_argument("--widths", help="time K1-K8 at these multiples of the flagship widths "
                                      "instead, e.g. 2,4,8 (batches 64, 32, 8)")
     ap.add_argument("--trees", nargs="+", help="checkouts to time in turns (A, B, B, A)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     shapes = [tuple(int(x) for x in s.split("x")) for s in args.shapes]
     if args.child:   # one tree, in this process: one JSON line
-        print(json.dumps(time_shapes(shapes, args.kernel)), flush=True)
+        rows = (time_widths([int(x) for x in args.widths.split(",")]) if args.widths
+                else time_shapes(shapes, args.kernel))
+        print(json.dumps(rows), flush=True)
         return
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: kernel_times measures the device")
     print(f"card: {card_line()}", flush=True)
-    if args.widths:
+    if args.widths and not args.trees:
         for w, B, L, name, us, n, bound, by in time_widths([int(x) for x in
                                                             args.widths.split(",")]):
             print(f"w={w} B={B} L={L} {name}: {us:.1f} us a call ({n} launches), bound "
@@ -313,18 +386,11 @@ def main(argv=None) -> None:
         runs = [(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                  time_shapes(shapes, args.kernel))]
     else:
-        runs = []
-        for tree in args.trees + args.trees[::-1]:
-            root = os.path.abspath(tree)
-            code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-                    "sys.argv = [sys.argv[0]] + sys.argv[2:]; "
-                    f"exec(open({os.path.abspath(__file__)!r}).read())")
-            res = subprocess.run([sys.executable, "-c", code, root, "--child", "--kernel",
-                                  args.kernel, "--shapes", *args.shapes],
-                                 capture_output=True, text=True, cwd=root)
-            if res.returncode != 0:
-                sys.exit(f"{tree}: the timing run failed:\n{res.stdout}{res.stderr}")
-            runs.append((root, json.loads(res.stdout.strip().splitlines()[-1])))
+        runs = tree_turns(args.trees, __file__, ["--widths", args.widths] if args.widths
+                          else ["--kernel", args.kernel, "--shapes", *args.shapes])
+    if args.widths:
+        print_width_turns(runs)
+        return
     for root, rows in runs:
         for B, L, us, n, bound, by in rows:
             print(f"{root}: {args.kernel} B={B} L={L}: {us:.1f} us a call ({n} launches), bound "

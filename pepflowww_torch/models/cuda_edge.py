@@ -19,10 +19,9 @@ forward-only, as in the JAX package. Its kernel (K6) shares the bf16
 kernel's tile loop (csrc/edge_transition.cuh) and quantizes the hidden rows
 in registers, feeding them to the int8 products in the order they lie
 there; so the int8 weights it reads have their K axis permuted by
-:data:`INT8_K_PERM`. From c_z 128 on it is the wide design's sequence of
-launches (csrc/edge_transition_int8.cu ``edge_transition_int8_wide_forward``:
-the hidden rows in fp32 scratch, a row kernel to quantize them, the int8
-products on csrc/wide_gemm.cuh's GEMM), whose int8 weights are unpermuted.
+:data:`INT8_K_PERM`. From c_z 128 on it is the wide design
+(csrc/edge_transition_int8.cu ``edge_transition_int8_wide_forward``, on
+csrc/edge_wide.cuh), whose int8 weights are unpermuted.
 
 The backward (:func:`edge_transition_bwd`) takes the same inputs and the
 output's cotangent ``g`` and returns d_edge, d_node_bias and the eight
@@ -35,8 +34,11 @@ The bf16 kernels take c_z = 64 (the flagship width: node bias 64, hidden
 c_z = 128, 256, 512 (node bias c_z, hidden 3 c_z, at most 8 + c_z/4
 readout lanes: the next block's H = 8 heads and c_z/4 pair channels), each
 read from the operands; at the wider ones their ``*_wide_*`` entry points
-run the tiled-GEMM design of csrc/wide_gemm.cuh. Any other width raises
-(:func:`check_widths`). The int8 kernel (K6) takes the same widths.
+run the node pre-pass and one tile kernel of csrc/edge_wide.cuh (warp
+specialised, its weights streamed through a ring in shared memory in the
+stages :func:`wide_stages` lists, packed once by :func:`kernel_operands`).
+Any other width raises (:func:`check_widths`). The int8 kernel (K6) takes
+the same widths.
 
 A tensor on the CPU takes the plain version; a CUDA tensor takes the kernel
 (csrc/edge_transition.cu, csrc/edge_transition_int8.cu,
@@ -63,15 +65,19 @@ _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctype
 _INT8_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 # edge_transition_backward: 30 pointers, B, L, grid, n1, n2, n3, d_edge_f32, eps, stream.
 _BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-# edge_transition_wide_forward: 21 pointers, B, L, cz, n_b, n_pz, ro_pad, eps, stream.
-_WIDE_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-# edge_transition_int8_wide_forward: 25 pointers, B, L, cz, n_b, n_pz, ro_pad, eps, stream.
-_INT8_WIDE_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
+# edge_transition_wide_forward: 17 pointers, B, L, cz, n_b, n_pz, ro_pad, the bytes of wb
+# and wrb, eps, stream.
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+                  + [ctypes.c_float, ctypes.c_void_p])
+# edge_transition_int8_wide_forward: 19 pointers, then as edge_transition_wide_forward.
+_INT8_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_float, ctypes.c_void_p])
 # edge_transition_wide_backward: 40 pointers, B, L, cz, ks1, ks2, ks3, d_edge_f32, eps, stream.
 _WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 40 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                     ctypes.c_void_p]
 WIDE_ROWS = 128      # pair rows of a wide GEMM block: one column-sum partial row each
+PIECE = 64 * 128     # bytes of a wide forward's weight piece: 64 rows x 128 bytes of K
+STAGE = 2 * PIECE    # a ring stage: consumer warpgroup 0's piece, then warpgroup 1's
 BWD_TI = 8           # the backward kernel's tile: 8 x 8 pairs (i, j) of one batch row
 BWD_COL_SLOTS = 4    # column partials of d_node a tile writes per column (one a warp)
 VEC = 2 * HID + 3 * CZ   # per-block partial: d_b1 | d_b2 | d_b3 | d_ln_scale | d_ln_bias
@@ -214,6 +220,89 @@ def edge_transition_int8_plain(edge, node_bias, node_mask, p: dict, dtype=torch.
     return _output(o, node_mask, p, dtype, readout, eps)
 
 
+# ---------------------------------------------------------------- wide stages
+def wide_pieces(wt: torch.Tensor) -> torch.Tensor:
+    """The 8 KB pieces of a K-major weight wt [N][K] (bf16 or int8; N a
+    multiple of 64, K a multiple of 128 bytes) as the wide tile kernel reads
+    them: piece (n, k) holds rows 64n .. 64n + 63, bytes 128k .. 128k + 127
+    of each, in the 128-byte swizzled layout of csrc/wgmma.cuh (16-byte
+    chunk c of row r at chunk c ^ (r % 8)). Returns [N / 64][K bytes / 128]
+    [8192] uint8."""
+    u8 = wt.contiguous().view(torch.uint8)
+    n, kb = u8.shape
+    t = u8.reshape(n // 64, 64, kb // 128, 8, 16).permute(0, 2, 1, 3, 4)
+    r = torch.arange(64, device=wt.device).reshape(64, 1)
+    src = torch.arange(8, device=wt.device).reshape(1, 8) ^ (r % 8)
+    idx = src.reshape(1, 1, 64, 8, 1).expand(n // 64, kb // 128, 64, 8, 16)
+    return torch.gather(t, 3, idx).reshape(n // 64, kb // 128, PIECE)
+
+
+def wide_stages(cz: int, quant_int8: bool = False) -> list:
+    """The stages of the wide tile kernel's weight ring, every tile the same,
+    in the order its consumers take them (csrc/edge_wide.cuh): (weight,
+    (64-row block of consumer warpgroup 0, that of warpgroup 1), K panel).
+    Layer 1 ("w1e", e's rows of k1), chunk by chunk of 128 hidden columns
+    (64 a warpgroup; for int8 from c_z 256 on twice: the amax pass, then
+    the quantizing one). bf16: o = e.W3e ("w3e"), each warpgroup its half of
+    o's 64-column blocks; then for each 128-column chunk of h2 its W2 pieces
+    ("w2", K = the hidden width in panels of 64) and the W3 pieces of o's
+    blocks over the chunk's two panels ("w3"). int8: q1.W2q chunk by chunk
+    ("w2q", K in panels of 128 int8), then for each block of o its e.W3e
+    and its q2.W3q ("w3q")."""
+    hid, nj, ke = 3 * cz, cz // 128, cz // 64
+    nc = hid // 128
+    l1 = [("w1e", (2 * c, 2 * c + 1), k) for c in range(nc) for k in range(ke)]
+    o = lambda j: [("w3e", (j, nj + j), k) for k in range(ke)]
+    if quant_int8:
+        kh = hid // 128
+        stages = l1 * (1 if cz == 128 else 2)
+        stages += [("w2q", (2 * c, 2 * c + 1), k) for c in range(nc) for k in range(kh)]
+        for j in range(nj):
+            stages += o(j) + [("w3q", (j, nj + j), k) for k in range(kh)]
+        return stages
+    stages = l1 + [st for j in range(nj) for st in o(j)]
+    for c in range(nc):
+        stages += [("w2", (2 * c, 2 * c + 1), k) for k in range(hid // 64)]
+        stages += [("w3", (j, nj + j), 2 * c + k) for j in range(nj) for k in range(2)]
+    return stages
+
+
+def readout_stages(cz: int, lanes: int) -> list:
+    """The readout's stages ("wr", the padded [kb | kdz | 0] transposed):
+    pairs of 64-lane blocks (the second may lie past `lanes`: zeros), each
+    over the c_z / 64 panels of out."""
+    return [("wr", (2 * p, 2 * p + 1), k) for p in range(-(-lanes // 128))
+            for k in range(cz // 64)]
+
+
+_STAGE_ROWS: dict = {}   # (stage list, piece grid, device) -> the rows _pack_stages gathers
+
+
+def _pack_stages(stages, pieces: dict) -> torch.Tensor:
+    """The stages' images, one after another: [len(stages) * STAGE] uint8,
+    gathered at once from every piece (and a zero piece for blocks past a
+    weight's rows): the training step rebuilds them after each update. The
+    gather's rows are made once per layout and device (a copy to the device
+    would wait for the work queued before it)."""
+    dev = next(iter(pieces.values())).device
+    grid = tuple((name, p.shape[0], p.shape[1]) for name, p in pieces.items())
+    key = (tuple(stages), grid, dev)
+    rows = _STAGE_ROWS.get(key)
+    if rows is None:
+        start, row = {}, 0
+        for name, n_rows, n_k in grid:
+            start[name] = row
+            row += n_rows * n_k
+        n_k = {name: k for name, _, k in grid}
+        n_rows = {name: r for name, r, _ in grid}
+        rows = torch.tensor([start[w] + n * n_k[w] + k if n < n_rows[w] else row
+                             for w, blocks, k in stages for n in blocks], device=dev)
+        _STAGE_ROWS[key] = rows
+    flat = torch.cat([p.reshape(-1, PIECE) for p in pieces.values()]
+                     + [torch.zeros(1, PIECE, dtype=torch.uint8, device=dev)])
+    return flat[rows].reshape(-1)
+
+
 # ---------------------------------------------------------------- kernels
 def check_widths(cz: int, cb: int, hid: int, n_ro: Optional[int] = None,
                  quant_int8: bool = False) -> None:
@@ -254,9 +343,12 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
     At c_z 128, 256, 512 the wide kernels also take wn, the node rows of k1
     and k3 transposed ([W1i | W1j | W3i | W3j]^T, (2 hid + 2 c_z, c_z)), the
     backward's k1b, k2b, k3b (the bf16 weights as stored, [in, out]; not
-    with `quant_int8`, which is forward-only), and the readout padded to a
+    with `quant_int8`, which is forward-only), the readout padded to a
     multiple of 64 lanes, wrt (lanes, c_z); the int8 weights w2qt, w3qt are
-    not permuted there. Unsupported widths raise (:func:`check_widths`)."""
+    not permuted there. The forward's tile kernel reads its weights as wb,
+    the stages of :func:`wide_stages` packed one after another (16 KB each),
+    and wrb those of :func:`readout_stages`. Unsupported widths raise
+    (:func:`check_widths`)."""
     bf = torch.bfloat16
     cz, cb, hid = _param_widths(p)
     n_ro = None if readout is None else readout[0].shape[1] + readout[2].shape[1]
@@ -290,14 +382,26 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         bro[:n_b] = bb.float()
         bro[n_b:n_b + n_pz] = bdz.float()
         ops.update(wrt=wr.t().contiguous(), bro=bro, n_b=n_b, n_pz=n_pz)
+    if cz != CZ:
+        pieces = {"w1e": wide_pieces(ops["w1t"][:, :cz]), "w3e": wide_pieces(ops["w3t"][:, :cz])}
+        if quant_int8:
+            pieces.update(w2q=wide_pieces(ops["w2qt"]), w3q=wide_pieces(ops["w3qt"]))
+        else:
+            pieces.update(w2=wide_pieces(ops["w2t"]), w3=wide_pieces(ops["w3t"]))
+        ops["wb"] = _pack_stages(wide_stages(cz, quant_int8), pieces)
+        if readout is not None:
+            ops["wrb"] = _pack_stages(readout_stages(cz, ops["wrt"].shape[0]),
+                                      {"wr": wide_pieces(ops["wrt"])})
     return ops
 
 
-def _wide_operands(cz: int, lanes: int = 0) -> dict:
+def _wide_operands(cz: int, lanes: int = 0, quant_int8: bool = False) -> dict:
     """What the wide kernels read of their operands at c_z = cz: name ->
     (shape, dtype)."""
-    hid, bf, f32 = 3 * cz, torch.bfloat16, torch.float32
-    return {"b1": ((hid,), f32), "b2": ((hid,), f32), "b3": ((cz,), f32),
+    hid, bf, f32, u8 = 3 * cz, torch.bfloat16, torch.float32, torch.uint8
+    return {"wb": ((len(wide_stages(cz, quant_int8)) * STAGE,), u8),
+            "wrb": ((len(readout_stages(cz, lanes)) * STAGE,), u8),
+            "b1": ((hid,), f32), "b2": ((hid,), f32), "b3": ((cz,), f32),
             "ln_scale": ((cz,), f32), "ln_bias": ((cz,), f32),
             "w1t": ((hid, hid), bf), "w2t": ((hid, hid), bf), "w3t": ((cz, hid), bf),
             "wn": ((2 * hid + 2 * cz, cz), bf), "k1b": ((hid, hid), bf),
@@ -412,56 +516,59 @@ def _launch(name, argtypes, edge, node_bias, node_mask, dtype, readout, ops, eps
 
 def _launch_wide(edge, node_bias, node_mask, dtype, readout, ops, eps, quant_int8=False):
     """K1/K2 at c_z 128, 256, 512: csrc/edge_transition.cu's
-    ``edge_transition_wide_forward`` (six device launches with the readout,
-    five without), counted as one launch of the kernel; with `quant_int8`,
-    K6: csrc/edge_transition_int8.cu's ``edge_transition_int8_wide_forward``
-    (nine device launches with the readout, eight without)."""
+    ``edge_transition_wide_forward``; with `quant_int8`, K6:
+    csrc/edge_transition_int8.cu's ``edge_transition_int8_wide_forward``:
+    two device launches a call (the node pre-pass and the tile kernel),
+    counted as one launch of the kernel. Scratch: the node terms y (B L, 8
+    c_z) fp32 and what ``*_wide_scratch_bytes`` asks for (64-row slots of
+    the hidden rows that round-trip: bf16 h1 at c_z 512, int8's fp32 h2 at
+    256 and 512; none otherwise). The library refuses weight stages
+    (``ops["wb"]``, ``ops["wrb"]``) of another length than its schedule
+    reads."""
     if dtype != torch.bfloat16:
         raise ValueError(f"the EdgeTransition kernels compute in bfloat16, not {dtype}")
     B, L, _, cz = edge.shape
     if B * L * L > 2**31 - 1:
         raise ValueError(f"B*L*L = {B * L * L} pairs: the kernels index pairs in 32 bits")
-    hid, bf, f32, dev = 3 * cz, torch.bfloat16, torch.float32, edge.device
+    bf, f32, dev = torch.bfloat16, torch.float32, edge.device
     native.check_tensor(edge, "edge", (B, L, L, cz), bf)
     native.check_tensor(node_bias, "node_bias", (B, L, cz), bf)
     lanes = ops["wrt"].shape[0] if readout is not None and "wrt" in ops else 0
-    shapes = _wide_operands(cz, lanes)
+    shapes = _wide_operands(cz, lanes, quant_int8)
     if quant_int8:
-        name, entry, argtypes = ("edge_transition_int8", "edge_transition_int8_wide_forward",
-                                 _INT8_WIDE_ARGTYPES)
-        weights = ("wn", "w1t", "b1", "w2qt", "w2s", "b2", "w3t", "w3qt", "w3s", "b3", "ln_scale",
-                   "ln_bias")
+        name, argtypes = "edge_transition_int8", _INT8_WIDE_ARGTYPES
+        weights = ("wn", "wb", "b1", "w2s", "b2", "w3s", "b3", "ln_scale", "ln_bias")
     else:
-        name, entry, argtypes = ("edge_transition", "edge_transition_wide_forward",
-                                 _WIDE_ARGTYPES)
-        weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "ln_bias")
+        name, argtypes = "edge_transition", _WIDE_ARGTYPES
+        weights = ("wn", "wb", "b1", "b2", "b3", "ln_scale", "ln_bias")
     _check_ops(ops, weights, shapes, f"kernel_operands(p, readout, quant_int8={quant_int8})")
     mask = node_mask.to(f32).contiguous()
     native.check_tensor(mask, "node_mask", (B, L), f32)
     empty = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=dev)
     out = empty(B, L, L, cz)
-    M = B * L * L
-    if quant_int8:   # y, h (fp32 hidden rows), q (int8), row scales, o
-        scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(M, hid, dt=f32),
-                   empty(M, hid, dt=torch.int8), empty(M, dt=f32), empty(M, cz, dt=f32)]
-    else:
-        scratch = [empty(B * L, 2 * hid + 2 * cz, dt=f32), empty(M, hid), empty(M, hid),
-                   empty(M, cz, dt=f32)]
+    nbytes = native.function(name, f"{name}_wide_scratch_bytes", [ctypes.c_int] * 3)(cz, B, L)
+    if nbytes < 0:
+        raise RuntimeError(f"{name}: the device's SM count could not be read")
+    y = empty(B * L, 8 * cz, dt=f32)
+    scratch = empty(nbytes, dt=torch.uint8) if nbytes else None
     if readout is not None:
-        if "wrt" not in ops:
+        if "wrb" not in ops:
             raise ValueError("readout requested but ops were made without it")
-        _check_ops(ops, ("wrt", "bro"), shapes, "kernel_operands(p, readout)")
+        _check_ops(ops, ("wrb", "bro"), shapes, "kernel_operands(p, readout)")
         n_b, n_pz = ops["n_b"], ops["n_pz"]
         b_out, pz_out = empty(B, n_b, L, L), empty(B, n_pz, L, L)
-        ro = [ops["wrt"].data_ptr(), ops["bro"].data_ptr()]
-        outs = [out.data_ptr(), b_out.data_ptr(), pz_out.data_ptr()]
+        ro, bro, outs = ops["wrb"].data_ptr(), ops["bro"].data_ptr(), [b_out.data_ptr(),
+                                                                      pz_out.data_ptr()]
+        ro_bytes = ops["wrb"].numel()
     else:
-        n_b = n_pz = 0
-        ro, outs = [None, None], [out.data_ptr(), None, None]
-    fn = native.function(name, entry, argtypes)
-    ins = [edge, node_bias, mask] + [ops[k] for k in weights]
-    rc = fn(*[t.data_ptr() for t in ins], *ro, *[t.data_ptr() for t in scratch], *outs, B, L, cz,
-            n_b, n_pz, lanes, eps, torch.cuda.current_stream(dev).cuda_stream)
+        n_b = n_pz = ro_bytes = 0
+        ro, bro, outs = None, None, [None, None]
+    fn = native.function(name, f"{name}_wide_forward", argtypes)
+    ptrs = [t.data_ptr() for t in [edge, node_bias, mask, ops["wn"], ops["wb"]]]
+    vecs = [ops[k].data_ptr() for k in weights[2:]]
+    rc = fn(*ptrs, ro, *vecs, bro, y.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), *outs, B, L, cz, n_b, n_pz, lanes, ops["wb"].numel(), ro_bytes, eps,
+            torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, name)
     native.count_launch(name)
     if readout is None:

@@ -20,6 +20,19 @@ warm up and once timed, its rate scaled to 100 steps. One JSON row a width
 on stdout with the JAX tool's fields, after a line naming the device (and
 on the card its name and power limit); with ``--out`` the rows as a JSON
 list. A width that fails (out of memory) gets a row with its ``error``.
+
+    python -m pepflowww_torch.width_sweep --trees DIR_A DIR_B [--widths 2,4,8]
+        [--batch 64,32,8]
+
+times instead only the sampler (the same 20-step run scaled to 100 steps)
+of each profile (production; ``use_pallas_ipa``, the fused IPA; ``quant_int8``,
+the int8 serving profile: ``bench.width_config``'s flags) at each width, for
+each directory (a checkout or an unpacked ``git archive`` holding
+``pepflowww_torch/``) in a process of its own that imports the package from
+there: the trees in the order given, then in reverse (A, B, B, A), then
+each tree's mean peptides/s per profile and width and its ratio to the
+first tree's, so that two versions are compared within one call on one
+card.
 """
 
 from __future__ import annotations
@@ -35,6 +48,41 @@ from pepflowww_torch import bench
 LOSS_WEIGHTS = {"trans_loss": 0.5, "rot_loss": 0.5, "bb_atom_loss": 0.25,
                 "seqs_loss": 1.0, "angle_loss": 1.0, "torsion_loss": 0.5}
 SAMPLER_STEPS = 20
+PROFILES = {"production": {}, "fused_ipa": {"use_pallas_ipa": True},
+            "int8": {"quant_int8": True}}
+
+
+def sampler_pps(model, b, batch: int, dev) -> float:
+    """Peptides/s of `model`'s Euler sampler on batch `b`: a 20-step run to
+    warm up, a timed one, its rate scaled to 100 steps."""
+    from pepflowww_torch.sampling import euler_sample
+
+    model.eval()
+    with torch.no_grad():
+        euler_sample(model, b, torch.Generator(device=dev).manual_seed(9), num_steps=SAMPLER_STEPS)
+        bench._sync(dev)
+        t0 = time.perf_counter()
+        euler_sample(model, b, torch.Generator(device=dev).manual_seed(10),
+                     num_steps=SAMPLER_STEPS)
+        bench._sync(dev)
+    return batch / ((time.perf_counter() - t0) * (100 / SAMPLER_STEPS))
+
+
+def profile_rows(widths, batches, dev, num_blocks: int = 6) -> list:
+    """[{width, batch, profile, sampler_pps_100step}] of the package on
+    sys.path: each profile's sampler at each width, seeded weights."""
+    from pepflowww_torch.profile_sampler import production_model
+
+    rows = []
+    for w, bsz in zip(widths, batches):
+        b = bench._batch(dev, bsz, bench.PEP_LEN, bench.REC_LEN, bench.PAD_TO)
+        for prof, flags in PROFILES.items():
+            model = production_model(dev, bench.width_config(w, num_blocks, **flags))
+            rows.append({"width": w, "batch": bsz, "profile": prof,
+                         "sampler_pps_100step": sampler_pps(model, b, bsz, dev)})
+            del model
+            torch.cuda.empty_cache()
+    return rows
 
 
 def run_width(width: int, batch: int, dev, num_blocks: int = 6, steps: int = 6,
@@ -44,7 +92,6 @@ def run_width(width: int, batch: int, dev, num_blocks: int = 6, steps: int = 6,
     `model` (by default a new one of the width's configuration with seeded
     weights; its parameters are trained by the timed steps)."""
     from pepflowww_torch.profile_sampler import production_model
-    from pepflowww_torch.sampling import euler_sample
     from pepflowww_torch.training.optim import Optimizer
     from pepflowww_torch.training.train_step import train_step
 
@@ -70,15 +117,7 @@ def run_width(width: int, batch: int, dev, num_blocks: int = 6, steps: int = 6,
     peak = bench.peak_tflops(dev)
     mfu = flops / dt / (peak * 1e12) if peak else None
 
-    model.eval()
-    with torch.no_grad():
-        euler_sample(model, b, torch.Generator(device=dev).manual_seed(9), num_steps=SAMPLER_STEPS)
-        bench._sync(dev)
-        t0 = time.perf_counter()
-        euler_sample(model, b, torch.Generator(device=dev).manual_seed(10),
-                     num_steps=SAMPLER_STEPS)
-        bench._sync(dev)
-    pps100 = batch / ((time.perf_counter() - t0) * (100 / SAMPLER_STEPS))
+    pps100 = sampler_pps(model, b, batch, dev)
     return {"width": width, "batch": batch, "params": n_params,
             "train_step_ms": round(dt * 1e3, 1),
             "train_samples_per_sec": round(batch / dt, 1),
@@ -95,6 +134,8 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--num_blocks", type=int, default=6)
     ap.add_argument("--steps", type=int, default=6, help="timed training steps a width")
+    ap.add_argument("--trees", nargs="+", help="checkouts whose samplers to time in turns")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     from pepflowww_torch.device import resolve_device
@@ -104,6 +145,21 @@ def main(argv=None) -> list:
     print(f"device: {info['name']}, power limit {info['power_limit']}", flush=True)
     widths = [int(w) for w in args.widths.split(",")]
     batches = [int(b) for b in args.batch.split(",")]
+    if args.child:   # one tree, in this process: one JSON line
+        print(json.dumps(profile_rows(widths, batches, dev, args.num_blocks)), flush=True)
+        return []
+    if args.trees:   # the samplers of each tree in turns; kernel_times' tree_turns
+        from pepflowww_torch.kernel_times import print_turn_means, tree_turns
+
+        runs = tree_turns(args.trees, __file__, ["--widths", args.widths, "--batch", args.batch,
+                                                 "--device", str(dev),
+                                                 "--num_blocks", str(args.num_blocks)])
+        for root, rows in runs:
+            for r in rows:
+                print(f"{root}: {json.dumps(r)}", flush=True)
+        print_turn_means(runs, lambda r: f"{r['profile']} w={r['width']} B={r['batch']}: sampler "
+                         "peptides/s", lambda r: r["sampler_pps_100step"], lambda m: f"{m:.2f}")
+        return [r for _, rows in runs for r in rows]
     rows = []
     for w, bsz in zip(widths, batches):
         try:

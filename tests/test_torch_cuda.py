@@ -23,7 +23,9 @@ version at 6e-2 + 2e-2 |plain| (K2's bound: the kernel sums h1 on the
 concatenated row, in another order than the plain version's factorized
 form, so a row quantization may round the other way, which moves one int8
 step of a hidden lane; tests/test_torch_edge_operands.py counts such rows on
-the CPU). The v1 IPA attention (K9) has fp32 outputs: with bf16
+the CPU). The wide forwards (K1/K2 and K6 at c_z 128, 256, 512:
+csrc/edge_wide.cuh) are held at the same bound, with one counted launch (two
+device kernels) a call and two calls bit for bit. The v1 IPA attention (K9) has fp32 outputs: with bf16
 inputs at the model's widths 2e-2 + 1e-3 |plain| (K7's), with fp32 inputs
 at the JAX tests' widths 1e-3 + 1e-4 |plain| (the sums run in another
 order).
@@ -335,11 +337,10 @@ def test_wide_ipa2_kernels_match_plain(dev, width, L, module_layout):
         assert torch.equal(a, c), f"{name}: two calls differ"
 
 
-@pytest.mark.parametrize("cz,L", [(128, 37), (256, 24), (512, 16)])
-@pytest.mark.parametrize("with_readout", [False, True])
-def test_wide_int8_edge_kernel_matches_plain(dev, cz, L, with_readout):
-    """K6 at c_z 128, 256, 512 (csrc/edge_transition_int8.cu's wide entry)
-    against its plain version at K6's bound; one launch a call."""
+def _wide_edge_inputs(dev, cz, L, with_readout):
+    """Seeded EdgeTransition inputs at c_z = cz (B = 2): weights
+    N(0, 1/fan_in), ~10% of the residues masked, the readout the next
+    block's 8 heads and c_z/4 channels (or None)."""
     rng = np.random.default_rng(cz + L)
     t = lambda *s, sc=1.0: torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)).to(dev)
     hid = 3 * cz
@@ -349,13 +350,66 @@ def test_wide_int8_edge_kernel_matches_plain(dev, cz, L, with_readout):
     ro = (t(cz, 8, sc=0.1), t(8), t(cz, cz // 4, sc=0.1), t(cz // 4)) if with_readout else None
     edge, nb = t(2, L, L, cz).bfloat16(), t(2, L, cz).bfloat16()
     mask = torch.from_numpy((rng.random((2, L)) > 0.1).astype(np.float32)).to(dev)
-    before = dict(native.LAUNCHES)
-    got = cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=ro)
+    return edge, nb, mask, p, ro
+
+
+def _wide_edge_check(call, plain, lib, ro):
+    """One counted launch a call of the wrapper (the library's two device
+    kernels: the node pre-pass and the tile kernel), within EDGE_TOL of the
+    plain version, and the same bits from a second call."""
+    launched = native.function(lib, f"{lib}_wide_launches", [])
+    before, kernels = dict(native.LAUNCHES), launched()
+    got = call()
     torch.cuda.synchronize()
-    assert native.LAUNCHES["edge_transition_int8"] == before["edge_transition_int8"] + 1
-    want = cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro)
-    for name, a, b in zip(("out", "b", "pz"), got if ro else (got,), want if ro else (want,)):
+    assert native.LAUNCHES[lib] == before[lib] + 1
+    assert launched() - kernels == 2
+    again = call()
+    want = plain()
+    got, again, want = (got, again, want) if ro else ((got,), (again,), (want,))
+    for name, a, b, c in zip(("out", "b", "pz"), got, want, again):
         _within(a, b, 6e-2, 2e-2, name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+
+
+# The wide forwards (csrc/edge_wide.cuh) at c_z 128, 256, 512 on ragged L:
+# B L^2 = 2738, 1152, 512 pair rows (the last 64-row tile part-filled at 37).
+@pytest.mark.parametrize("cz,L", [(128, 37), (256, 24), (512, 16)])
+@pytest.mark.parametrize("with_readout", [False, True])
+def test_wide_edge_kernel_matches_plain(dev, cz, L, with_readout):
+    """K1 (readout off) and K2 (on) at c_z 128, 256, 512
+    (csrc/edge_transition.cu's wide entry) against the plain version."""
+    edge, nb, mask, p, ro = _wide_edge_inputs(dev, cz, L, with_readout)
+    _wide_edge_check(lambda: cuda_edge.fused_edge_transition(edge, nb, mask, p, readout=ro),
+                     lambda: cuda_edge.edge_transition_plain(edge, nb, mask, p, torch.bfloat16, ro),
+                     "edge_transition", ro)
+
+
+@pytest.mark.parametrize("cz,L", [(128, 37), (256, 24), (512, 16)])
+@pytest.mark.parametrize("with_readout", [False, True])
+def test_wide_int8_edge_kernel_matches_plain(dev, cz, L, with_readout):
+    """K6 at c_z 128, 256, 512 (csrc/edge_transition_int8.cu's wide entry)
+    against its plain version at K6's bound; one launch a call, two calls
+    bit for bit."""
+    edge, nb, mask, p, ro = _wide_edge_inputs(dev, cz, L, with_readout)
+    _wide_edge_check(
+        lambda: cuda_edge.fused_edge_transition_int8(edge, nb, mask, p, readout=ro),
+        lambda: cuda_edge.edge_transition_int8_plain(edge, nb, mask, p, torch.bfloat16, ro),
+        "edge_transition_int8", ro)
+
+
+@pytest.mark.parametrize("quant_int8", [False, True])
+def test_wide_edge_kernels_refuse_stages_of_another_length(dev, monkeypatch, quant_int8):
+    """The wide libraries check the lengths of the weight stages they copy
+    (ops["wb"], ops["wrb"]) against their schedule themselves: with the
+    wrapper's own shape checks switched off, a stage short raises."""
+    edge, nb, mask, p, ro = _wide_edge_inputs(dev, 128, 24, True)
+    fn = cuda_edge.fused_edge_transition_int8 if quant_int8 else cuda_edge.fused_edge_transition
+    monkeypatch.setattr(cuda_edge, "_check_ops", lambda *a, **k: None)
+    for key in ("wb", "wrb"):
+        ops = cuda_edge.kernel_operands(p, ro, quant_int8=quant_int8)
+        ops[key] = ops[key][:-cuda_edge.STAGE]
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            fn(edge, nb, mask, p, readout=ro, ops=ops)
 
 
 def ipa1_inputs(dev, B, L, widths, dtype, seed=0):

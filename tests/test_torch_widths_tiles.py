@@ -1,7 +1,10 @@
 """The wide kernels' schedule (c_z = F = 128, 256: csrc/wide_gemm.cuh,
 wide_dist.cuh and the ``*_wide_*`` entry points of edge_transition.cu,
 edge_transition_bwd.cu, distance_embed.cu and distance_embed_bwd.cu),
-emulated in plain PyTorch on the CPU against the plain versions.
+emulated in plain PyTorch on the CPU against the plain versions. The
+EdgeTransition forward's tile kernel (csrc/edge_wide.cuh) is emulated by
+tests/test_torch_widths_edge_fused.py's ``fused_forward``, held here to the
+plain version at c_z 128 and 256 as well.
 
 The CUDA kernels cannot run here, so the functions below repeat what the
 entry points launch, in order, on the operands ``kernel_operands`` packs:
@@ -36,6 +39,8 @@ import pytest
 import torch
 
 from pepflowww_torch.models import cuda_dist, cuda_edge
+
+from test_torch_widths_edge_fused import fused_forward
 
 torch.set_num_threads(1)
 bf = torch.bfloat16
@@ -110,30 +115,6 @@ def _edge_inputs(cz, B, L, seed):
             f(B, L, L, cz).to(bf))
 
 
-def edge_forward_wide(edge, nb, mask, ops, readout, eps=1e-5):
-    """edge_transition_wide_forward's launches."""
-    B, L, _, cz = edge.shape
-    hid, M, ny = 3 * cz, B * L * L, 8 * cz
-    ri, rj = pair_rows(B, L)
-    Y = nt([seg(nb, cz)], [seg(ops["wn"], cz)], B * L, ny, cz, L)
-    a = nt([seg(edge, cz)], [seg(ops["w1t"], hid)], M, hid, cz, L)
-    h1 = rnd(torch.relu(a + Y[ri, :hid] + Y[rj, hid:2 * hid] + ops["b1"]))
-    h2 = rnd(torch.relu(nt([seg(h1, hid)], [seg(ops["w2t"], hid)], M, hid, hid, L) + ops["b2"]))
-    o = nt([seg(h2, hid), seg(edge, cz, hid)], [seg(ops["w3t"], hid), seg(ops["w3t"], hid, hid)],
-           M, cz, hid + cz, L)
-    o = o + Y[ri, 2 * hid:2 * hid + cz] + Y[rj, 2 * hid + cz:] + ops["b3"]
-    mu = o.mean(-1, keepdim=True)
-    inv = torch.rsqrt((o - mu).square().mean(-1, keepdim=True) + eps)
-    m = mask.reshape(-1)
-    out = rnd(((o - mu) * inv * ops["ln_scale"] + ops["ln_bias"]) * (m[ri] * m[rj])[:, None])
-    if readout is None:
-        return out.reshape(B, L, L, cz)
-    lanes, n_b, n_pz = ops["wrt"].shape[0], ops["n_b"], ops["n_pz"]
-    v = rnd(nt([seg(out, cz)], [seg(ops["wrt"], cz)], M, lanes, cz, L) + ops["bro"])
-    v = v.reshape(B, L, L, lanes).permute(0, 3, 1, 2)
-    return out.reshape(B, L, L, cz), v[:, :n_b], v[:, n_b:n_b + n_pz]
-
-
 def edge_backward_wide(edge, nb, mask, ops, g, eps=1e-5):
     """edge_transition_wide_backward's launches."""
     B, L, _, cz = edge.shape
@@ -183,10 +164,10 @@ def test_wide_edge_forward_schedule(cz):
     lanes = -(-(8 + cz // 4) // 64) * 64
     assert ops["wrt"].shape == (lanes, cz) and not ops["wrt"][8 + cz // 4:].any()
     want = cuda_edge.edge_transition_plain(edge, nb, mask, p, bf)
-    torch.testing.assert_close(edge_forward_wide(edge, nb, mask, ops, None).float(), want.float(),
+    torch.testing.assert_close(fused_forward(edge, nb, mask, ops, None).float(), want.float(),
                                atol=1e-2, rtol=0)
     want = cuda_edge.edge_transition_plain(edge, nb, mask, p, bf, readout=ro)
-    for name, a, b in zip(("out", "b", "pz"), edge_forward_wide(edge, nb, mask, ops, ro), want):
+    for name, a, b in zip(("out", "b", "pz"), fused_forward(edge, nb, mask, ops, ro), want):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), atol=1e-2, rtol=0, msg=name)
 
