@@ -202,14 +202,17 @@ Phases, each on its own lines:
    wide EdgeTransition forwards' tile kernel (csrc/edge_wide.cuh, twelve
    instances: c_z 128, 256, 512 for K1/K2 and for K6, readout off and on):
    its registers, no spills, its dynamic shared memory, and 2 device kernels
-   a call. For each width, K1-K8 through
+   a call; and the wide EdgeTransition backward's kernels (K4,
+   csrc/edge_transition_bwd.cu: the chain kernel's three instances, the
+   weight-gradient and reduction kernels) the same way, 4 device kernels a
+   call. For each width, K1-K8 through
    their wrappers against their plain versions (K1/K2 and K6 within
    EDGE_TOL, K6 with no pair row beyond it, and two calls of each of K1,
    K2 and K6 bit for bit; K3 within DIST_TOL; K7 within
    IPA_TOL in the sampler's and training's layouts; K4, K5 and K8, also at
    L = 128 and half the batch, each gradient within BWD_REL of its norm and
    bit-identical across two calls), the device kernels of one call (the
-   library's count, by design 2, 2, 4, 20, 15, 2, 5 and 12), each one's
+   library's count, by design 2, 2, 4, 4, 15, 2, 5 and 12), each one's
    device time beside its bound; then the 6-block model of that width with
    seeded weights through the normal entry points: a 20-step sampler run
    (K2 100 times, K3 once, nothing else) and a training step (K1 5, K4 5,
@@ -505,8 +508,8 @@ def phase_setup():
     # library: the tiled GEMM's instances (tile, operand layout, epilogue) and the row
     # kernels; no spills. The GEMM's dynamic shared memory: three stages of its A and B
     # tiles, rows padded by 16 bytes.
-    modes = {0: "relu", 1: "relu+pair mask", 2: "fp32", 3: "residual", 4: "dA",
-             5: "dA2 (distance)", 6: "dx", 8: "split-K partial", 13: "batched (b, h)"}
+    modes = {0: "relu", 1: "relu+pair mask", 2: "fp32", 4: "dA", 5: "dA2 (distance)",
+             8: "split-K partial", 13: "batched (b, h)"}
     for lib, tag in (("edge_transition", "K1/K2"), ("edge_transition_bwd", "K4"),
                      ("distance_embed", "K3"), ("distance_embed_bwd", "K5"),
                      ("edge_transition_int8", "K6"), ("ipa2_wide", "K7/K8")):
@@ -581,6 +584,29 @@ def wide_edge_setup():
         check((per_call(0), per_call(1)) == (2, 2),
               f"{lib}: not 2 device kernels a wide call, readout off and on")
         say("setup", f"{lib} {tag} wide: 2 device kernels a call (node pre-pass, tile kernel)")
+    # K4 at the same widths (csrc/edge_transition_bwd.cu, namespace ebwd):
+    # the chain kernel at c_z 128, 256, 512, the weight-gradient and the
+    # reduction kernels; no spill.
+    lib = "edge_transition_bwd"
+    smem = native.function(lib, "edge_transition_wide_bwd_smem_bytes", [ctypes.c_int] * 2)
+    found = []
+    for entry, use, spill in ptxas_entries(native.BUILD_LOG.get(lib, "")):
+        m = re.search(r"ebwd_(chain|weight|reduce)_kernel(?:ILi(\d+)E)?", entry)
+        if not m:
+            continue
+        found.append((m[1], int(m[2] or 0)))
+        tag = f"{m[1]} kernel" + (f" c_z={m[2]}" if m[2] else "")
+        extra = {"chain": f"; {smem(int(m[2] or 0), 0)} bytes of dynamic shared memory a block",
+                 "weight": f"; {smem(0, 1)} bytes of dynamic shared memory a block"}.get(m[1], "")
+        say("setup", f"{lib} K4 wide {tag}: {use}; {spill}{extra}")
+        check(spill.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"{lib} K4 wide {tag} spills ({spill})")
+    want = [("chain", 128), ("chain", 256), ("chain", 512), ("reduce", 0), ("weight", 0)]
+    check(sorted(found) == want, f"{lib}: ptxas -v reported wide K4 kernels {sorted(found)}")
+    per_call = native.function(lib, "edge_transition_wide_bwd_kernels_per_call", [])()
+    check(per_call == 4, f"{lib}: {per_call} device kernels a wide call, not 4")
+    say("setup", f"{lib} K4 wide: {per_call} device kernels a call (node pre-pass, chain, "
+                 f"weight-gradient and reduction kernels)")
 
 
 def ptxas_entries(log: str):
@@ -3214,6 +3240,8 @@ def _widths_kernels(card: str, w: int) -> dict:
         torch.cuda.synchronize()
         check(launched() - before == per_call, f"{tag}: {launched() - before} device kernels "
                                                f"a call, {per_call} by design")
+        if name == "K4":   # the redesigned chain: the pre-pass and three kernels
+            check(per_call <= 4, f"{tag}: {per_call} device kernels a call, more than 4")
         with torch.no_grad():
             k_ms = device_ms(call)
             p_ms = cuda_ms(plain, reps=2, warmup=1)

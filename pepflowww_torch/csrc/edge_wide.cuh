@@ -403,6 +403,102 @@ __device__ __forceinline__ void quantize(uint32_t panel, int cc, int r, float2 h
                 (quant(hb.x, invb) & 0xff) | ((quant(hb.y, invb) & 0xff) << 8));
 }
 
+// The K loop of one m64n64 product over NK stages of a tile::Ring (whose
+// stages hold an A piece of A_BYTES, then one B piece a consumer
+// warpgroup): A at a_addr(k, slot), B this warpgroup's piece of the stage;
+// one wgmma group in flight while the next stage is awaited, each stage
+// freed once its group is done. The forward's tile kernel (Kernel below)
+// and the wide backward's chain kernel (edge_transition_bwd.cu) run their
+// products through it.
+template <bool I8, int NK, int A_BYTES, class Ring, class Acc, class AAddr>
+__device__ __forceinline__ void ring_product(Acc (&acc)[32], Ring& ring, int cw, AAddr a_addr,
+                                             bool accumulate) {
+  int prev = 0;
+#pragma unroll 1
+  for (int k = 0; k < NK; ++k) {
+    const int s = ring.acquire();
+    const uint32_t b = ring.stage(s) + A_BYTES + cw * PIECE, a = a_addr(k, s);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int sc = (k > 0 || i > 0 || accumulate) ? 1 : 0;
+      if constexpr (I8)
+        tile::mma_ss_s8_n64(acc, desc_sw128(a + 32 * i), desc_sw128(b + 32 * i), sc);
+      else
+        mma_ss_n64(acc, desc_sw128(a + 32 * i), desc_sw128(b + 32 * i), sc);
+    }
+    wgmma_commit();
+    if (k > 0) {
+      tile::wgmma_wait<1>();
+      ring.release(prev);
+    }
+    prev = s;
+  }
+  tile::wgmma_wait<0>();
+  fence_regs(acc);
+  ring.release(prev);
+}
+
+// d = A . B, one warp's m16n8k16 product with C = 0: d is only written, so
+// that no zero fill of it need precede the product.
+__device__ __forceinline__ void mma_m16n8k16_start(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// The same product with each warp's own mma.sync m16n8k16 (its 16 rows,
+// operands through ldmatrix from the swizzled panels), leaving the m64n64
+// accumulator layout: used for the small products (the forward's o = e.W3e
+// and readout, the backward's d_edge = do.W3e^T), whose wgmma would cost the
+// compiler the accumulator registers it needs to keep the large products
+// asynchronous at 8x. acc starts at 0; with START the first step's products
+// start it (the backward: a zero fill before them was hoisted far up and
+// held acc's registers through the steps before).
+template <int NK, int A_BYTES, bool START = false, class Ring, class AAddr>
+__device__ __forceinline__ void ring_product_sync(float (&acc)[32], Ring& ring, int cw,
+                                                  AAddr a_addr) {
+  const int lane = threadIdx.x & 31, ar = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+  const int bn = (lane & 7) + ((lane >> 4) << 3), bk = (lane >> 3) & 1;
+  // One stage's products; `first`: the first step's start acc.
+  const auto step = [&](int k, bool first) {
+    const int s = ring.acquire();
+    const uint32_t b = ring.stage(s) + A_BYTES + cw * PIECE, a = a_addr(k, s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, a + ar * 128 + (((2 * kk + (lane >> 4)) ^ (ar & 7)) << 4));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int n = 16 * np + bn;
+        uint32_t bf[4];
+        ldsm_x4(bf, b + n * 128 + (((2 * kk + bk) ^ (n & 7)) << 4));
+        if (first && kk == 0) {
+          mma_m16n8k16_start(*reinterpret_cast<float(*)[4]>(&acc[8 * np]), af, bf[0], bf[1]);
+          mma_m16n8k16_start(*reinterpret_cast<float(*)[4]>(&acc[8 * np + 4]), af, bf[2], bf[3]);
+        } else {
+          mma_m16n8k16(*reinterpret_cast<float(*)[4]>(&acc[8 * np]), af, bf[0], bf[1]);
+          mma_m16n8k16(*reinterpret_cast<float(*)[4]>(&acc[8 * np + 4]), af, bf[2], bf[3]);
+        }
+      }
+    }
+    ring.release(s);
+  };
+  if constexpr (START) {
+    step(0, true);   // peeled, so that no path reads acc before it is written
+#pragma unroll 1
+    for (int k = 1; k < NK; ++k) step(k, false);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < NK; ++k) step(k, false);
+  }
+}
+
 template <int CZ, bool INT8, bool READOUT>
 struct Kernel {
   using C = Cfg<CZ, INT8>;
@@ -417,69 +513,15 @@ struct Kernel {
   static constexpr bool PARK = INT8 ? C::NJ > 1 : C::NJ > 2;
   static_assert(!PARK || C::SCRATCH >= (long long)TM * CZ * 4, "room to park o");
 
-  // The K loop of one m64n64 product over NK stages: A at a_addr(k, slot),
-  // B this warpgroup's piece of the stage; one wgmma group in flight while
-  // the next stage is awaited, each stage freed once its group is done.
   template <bool I8, int NK, class Acc, class AAddr>
   static __device__ __forceinline__ void run_k(Acc (&acc)[32], Ring& ring, int cw, AAddr a_addr,
                                                bool accumulate) {
-    int prev = 0;
-#pragma unroll 1
-    for (int k = 0; k < NK; ++k) {
-      const int s = ring.acquire();
-      const uint32_t b = ring.stage(s) + C::A_BYTES + cw * PIECE, a = a_addr(k, s);
-      wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int sc = (k > 0 || i > 0 || accumulate) ? 1 : 0;
-        if constexpr (I8)
-          tile::mma_ss_s8_n64(acc, desc_sw128(a + 32 * i), desc_sw128(b + 32 * i), sc);
-        else
-          mma_ss_n64(acc, desc_sw128(a + 32 * i), desc_sw128(b + 32 * i), sc);
-      }
-      wgmma_commit();
-      if (k > 0) {
-        tile::wgmma_wait<1>();
-        ring.release(prev);
-      }
-      prev = s;
-    }
-    tile::wgmma_wait<0>();
-    fence_regs(acc);
-    ring.release(prev);
+    ring_product<I8, NK, C::A_BYTES>(acc, ring, cw, a_addr, accumulate);
   }
-
-  // The same product with each warp's own mma.sync m16n8k16 (its 16 rows,
-  // operands through ldmatrix from the swizzled panels), leaving the m64n64
-  // accumulator layout: used for the two small products (o = e.W3e and the
-  // readout), whose wgmma would cost the compiler the accumulator
-  // registers it needs to keep the large products asynchronous at 8x.
   template <int NK, class AAddr>
   static __device__ __forceinline__ void run_k_sync(float (&acc)[32], Ring& ring, int cw,
                                                     AAddr a_addr) {
-    const int lane = threadIdx.x & 31, ar = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
-    const int bn = (lane & 7) + ((lane >> 4) << 3), bk = (lane >> 3) & 1;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int k = 0; k < NK; ++k) {
-      const int s = ring.acquire();
-      const uint32_t b = ring.stage(s) + C::A_BYTES + cw * PIECE, a = a_addr(k, s);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, a + ar * 128 + (((2 * kk + (lane >> 4)) ^ (ar & 7)) << 4));
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int n = 16 * np + bn;
-          uint32_t bf[4];
-          ldsm_x4(bf, b + n * 128 + (((2 * kk + bk) ^ (n & 7)) << 4));
-          mma_m16n8k16(*reinterpret_cast<float(*)[4]>(&acc[8 * np]), af, bf[0], bf[1]);
-          mma_m16n8k16(*reinterpret_cast<float(*)[4]>(&acc[8 * np + 4]), af, bf[2], bf[3]);
-        }
-      }
-      ring.release(s);
-    }
+    ring_product_sync<NK, C::A_BYTES>(acc, ring, cw, a_addr);
   }
 
   // The producer's one thread: every tile's stages, in the consumers' order.

@@ -1,6 +1,7 @@
 // The Hopper tile core (sm_90a) of the wide EdgeTransition forwards (K1/K2
 // in edge_transition.cu, K6 in edge_transition_int8.cu, both through
-// edge_wide.cuh): warp specialisation, a weight ring in shared memory
+// edge_wide.cuh) and of its backward's chain kernel (K4,
+// edge_transition_bwd.cu): warp specialisation, a weight ring in shared memory
 // guarded by mbarriers, 1-D bulk asynchronous copies and the int8 wgmma
 // with both operands in shared memory. Built on wgmma.cuh.
 //
@@ -27,7 +28,7 @@
 // wgmma descriptors name (wgmma.cuh: chunk c of row r at chunk c ^ (r % 8),
 // 1024-byte aligned), 8 KB. A stage holds the piece of consumer warpgroup
 // 0, then that of warpgroup 1, after an optional A piece (8 KB) that the
-// producer copies from elsewhere (the 8x kernel's h1, edge_wide.cuh).
+// producer copies from elsewhere (the 8x kernels' hidden rows).
 
 #pragma once
 
@@ -152,8 +153,9 @@ struct Ring {
   __device__ __forceinline__ uint32_t empty(int s) const {
     return base + BAR_OFF + 8 * (NSTAGE + s);
   }
-  // A further barrier after the empty ones, for the kernel's own use (the
-  // 8x EdgeTransition's "h1 is in the scratch").
+  // A further barrier after the empty ones, for the kernel's own use (at 8x
+  // "this tile's hidden row is in device memory", which the producer copies
+  // back).
   __device__ __forceinline__ uint32_t ready() const { return base + BAR_OFF + 16 * NSTAGE; }
   __device__ __forceinline__ uint32_t stage(int s) const { return base + RING_OFF + s * STAGE; }
   __device__ __forceinline__ int slot() const { return state & 0xff; }

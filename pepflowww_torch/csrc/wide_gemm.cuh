@@ -1,9 +1,9 @@
 // Width-general building blocks of the production profile's kernels at the
 // JAX package's 2x, 4x and 8x widths (c_z = 128, 256, 512), for Hopper,
-// sm_90a: K4 (edge_transition_bwd.cu), K3 (distance_embed.cu), K5
-// (distance_embed_bwd.cu) and K7/K8 (ipa2_wide.cu) call them through their
-// *_wide_* entry points, and K1/K2 and K6 (edge_wide.cuh) their node
-// pre-pass; the 1x kernels keep their own designs.
+// sm_90a: K3 (distance_embed.cu), K5 (distance_embed_bwd.cu) and K7/K8
+// (ipa2_wide.cu) call them through their *_wide_* entry points, and K1/K2,
+// K6 (edge_wide.cuh) and K4 (edge_transition_bwd.cu) their node pre-pass;
+// the 1x kernels keep their own designs.
 //
 // Why a second design. At 1x every weight of a kernel sits in one block's
 // shared memory next to its activation tile. From 2x on it cannot: W2 of the
@@ -26,11 +26,10 @@
 // and output offset by strides (the IPA's heads: ipa2_wide.cu).
 // Every operand is an Opd: up to four column segments, each from its own
 // source, whose rows are either the row itself or, for a pair row p = (b L
-// + i) L + j, the residue row b L + i or b L + j: so the concat row [e |
-// n_i | n_j] of the EdgeTransition and the K-concatenations [h2 | e] and
-// [da1 | do] are read in place, never built. A segment starts on a
-// multiple of 8 columns, so no 16-byte chunk straddles two (a K tile may:
-// each chunk finds its own segment).
+// + i) L + j, the residue row b L + i or b L + j: so a concatenation of
+// columns (the distance block's x) is read in place, never built. A segment
+// starts on a multiple of 8 columns, so no 16-byte chunk straddles two (a K
+// tile may: each chunk finds its own segment).
 //
 // The epilogue (MODE) takes each pair of adjacent accumulator columns: bias,
 // per-residue terms, ReLU, masks, bf16 rounding, the split-K partial slot.
@@ -78,8 +77,7 @@ static inline int launched() {
 
 enum Gather { ROW = 0, NODE_I = 1, NODE_J = 2 };
 // The numbers name the instances in ptxas's output (chip_smoke.py reads them).
-enum Mode { RELU = 0, RELU_PAIRMASK = 1, F32 = 2, RC = 3, DA = 4, DA2D = 5, DX = 6, PART = 8,
-            BATCH = 13 };
+enum Mode { RELU = 0, RELU_PAIRMASK = 1, F32 = 2, DA = 4, DA2D = 5, PART = 8, BATCH = 13 };
 
 // A column segment of an operand: columns [start, next start) come from p,
 // row-major with leading dimension ld, its rows picked by gather.
@@ -173,16 +171,10 @@ struct Epi {
   int ld_f32;
   bf16* out;                // bf16 output [M][ld_out]
   int ld_out;
-  uint8_t* mask_out;        // RC: a2 > 0, [M][N]
-  const uint8_t* mask_in;   // DA: the ReLU's mask as bytes [M][N], or null ...
-  const bf16* hmask;        // ... else where this bf16 [M][N] is above 0
+  const bf16* hmask;        // DA: the ReLU's mask, where this bf16 [M][N] is above 0
   const bf16* g;            // DA2D: the output's cotangent [M][N]
   const float* pmask;       // RELU_PAIRMASK, DA2D: residue mask [B L]; pair mask s_i s_j
-  Opd x;                    // RC: the residual [e | n_i | n_j]
   float* colpart;           // DA, DA2D: column sums, one row of N a block row
-  void* d_edge;             // DX: columns < cz, fp32 (d_edge_f32) or bf16 [M][cz]
-  int d_edge_f32;
-  int cz;
   // BATCH: block row blockIdx.y = b H + h reads A at b a_b + h a_h and B at
   // b b_b + h b_h (elements), and writes alpha C to f32 + b o_b + h o_h,
   // rows ld_f32 apart.
@@ -233,30 +225,10 @@ __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, 
         make_float2(v0 * e.alpha, v1 * e.alpha);
     return make_float2(0.f, 0.f);
   }
-  if (MODE == DX) {
-    if (c < e.cz) {
-      const long long o = (long long)r * e.cz + c;
-      if (e.d_edge_f32) *reinterpret_cast<float2*>(static_cast<float*>(e.d_edge) + o) =
-          make_float2(v0, v1);
-      else store2(static_cast<bf16*>(e.d_edge) + o, v0, v1);
-    } else {
-      *reinterpret_cast<float2*>(e.f32 + (long long)r * (N - e.cz) + (c - e.cz)) =
-          make_float2(v0, v1);
-    }
-    return make_float2(0.f, 0.f);
-  }
   if (MODE == DA) {
     const long long o = (long long)r * N + c;
-    bool p0, p1;
-    if (e.mask_in) {
-      p0 = e.mask_in[o] != 0;
-      p1 = e.mask_in[o + 1] != 0;
-    } else {
-      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(e.hmask + o);
-      p0 = __low2float(h) > 0.f;
-      p1 = __high2float(h) > 0.f;
-    }
-    const float d0 = p0 ? v0 : 0.f, d1 = p1 ? v1 : 0.f;
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(e.hmask + o);
+    const float d0 = __low2float(h) > 0.f ? v0 : 0.f, d1 = __high2float(h) > 0.f ? v1 : 0.f;
     store2(e.out + (long long)r * e.ld_out + c, d0, d1);
     return make_float2(d0, d1);
   }
@@ -278,14 +250,6 @@ __device__ __forceinline__ float2 epilogue(const Epi& e, int r, int2 nr, int c, 
     store2(e.out + (long long)r * e.ld_out + c, fmaxf(a0, 0.f) * s, fmaxf(a1, 0.f) * s);
   } else if (MODE == F32) {
     *reinterpret_cast<float2*>(e.f32 + (long long)r * e.ld_f32 + c) = make_float2(a0, a1);
-  } else if (MODE == RC) {
-    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(opd_at(e.x, r, nr, c));
-    store2(e.out + (long long)r * e.ld_out + c, fmaxf(a0, 0.f) + __low2float(x),
-           fmaxf(a1, 0.f) + __high2float(x));
-    uchar2 m;
-    m.x = a0 > 0.f;
-    m.y = a1 > 0.f;
-    *reinterpret_cast<uchar2*>(e.mask_out + (long long)r * N + c) = m;
   } else if (MODE == DA2D) {
     const float s = e.pmask[nr.x] * e.pmask[nr.y];
     const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(e.g + (long long)r * N + c);
@@ -434,10 +398,8 @@ wide_gemm_kernel(const __grid_constant__ Opd A, const __grid_constant__ Opd Bo, 
   float cs[4][2];
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) cs[ni][0] = cs[ni][1] = 0.f;
-  // Residue rows are needed by the per-residue terms, the pair mask and the
-  // residual's gathered columns.
-  const bool rows_needed = e.yi != nullptr || MODE == RELU_PAIRMASK || MODE == DA2D ||
-                           (MODE == RC && gathers(e.x));
+  // Residue rows are needed by the per-residue terms and the pair mask.
+  const bool rows_needed = e.yi != nullptr || MODE == RELU_PAIRMASK || MODE == DA2D;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll

@@ -72,10 +72,11 @@ _WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlo
 # edge_transition_int8_wide_forward: 19 pointers, then as edge_transition_wide_forward.
 _INT8_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
                        + [ctypes.c_float, ctypes.c_void_p])
-# edge_transition_wide_backward: 40 pointers, B, L, cz, ks1, ks2, ks3, d_edge_f32, eps, stream.
-_WIDE_BWD_ARGTYPES = [ctypes.c_void_p] * 40 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                                    ctypes.c_void_p]
-WIDE_ROWS = 128      # pair rows of a wide GEMM block: one column-sum partial row each
+# edge_transition_wide_backward: 31 pointers, B, L, cz, grid, nslices, the bytes of wbb, the
+# floats of the reduction's partials, its tickets, d_edge_f32, eps, stream.
+_WIDE_BWD_ARGTYPES = ([ctypes.c_void_p] * 31 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+RK_CHUNK = 512   # K of a chunk of the wide backward's reduction (edge_transition_bwd.cu)
 PIECE = 64 * 128     # bytes of a wide forward's weight piece: 64 rows x 128 bytes of K
 STAGE = 2 * PIECE    # a ring stage: consumer warpgroup 0's piece, then warpgroup 1's
 BWD_TI = 8           # the backward kernel's tile: 8 x 8 pairs (i, j) of one batch row
@@ -267,6 +268,40 @@ def wide_stages(cz: int, quant_int8: bool = False) -> list:
     return stages
 
 
+WIDE_BWD_STREAM_CZ = 512   # from this c_z the backward's h1, r and da2 round-trip (A pieces)
+
+
+def wide_bwd_stages(cz: int) -> list:
+    """The stages of the wide backward's chain kernel (csrc/edge_transition_bwd.cu
+    ``ebwd::Chain``), every tile the same, in the order its consumers take
+    them, as :func:`wide_stages` lists the forward's: a1 = e.W1e ("w1e")
+    chunk by chunk of 128 hidden columns; for each chunk of a2 its W2 pieces
+    ("w2", K the hidden width) and the W3 pieces of o's blocks over the
+    chunk's two panels ("w3"); dr = do.W3^T ("k3": k3 as stored, [hid][cz],
+    K-major for this product) chunk by chunk; the d_edge init do.W3e^T (k3's
+    first c_z rows); for each chunk of dh1 its W2^T pieces ("k2": k2 as
+    stored) and the W1e^T pieces of d_edge's blocks ("k1e": k1's first c_z
+    rows as stored). At c_z 512 (WIDE_BWD_STREAM_CZ) every chunk's W2 pieces
+    come first, then each block of o's W3 pieces over the hidden width; and
+    after dr every chunk's W2^T pieces, then for each block of d_edge its
+    init's and its W1e^T pieces over the hidden width."""
+    hid, nj, ke, kh = 3 * cz, cz // 128, cz // 64, 3 * cz // 64
+    nc = hid // 128
+    hidden = lambda a, b: [st for c in range(nc)
+                           for st in [(a, (2 * c, 2 * c + 1), k) for k in range(kh)]
+                           + [(b, (j, nj + j), 2 * c + k) for j in range(nj) for k in range(2)]]
+    a1 = [("w1e", (2 * c, 2 * c + 1), k) for c in range(nc) for k in range(ke)]
+    dr = [("k3", (2 * c, 2 * c + 1), k) for c in range(nc) for k in range(ke)]
+    d_init = lambda j: [("k3", (j, nj + j), k) for k in range(ke)]
+    if cz >= WIDE_BWD_STREAM_CZ:
+        every = lambda a: [(a, (2 * c, 2 * c + 1), k) for c in range(nc) for k in range(kh)]
+        by_block = lambda b, j: [(b, (j, nj + j), k) for k in range(kh)]
+        return (a1 + every("w2") + [st for j in range(nj) for st in by_block("w3", j)] + dr
+                + every("k2") + [st for j in range(nj) for st in d_init(j) + by_block("k1e", j)])
+    return (a1 + hidden("w2", "w3") + dr + [st for j in range(nj) for st in d_init(j)]
+            + hidden("k2", "k1e"))
+
+
 def readout_stages(cz: int, lanes: int) -> list:
     """The readout's stages ("wr", the padded [kb | kdz | 0] transposed):
     pairs of 64-lane blocks (the second may lie past `lanes`: zeros), each
@@ -342,12 +377,12 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
 
     At c_z 128, 256, 512 the wide kernels also take wn, the node rows of k1
     and k3 transposed ([W1i | W1j | W3i | W3j]^T, (2 hid + 2 c_z, c_z)), the
-    backward's k1b, k2b, k3b (the bf16 weights as stored, [in, out]; not
-    with `quant_int8`, which is forward-only), the readout padded to a
-    multiple of 64 lanes, wrt (lanes, c_z); the int8 weights w2qt, w3qt are
-    not permuted there. The forward's tile kernel reads its weights as wb,
-    the stages of :func:`wide_stages` packed one after another (16 KB each),
-    and wrb those of :func:`readout_stages`. Unsupported widths raise
+    readout padded to a multiple of 64 lanes, wrt (lanes, c_z); the int8
+    weights w2qt, w3qt are not permuted there. The forward's tile kernel
+    reads its weights as wb, the stages of :func:`wide_stages` packed one
+    after another (16 KB each), and wrb those of :func:`readout_stages`; the
+    backward's chain kernel as wbb, those of :func:`wide_bwd_stages` (not
+    with `quant_int8`, which is forward-only). Unsupported widths raise
     (:func:`check_widths`)."""
     bf = torch.bfloat16
     cz, cb, hid = _param_widths(p)
@@ -366,8 +401,6 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         k1, k3 = p["k1"].to(bf), p["k3"].to(bf)
         ops["wn"] = torch.cat([k1[cz:2 * cz].t(), k1[2 * cz:].t(), k3[cz:2 * cz].t(),
                                k3[2 * cz:].t()]).contiguous()
-        if not quant_int8:
-            ops.update({f"k{k}b": p[f"k{k}"].to(bf).contiguous() for k in ("1", "2", "3")})
     if readout is not None:
         kb, bb, kdz, bdz = readout
         n_b, n_pz = kb.shape[1], kdz.shape[1]
@@ -389,6 +422,10 @@ def kernel_operands(p: dict, readout: Optional[tuple] = None, quant_int8: bool =
         else:
             pieces.update(w2=wide_pieces(ops["w2t"]), w3=wide_pieces(ops["w3t"]))
         ops["wb"] = _pack_stages(wide_stages(cz, quant_int8), pieces)
+        if not quant_int8:
+            k1, k2, k3 = (p[f"k{k}"].to(bf) for k in ("1", "2", "3"))
+            pieces.update(k3=wide_pieces(k3), k2=wide_pieces(k2), k1e=wide_pieces(k1[:cz]))
+            ops["wbb"] = _pack_stages(wide_bwd_stages(cz), pieces)
         if readout is not None:
             ops["wrb"] = _pack_stages(readout_stages(cz, ops["wrt"].shape[0]),
                                       {"wr": wide_pieces(ops["wrt"])})
@@ -400,12 +437,12 @@ def _wide_operands(cz: int, lanes: int = 0, quant_int8: bool = False) -> dict:
     (shape, dtype)."""
     hid, bf, f32, u8 = 3 * cz, torch.bfloat16, torch.float32, torch.uint8
     return {"wb": ((len(wide_stages(cz, quant_int8)) * STAGE,), u8),
+            "wbb": ((len(wide_bwd_stages(cz)) * STAGE,), u8),
             "wrb": ((len(readout_stages(cz, lanes)) * STAGE,), u8),
             "b1": ((hid,), f32), "b2": ((hid,), f32), "b3": ((cz,), f32),
             "ln_scale": ((cz,), f32), "ln_bias": ((cz,), f32),
             "w1t": ((hid, hid), bf), "w2t": ((hid, hid), bf), "w3t": ((cz, hid), bf),
-            "wn": ((2 * hid + 2 * cz, cz), bf), "k1b": ((hid, hid), bf),
-            "k2b": ((hid, hid), bf), "k3b": ((hid, cz), bf),
+            "wn": ((2 * hid + 2 * cz, cz), bf),
             "wrt": ((lanes, cz), bf), "bro": ((lanes,), f32),
             "w2qt": ((hid, hid), torch.int8), "w2s": ((hid,), f32),
             "w3qt": ((cz, hid), torch.int8), "w3s": ((cz,), f32)}
@@ -624,7 +661,7 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
     """Gradients of the EdgeTransition (readout off) with respect to edge,
     node_bias and the parameters, for the cotangent `g` of its output.
     CPU tensors run :func:`edge_transition_bwd_plain`; CUDA tensors run the
-    bf16 backward kernel (three launches at c_z 64, twenty from 128 on,
+    bf16 backward kernel (three launches at c_z 64, four from 128 on,
     counted as one call) or raise.
     Returns (d_edge in `d_edge_dtype` (bfloat16 or float32; float32 by
     default), d_node_bias float32, {name: float32 grad}). Two calls on the
@@ -686,24 +723,25 @@ def edge_transition_bwd(edge, node_bias, node_mask, p: dict, g, dtype=torch.bflo
 
 def _bwd_wide(e, nb, mask, gg, ops, d_edge_dtype, eps):
     """K4 at c_z 128, 256, 512: csrc/edge_transition_bwd.cu's
-    ``edge_transition_wide_backward`` (twenty device launches), counted as
-    one launch of the kernel."""
+    ``edge_transition_wide_backward`` (four device launches: the node
+    pre-pass, the chain, weight-gradient and reduction kernels), counted as
+    one launch of the kernel. Scratch (:func:`wide_bwd_scratch`): the node
+    terms, the bf16 images of h1, r, da2, da1 and do that the weight pass
+    reads, the per-residue sums and the fixed-order partials. The library
+    refuses weight stages (``ops["wbb"]``) of another length than its
+    schedule reads."""
     B, L, _, cz = e.shape
-    hid, M, bf, f32, dev = 3 * cz, B * L * L, torch.bfloat16, torch.float32, e.device
+    hid, bf, f32, dev = 3 * cz, torch.bfloat16, torch.float32, e.device
     for name, t, shape in (("edge", e, (B, L, L, cz)), ("node_bias", nb, (B, L, cz)),
                            ("g", gg, (B, L, L, cz))):
         native.check_tensor(t, name, shape, bf)
     native.check_tensor(mask, "node_mask", (B, L), f32)
-    weights = ("wn", "w1t", "b1", "w2t", "b2", "w3t", "b3", "ln_scale", "k1b", "k2b", "k3b")
+    weights = ("wn", "wbb", "b1", "b2", "b3", "ln_scale")
     _check_ops(ops, weights, _wide_operands(cz), "kernel_operands(p)")
-    ks = wide_bwd_schedule(M, cz, native.sm_count(dev))
-    nblk = -(-M // WIDE_ROWS)
+    grid, nslices = wide_bwd_schedule(B, L, cz, native.sm_count(dev))
+    scratch = [torch.empty(n, dtype=dt, device=dev)
+               for n, dt in wide_bwd_scratch(B, L, cz, grid, nslices)]
     empty = lambda *s, dt=f32: torch.empty(*s, dtype=dt, device=dev)
-    scratch = [empty(B * L, 2 * hid), empty(M, hid, dt=bf), empty(M, hid, dt=bf),
-               empty(M, hid, dt=torch.uint8), empty(M, cz), empty(M, cz, dt=bf),
-               empty(M, hid, dt=bf), empty(M, hid, dt=bf), empty(M, 2 * cz), empty(nblk, 3 * cz),
-               empty(nblk, hid), empty(nblk, hid), empty(-(-M // ks[0]), hid, hid),
-               empty(-(-M // ks[1]), hid, hid), empty(-(-M // ks[2]), hid, cz)]
     d_edge = empty(B, L, L, cz, dt=d_edge_dtype)
     d_node = empty(B, L, cz)
     grads = {"k1": empty(hid, hid), "b1": empty(hid), "k2": empty(hid, hid), "b2": empty(hid),
@@ -712,7 +750,8 @@ def _bwd_wide(e, nb, mask, gg, ops, d_edge_dtype, eps):
                          _WIDE_BWD_ARGTYPES)
     ins = [e, nb, mask, gg] + [ops[k] for k in weights]
     outs = scratch + [d_edge, d_node] + [grads[k] for k in PARAM_NAMES]
-    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, cz, *ks, int(d_edge_dtype == f32), eps,
+    rc = fn(*[t.data_ptr() for t in ins + outs], B, L, cz, grid, nslices, ops["wbb"].numel(),
+            scratch[-2].numel(), scratch[-1].numel(), int(d_edge_dtype == f32), eps,
             torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "edge_transition_bwd")
     native.count_launch("edge_transition_bwd")
@@ -732,12 +771,39 @@ def wide_kslice(K: int, rows: int, cols: int, sms: int, rows_tile: int = 128) ->
     return -(-per // 64) * 64
 
 
-def wide_bwd_schedule(M: int, cz: int, sms: int):
-    """(ks1, ks2, ks3): the K slices of the wide backward's dW1 (3 c_z x 3
-    c_z), dW2 (3 c_z x 3 c_z) and dW3 (3 c_z x c_z) over M pairs."""
-    hid = 3 * cz
-    return (wide_kslice(M, hid, hid, sms), wide_kslice(M, hid, hid, sms),
-            wide_kslice(M, hid, cz, sms))
+def wide_bwd_schedule(B: int, L: int, cz: int, sms: int):
+    """(grid, nslices) of the wide backward on a card of `sms` SMs: the
+    chain kernel's persistent grid (one block an SM, at most one a 64-pair
+    tile) and the K slices of its weight gradients. A slice is dW1e, dW2
+    and dW3 cut in 128 x 192 tiles (2 (c_z / 128) (hid / 192) + (hid / 128)
+    (hid / 192) of them): enough slices for about two blocks an SM, at most
+    one a tile, each with a [2 c_z hid + hid^2] fp32 slot, so the slots stay
+    under ~28 MB at every width (3.0 to 15.7 MB a slice at c_z 128 to
+    512)."""
+    hid, ntiles = 3 * cz, -(-B * L * L // 64)
+    tiles = 2 * (cz // 128) * (hid // 192) + (hid // 128) * (hid // 192)
+    return max(1, min(sms, ntiles)), max(1, min(ntiles, round(2 * sms / tiles)))
+
+
+def wide_bwd_scratch(B: int, L: int, cz: int, grid: int, nslices: int) -> list:
+    """The wide backward's scratch, in the order its entry point takes it:
+    [(elements, dtype)] of y (the node terms Y1_i | Y1_j, fp32), the tiles'
+    bf16 images of h1, r, da2, da1 (hid wide) and do (c_z wide), 64 rows a
+    tile, the per-residue sums [S_i | S_j | T_i | T_j] (fp32), the chain
+    kernel's column sums a block, the weight gradients' slots (fp32), and
+    the reduction's split tiles: their partials (fp32) and tickets (int32).
+    The reduction cuts d_node (64 x 64 tiles, K = 8 c_z) and dW1's node rows
+    (2 sides of 64 x 64 tiles, K = B L) in chunks of RK_CHUNK; a tile of P >
+    1 chunks keeps P partial tiles (the library checks these sizes)."""
+    hid, rows, BL = 3 * cz, -(-B * L * L // 64) * 64, B * L
+    bf, f32 = torch.bfloat16, torch.float32
+    t_dn, p_dn = -(-BL // 64) * (cz // 64), -(-8 * cz // RK_CHUNK)
+    t_dw, p_dw = 2 * (cz // 64) * (hid // 64), -(-BL // RK_CHUNK)
+    partials = (t_dn * p_dn if p_dn > 1 else 0) * 4096 + (t_dw * p_dw if p_dw > 1 else 0) * 4096
+    return ([(BL * 2 * hid, f32)] + [(rows * hid, bf)] * 4 + [(rows * cz, bf),
+            (BL * 2 * (hid + cz), f32), (grid * (2 * hid + 3 * cz), f32),
+            (nslices * (2 * cz * hid + hid * hid), f32), (partials, f32),
+            (t_dn + t_dw, torch.int32)])
 
 
 def bwd_schedule(B: int, L: int, sms: int):

@@ -98,22 +98,25 @@ def build_all(names=SOURCES) -> dict:
         return seconds
 
 
-def build_stamped(names, define: str) -> dict:
-    """Diagnostic builds of csrc/<name>.cu with ``-D<define>``, beside the
-    package's libraries, one nvcc per source, all at once. Returns {name:
-    path}; raises with the compiler's output on failure."""
+def build_stamped(names, define) -> dict:
+    """Diagnostic builds of csrc/<name>.cu with ``-D<define>`` (one macro
+    for all, or a dict of one a name), beside the package's libraries, one
+    nvcc per source, all at once. Returns {name: path}; raises with the
+    compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    defines = define if isinstance(define, dict) else dict.fromkeys(names, define)
     procs = {}
     for name in names:
         out = os.path.join(BUILD_DIR, f"lib{name}_stamps.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-D{define}", "-o", out, os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-D{defines[name]}", "-o", out,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), out)
     paths = {}
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -D{define} failed for csrc/{name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc -D{defines[name]} failed for csrc/{name}.cu:\n{log}")
         paths[name] = out
     return paths
 

@@ -24,15 +24,16 @@ list. A width that fails (out of memory) gets a row with its ``error``.
     python -m pepflowww_torch.width_sweep --trees DIR_A DIR_B [--widths 2,4,8]
         [--batch 64,32,8]
 
-times instead only the sampler (the same 20-step run scaled to 100 steps)
-of each profile (production; ``use_pallas_ipa``, the fused IPA; ``quant_int8``,
-the int8 serving profile: ``bench.width_config``'s flags) at each width, for
-each directory (a checkout or an unpacked ``git archive`` holding
+times instead the sampler (the same 20-step run scaled to 100 steps) of
+each profile (production; ``use_pallas_ipa``, the fused IPA; ``quant_int8``,
+the int8 serving profile: ``bench.width_config``'s flags) and the production
+profile's training step (``--steps`` timed after one to warm up) at each
+width, for each directory (a checkout or an unpacked ``git archive`` holding
 ``pepflowww_torch/``) in a process of its own that imports the package from
 there: the trees in the order given, then in reverse (A, B, B, A), then
-each tree's mean peptides/s per profile and width and its ratio to the
-first tree's, so that two versions are compared within one call on one
-card.
+each tree's mean peptides/s per profile and width and train ms/step per
+width, with its ratio to the first tree's, so that two versions are
+compared within one call on one card.
 """
 
 from __future__ import annotations
@@ -68,9 +69,30 @@ def sampler_pps(model, b, batch: int, dev) -> float:
     return batch / ((time.perf_counter() - t0) * (100 / SAMPLER_STEPS))
 
 
-def profile_rows(widths, batches, dev, num_blocks: int = 6) -> list:
+def train_ms(model, b, dev, steps: int = 6) -> float:
+    """ms of one training step (loss, backward, clip, Adam) of `model` on
+    batch `b`: one step to warm up, then the mean of `steps` timed ones (the
+    model's parameters are trained by them)."""
+    from pepflowww_torch.training.optim import Optimizer
+    from pepflowww_torch.training.train_step import train_step
+
+    model.train()
+    opt = Optimizer(model.parameters(), {"type": "adam", "lr": 5e-4}, 100.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    float(train_step(model, opt, b, LOSS_WEIGHTS, gen)["loss"])   # warm-up
+    bench._sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = train_step(model, opt, b, LOSS_WEIGHTS, gen)
+    float(m["loss"])
+    bench._sync(dev)
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def profile_rows(widths, batches, dev, num_blocks: int = 6, steps: int = 6) -> list:
     """[{width, batch, profile, sampler_pps_100step}] of the package on
-    sys.path: each profile's sampler at each width, seeded weights."""
+    sys.path: each profile's sampler at each width, seeded weights; the
+    production profile's row also has its train_step_ms."""
     from pepflowww_torch.profile_sampler import production_model
 
     rows = []
@@ -80,6 +102,8 @@ def profile_rows(widths, batches, dev, num_blocks: int = 6) -> list:
             model = production_model(dev, bench.width_config(w, num_blocks, **flags))
             rows.append({"width": w, "batch": bsz, "profile": prof,
                          "sampler_pps_100step": sampler_pps(model, b, bsz, dev)})
+            if prof == "production":
+                rows[-1]["train_step_ms"] = train_ms(model, b, dev, steps)
             del model
             torch.cuda.empty_cache()
     return rows
@@ -92,24 +116,12 @@ def run_width(width: int, batch: int, dev, num_blocks: int = 6, steps: int = 6,
     `model` (by default a new one of the width's configuration with seeded
     weights; its parameters are trained by the timed steps)."""
     from pepflowww_torch.profile_sampler import production_model
-    from pepflowww_torch.training.optim import Optimizer
-    from pepflowww_torch.training.train_step import train_step
 
     cfg = bench.width_config(width, num_blocks)
-    model = (model if model is not None else production_model(dev, cfg)).train()
+    model = model if model is not None else production_model(dev, cfg)
     n_params = sum(p.numel() for p in model.parameters())
     b = bench._batch(dev, batch, bench.PEP_LEN, bench.REC_LEN, bench.PAD_TO)
-
-    opt = Optimizer(model.parameters(), {"type": "adam", "lr": 5e-4}, 100.0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    float(train_step(model, opt, b, LOSS_WEIGHTS, gen)["loss"])   # warm-up
-    bench._sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        m = train_step(model, opt, b, LOSS_WEIGHTS, gen)
-    float(m["loss"])
-    bench._sync(dev)
-    dt = (time.perf_counter() - t0) / steps
+    dt = train_ms(model, b, dev, steps) / 1e3
 
     plain = production_model(dev, cfg, use_kernels=False).train()
     flops = bench.train_flops(plain, b, LOSS_WEIGHTS)
@@ -134,7 +146,8 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--num_blocks", type=int, default=6)
     ap.add_argument("--steps", type=int, default=6, help="timed training steps a width")
-    ap.add_argument("--trees", nargs="+", help="checkouts whose samplers to time in turns")
+    ap.add_argument("--trees", nargs="+",
+                    help="checkouts whose samplers and training steps to time in turns")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -146,19 +159,24 @@ def main(argv=None) -> list:
     widths = [int(w) for w in args.widths.split(",")]
     batches = [int(b) for b in args.batch.split(",")]
     if args.child:   # one tree, in this process: one JSON line
-        print(json.dumps(profile_rows(widths, batches, dev, args.num_blocks)), flush=True)
+        print(json.dumps(profile_rows(widths, batches, dev, args.num_blocks, args.steps)),
+              flush=True)
         return []
     if args.trees:   # the samplers of each tree in turns; kernel_times' tree_turns
         from pepflowww_torch.kernel_times import print_turn_means, tree_turns
 
         runs = tree_turns(args.trees, __file__, ["--widths", args.widths, "--batch", args.batch,
                                                  "--device", str(dev),
-                                                 "--num_blocks", str(args.num_blocks)])
+                                                 "--num_blocks", str(args.num_blocks),
+                                                 "--steps", str(args.steps)])
         for root, rows in runs:
             for r in rows:
                 print(f"{root}: {json.dumps(r)}", flush=True)
         print_turn_means(runs, lambda r: f"{r['profile']} w={r['width']} B={r['batch']}: sampler "
                          "peptides/s", lambda r: r["sampler_pps_100step"], lambda m: f"{m:.2f}")
+        train = [(root, [r for r in rows if "train_step_ms" in r]) for root, rows in runs]
+        print_turn_means(train, lambda r: f"w={r['width']} B={r['batch']}: train ms/step",
+                         lambda r: r["train_step_ms"], lambda m: f"{m:.1f}")
         return [r for _, rows in runs for r in rows]
     rows = []
     for w, bsz in zip(widths, batches):

@@ -25,7 +25,10 @@ form, so a row quantization may round the other way, which moves one int8
 step of a hidden lane; tests/test_torch_edge_operands.py counts such rows on
 the CPU). The wide forwards (K1/K2 and K6 at c_z 128, 256, 512:
 csrc/edge_wide.cuh) are held at the same bound, with one counted launch (two
-device kernels) a call and two calls bit for bit. The v1 IPA attention (K9) has fp32 outputs: with bf16
+device kernels) a call and two calls bit for bit; the wide backward (K4 at
+those widths: the node pre-pass, the chain, weight-gradient and reduction
+kernels) like the other backward kernels, with its four device kernels a
+call. The v1 IPA attention (K9) has fp32 outputs: with bf16
 inputs at the model's widths 2e-2 + 1e-3 |plain| (K7's), with fp32 inputs
 at the JAX tests' widths 1e-3 + 1e-4 |plain| (the sums run in another
 order).
@@ -410,6 +413,50 @@ def test_wide_edge_kernels_refuse_stages_of_another_length(dev, monkeypatch, qua
         ops[key] = ops[key][:-cuda_edge.STAGE]
         with pytest.raises(RuntimeError, match="cudaError 1"):
             fn(edge, nb, mask, p, readout=ro, ops=ops)
+
+
+# The wide backward (K4 at c_z 128, 256, 512; csrc/edge_transition_bwd.cu's
+# wide entry) at the training shape's L and a ragged one whose last 64-pair
+# tile is part-filled and whose tiles cross batch rows (B L^2 = 2738 at 37).
+@pytest.mark.parametrize("cz", [128, 256, 512])
+@pytest.mark.parametrize("L", [64, 37])
+def test_wide_edge_backward_kernel_matches_plain(dev, cz, L):
+    """Every gradient within 1e-2 of the plain version's norm, two calls bit
+    for bit, d_edge in bf16 the float32 one rounded, one counted launch a
+    call and the library's designed count of device kernels."""
+    edge, nb, mask, p, _ = _wide_edge_inputs(dev, cz, L, False)
+    g = torch.randn(edge.shape, generator=torch.Generator().manual_seed(cz + L)).to(dev).bfloat16()
+    lib = "edge_transition_bwd"
+    launched = native.function(lib, "edge_transition_bwd_wide_launches", [])
+    per_call = native.function(lib, "edge_transition_wide_bwd_kernels_per_call", [])()
+    assert per_call == 4
+    before, kernels = native.LAUNCHES[lib], launched()
+    got = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[lib] == before + 1
+    assert launched() - kernels == per_call
+    again = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g)
+    half = cuda_edge.edge_transition_bwd(edge, nb, mask, p, g, d_edge_dtype=torch.bfloat16)
+    want = cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, torch.bfloat16)
+    for name, a, b, c in (("d_edge", got[0], want[0], again[0]),
+                          ("d_node", got[1], want[1], again[1]),
+                          *((k, got[2][k], want[2][k], again[2][k]) for k in cuda_edge.PARAM_NAMES)):
+        _close_in_norm(a, b, name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+    assert torch.equal(half[0], got[0].to(torch.bfloat16))
+
+
+def test_wide_edge_backward_refuses_stages_of_another_length(dev, monkeypatch):
+    """The wide backward's library checks the length of the chain kernel's
+    weight stages (ops["wbb"]) itself: with the wrapper's shape checks
+    switched off, a stage short raises."""
+    edge, nb, mask, p, _ = _wide_edge_inputs(dev, 128, 24, False)
+    g = torch.ones_like(edge)
+    monkeypatch.setattr(cuda_edge, "_check_ops", lambda *a, **k: None)
+    ops = cuda_edge.kernel_operands(p)
+    ops["wbb"] = ops["wbb"][:-cuda_edge.STAGE]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        cuda_edge.edge_transition_bwd(edge, nb, mask, p, g, ops=ops)
 
 
 def ipa1_inputs(dev, B, L, widths, dtype, seed=0):

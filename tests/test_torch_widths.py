@@ -257,7 +257,7 @@ def test_unsupported_widths_raise():
         jq, js = _quant_cols(jnp.asarray(p[f"k{k}"].numpy()))
         np.testing.assert_array_equal(ops[f"w{k}qt"].t().numpy(), np.asarray(jq))
         np.testing.assert_array_equal(ops[f"w{k}s"].numpy(), np.asarray(js).reshape(-1))
-    assert "wn" in ops and "w2t" not in ops and "k2b" not in ops
+    assert "wn" in ops and "w2t" not in ops and "wbb" not in ops
     for cz, hid in ((96, 288), (128, 256)):
         with pytest.raises(ValueError):
             cuda_edge.check_widths(cz, cz, hid)

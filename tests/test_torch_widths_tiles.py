@@ -1,10 +1,11 @@
 """The wide kernels' schedule (c_z = F = 128, 256: csrc/wide_gemm.cuh,
 wide_dist.cuh and the ``*_wide_*`` entry points of edge_transition.cu,
-edge_transition_bwd.cu, distance_embed.cu and distance_embed_bwd.cu),
-emulated in plain PyTorch on the CPU against the plain versions. The
-EdgeTransition forward's tile kernel (csrc/edge_wide.cuh) is emulated by
+distance_embed.cu and distance_embed_bwd.cu), emulated in plain PyTorch on
+the CPU against the plain versions. The EdgeTransition forward's tile
+kernel (csrc/edge_wide.cuh) is emulated by
 tests/test_torch_widths_edge_fused.py's ``fused_forward``, held here to the
-plain version at c_z 128 and 256 as well.
+plain version at c_z 128 and 256 as well; the backward's
+(edge_transition_bwd.cu) by tests/test_torch_widths_edge_bwd_fused.py.
 
 The CUDA kernels cannot run here, so the functions below repeat what the
 entry points launch, in order, on the operands ``kernel_operands`` packs:
@@ -15,9 +16,8 @@ entry points launch, in order, on the operands ``kernel_operands`` packs:
   lists, K and N, and applies its epilogue in the same order (per-residue
   terms, then the bias, ReLU, masks, rounding);
 - column sums of the DA / DA2D epilogues in blocks of 128 pair rows, the
-  LayerNorm backward's partial rows in blocks of 128 rows, the weight
-  gradients in K slices of ``wide_kslice`` pairs: each as partials added
-  in ``wide_reduce_kernel``'s fixed order;
+  weight gradients in K slices of ``wide_kslice`` pairs: each as partials
+  added in ``wide_reduce_kernel``'s fixed order;
 - the distance table gradient a residue at a time into 22 rows by aa_j,
   then a token and chunk of 64 residues at a time, then the chunks'
   partials.
@@ -27,11 +27,11 @@ fp32 sum, taken in another order, rounds to the other bf16 neighbour moves
 an output by about one bf16 step (4e-3 at |x| ~ 1). Gradients within 3e-4
 of the plain gradient's norm: the same kind of flip in a sum of thousands
 of terms (tests/test_torch_edge_bwd_tiles.py allows 1e-4), here more of
-them, since the wide EdgeTransition's first layer is factorized (the node
-terms once a residue) where the plain backward takes x.W1 as one product:
-at B L^2 = 338 pairs 9 of 129,792 entries of h1 round to the other bf16
-neighbour, which moves dW1 by 1.3e-4 of its norm. A wrong segment, row map
-or lost partial moves a gradient by O(1) of its norm.
+them (the wide schedules' bound: in the EdgeTransition backward, whose
+first layer is factorized, 9 of 129,792 entries of h1 at B L^2 = 338 pairs
+round to the other bf16 neighbour, which moves dW1 by 1.3e-4 of its norm).
+A wrong segment, row map or lost partial moves a gradient by O(1) of its
+norm.
 """
 
 import numpy as np
@@ -115,43 +115,6 @@ def _edge_inputs(cz, B, L, seed):
             f(B, L, L, cz).to(bf))
 
 
-def edge_backward_wide(edge, nb, mask, ops, g, eps=1e-5):
-    """edge_transition_wide_backward's launches."""
-    B, L, _, cz = edge.shape
-    hid, M, ny = 3 * cz, B * L * L, 6 * cz
-    ri, rj = pair_rows(B, L)
-    x = [seg(edge, cz), seg(nb, cz, cz, NODE_I), seg(nb, cz, 2 * cz, NODE_J)]
-    Y = nt([seg(nb, cz)], [seg(ops["wn"], cz)], B * L, ny, cz, L)
-    a1 = nt([seg(edge, cz)], [seg(ops["w1t"], hid)], M, hid, cz, L)
-    h1c = rnd(torch.relu(a1 + Y[ri, :hid] + Y[rj, hid:] + ops["b1"]))
-    a2 = nt([seg(h1c, hid)], [seg(ops["w2t"], hid)], M, hid, hid, L) + ops["b2"]
-    rc = rnd(torch.relu(a2) + operand(x, M, hid, L))
-    o = nt([seg(rc, hid)], [seg(ops["w3t"], hid)], M, cz, hid, L) + ops["b3"]
-    mu = o.mean(-1, keepdim=True)
-    inv = torch.rsqrt((o - mu).square().mean(-1, keepdim=True) + eps)
-    y = (o - mu) * inv
-    m = mask.reshape(-1)
-    go = g.reshape(M, cz).float() * (m[ri] * m[rj])[:, None]
-    dy = go * ops["ln_scale"]
-    do = (dy - dy.mean(-1, keepdim=True) - y * (dy * y).mean(-1, keepdim=True)) * inv
-    doc = rnd(do)
-    da2 = nt([seg(doc, cz)], [seg(ops["k3b"], cz)], M, hid, cz, L) * (a2 > 0)
-    da2c = rnd(da2)
-    da1 = nt([seg(da2c, hid)], [seg(ops["k2b"], hid)], M, hid, hid, L) * (h1c > 0)
-    da1c = rnd(da1)
-    dx = nt([seg(da1c, hid), seg(doc, cz, hid)], [seg(ops["k1b"], hid), seg(ops["k3b"], cz, hid)],
-            M, hid, hid + cz, L)
-    dxn = dx[:, cz:].reshape(B, L, L, 2 * cz)
-    d_node = dxn[..., :cz].sum(2) + dxn[..., cz:].sum(1)
-    ks1, ks2, ks3 = cuda_edge.wide_bwd_schedule(M, cz, SMS)
-    grads = {"k1": tt_slots(x, [seg(da1c, hid)], hid, hid, M, L, ks1),
-             "k2": tt_slots([seg(h1c, hid)], [seg(da2c, hid)], hid, hid, M, L, ks2),
-             "k3": tt_slots([seg(rc, hid)], [seg(doc, cz)], hid, cz, M, L, ks3),
-             "b1": colsum_blocks(da1), "b2": colsum_blocks(da2), "b3": colsum_blocks(do),
-             "ln_scale": colsum_blocks(go * y), "ln_bias": colsum_blocks(go)}
-    return dx[:, :cz].reshape(B, L, L, cz), d_node, grads
-
-
 def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
@@ -170,17 +133,6 @@ def test_wide_edge_forward_schedule(cz):
     for name, a, b in zip(("out", "b", "pz"), fused_forward(edge, nb, mask, ops, ro), want):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), atol=1e-2, rtol=0, msg=name)
-
-
-def test_wide_edge_backward_schedule():
-    cz, B, L = 128, 2, 13
-    edge, nb, mask, p, _, g = _edge_inputs(cz, B, L, 7)
-    ops = cuda_edge.kernel_operands(p)
-    d_edge, d_node, grads = edge_backward_wide(edge, nb, mask, ops, g)
-    w_edge, w_node, w_grads = cuda_edge.edge_transition_bwd_plain(edge, nb, mask, p, g, bf)
-    assert _rel(d_edge, w_edge) <= 3e-4 and _rel(d_node, w_node) <= 3e-4
-    for k in cuda_edge.PARAM_NAMES:
-        assert _rel(grads[k], w_grads[k]) <= 3e-4, k
 
 
 def _dist_inputs(F_, B, L, seed):
@@ -272,14 +224,25 @@ def test_wide_dist_schedule():
 
 
 def test_wide_schedule_bounds():
-    """The weight-gradient partial slots stay near 2 x 132 tiles of 128 x 128
-    fp32 (~17 MB) at every width and batch of the sweep, each K slice a
-    multiple of 64 pairs; the pair rows fit the kernels' 32-bit index."""
+    """The wide EdgeTransition backward's schedule at every width and batch
+    of the sweep: the chain kernel's grid one block an SM at most and one a
+    64-pair tile, its weight-gradient slots (2 c_z hid + hid^2 fp32 a K
+    slice) under 32 MB, its whole scratch (images, per-residue sums,
+    partials) within 1.0 / 1.0 / 0.5 GB at w = 2 / 4 / 8; the pair rows fit
+    the kernels' 32-bit index. K5's weight-gradient K slices (wide_kslice)
+    stay multiples of 64 pairs with at most 64 slots of ~17 MB in all."""
     for cz, B in ((128, 64), (256, 32), (512, 8), (128, 1)):
         M, hid = B * 64 * 64, 3 * cz
         assert M < 2**31
-        for ks, (rows, cols) in zip(cuda_edge.wide_bwd_schedule(M, cz, SMS),
-                                    ((hid, hid), (hid, hid), (hid, cz))):
+        ntiles = -(-M // 64)
+        grid, nslices = cuda_edge.wide_bwd_schedule(B, 64, cz, SMS)
+        assert 1 <= grid <= min(SMS, ntiles) and 1 <= nslices <= ntiles
+        assert nslices * (2 * cz * hid + hid * hid) * 4 <= 32e6, (cz, B, nslices)
+        scratch = sum(n * dt.itemsize for n, dt in
+                      cuda_edge.wide_bwd_scratch(B, 64, cz, grid, nslices))
+        assert scratch <= {128: 1.0e9, 256: 1.0e9, 512: 0.5e9}[cz], (cz, B, scratch)
+        for rows, cols in ((225, cz), (cz, cz)):
+            ks = cuda_edge.wide_kslice(M, rows, cols, SMS)
             slots = -(-M // ks)
             assert ks % 64 == 0 and 1 <= slots <= 64
             assert slots * rows * cols * 4 <= 20e6, (cz, B, rows, cols, slots)
